@@ -8,24 +8,36 @@ Phases, each of which fails the run on error:
 
 1. device  — a CUDA device must be present; prints the card's name and
              power limit as nvidia-smi reports them;
-2. build   — compiles csrc/tree_kernels.cu with nvcc (seconds);
-3. kernels — each of the four kernels at the main path's shapes against its
-             plain PyTorch version on the same inputs (stated tolerance),
-             with its time (CUDA events, warm, median), the plain
-             version's time, one library call's time where one computes the
-             same function, and its bound on this card;
+2. build   — compiles csrc/tree_kernels.cu with nvcc (seconds), prints
+             ptxas's registers and spills and, from cuobjdump's SASS, the
+             shared-memory atomics of each kernel;
+3. kernels — each of the four kernels at every shape the main path gives
+             it (hist_folds at the root, with uniform and skewed bins, and
+             at the rank-metric shape; route_hist at S = 1..16; route;
+             table_lookup) against its plain PyTorch version on the same
+             inputs (stated tolerance), with its time (CUDA events, warm,
+             median), the histogram kernels' rows path (the row-mapped
+             kernels) timed in turns beside the chosen path (old, new, new,
+             old), the plain version's time, one library call's time where
+             one computes the same function, its bound on this card and,
+             for the histograms, the shared-memory floor (one read and one
+             write per add, 32 lanes a clock per SM);
 4. small   — a small CV sweep on the CPU (plain versions) and on the GPU
              (kernels): same winner, per-cell AuPR within 5e-3;
 5. main    — the model selector's tree sweep at full width: 5-fold
              CrossValidation over the 16-config XGBoost grid (depth {4, 6}
              x eta {.05, .1, .2, .3} x lambda {1, 5}, 10 rounds, 32 bins)
              on `--rows` x 64 features, then the refit of the winner and
-             its scoring. Launch counters are reset just before and read
-             just after; every kernel must have launched.
+             its scoring. Launch counters (per kernel and per kernel
+             shape) are reset just before and read just after; every
+             kernel must have launched;
+6. profile — the winner's 5-fold cell under torch.profiler: device time by
+             kernel and the device's busy share; it must see device time.
 
-The last two lines of standard output are {"kernels": [...]} and
-{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
-CUDA is unavailable or the package is not beside this script.
+The last three lines of standard output are {"kernels": [...]}, the
+card's name and power limit, and {"ok": true, "device": {...}}. Exits
+non-zero, printing no result, when CUDA is unavailable or the package is
+not beside this script.
 """
 from __future__ import annotations
 
@@ -57,174 +69,144 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 7, warm: int = 2) -> float:
-    """Median wall of `fn` on the device, CUDA events around each run."""
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(rows: int, seed: int, dev: str = "cuda"):
-    """Each kernel against its plain version at the main path's shapes:
-    N rows, F = 64, B = 33 (32 bins + missing), Fo = 5 fold lanes, the
-    deepest route_hist level (S = 16), the last route level (32 nodes), a
-    64-leaf lookup, and the rank-metric counts (F = 1, 4096 buckets, the 5
-    lanes in the slot axis)."""
+def smem_floor_ms(n_adds: float) -> float:
+    """The least time a shared-memory histogram needs for n_adds adds: one
+    read and one write of a 4-byte cell each, 32 lanes a clock on each SM
+    at the card's maximum SM clock (nvidia-smi)."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 * n_adds / (n_sm * 32 * mhz * 1e6) * 1e3
+
+
+def kernel_phase(rows: int, seed: int):
+    """Each kernel against its plain version at every shape the main path
+    gives it: N rows, F = 64, B = 33 (32 bins + missing), Fo = 5 fold
+    lanes; hist_folds at the tree root (uniform and skewed bins) and at the
+    rank-metric shape (F = 1, 4096 buckets, the 5 lanes in the slot axis),
+    route_hist at S = 1, 2, 4, 8, 16, route at the last level (32 nodes)
+    and a 64-leaf lookup. The histogram kernels are timed in turns against
+    the rows path (the row-mapped kernels: old, new, new, old)."""
     import torch
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    N, F, B, Fo = rows, 64, 33, 5
-
-    def rand(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
-
-    Xb_t = torch.randint(1, B, (F, N), generator=gen, device=dev,
-                         dtype=torch.int8)
-    Xb_t[rand(F, N) < 0.05] = 0                        # missing bin
-    keep = (rand(Fo, N) >= 0.2).float()                # held-out rows: g = 0
-    g = (rand(Fo, N) - 0.5) * keep
-    h = torch.clamp(rand(Fo, N) * 0.25, min=1e-12)     # clamped hessian
-    pay = torch.stack([g, h], 1).reshape(2 * Fo, N).contiguous()
-    slot0 = torch.zeros((Fo, N), device=dev)
-
-    def tables(n_nodes):
-        return [torch.randint(0, hi, (Fo, n_nodes), generator=gen,
-                              device=dev, dtype=torch.int32)
-                for hi in (F, B, 2)]
-
-    node16 = torch.randint(0, 16, (Fo, N), generator=gen,
-                           device=dev).float()
-    node32 = torch.randint(0, 32, (Fo, N), generator=gen,
-                           device=dev).float()
-    t16, t32 = tables(16), tables(32)
-    leaf = torch.randn((Fo, 64), generator=gen, device=dev)
-    leaf_idx = torch.randint(0, 64, (Fo, N), generator=gen,
-                             device=dev).float()
-    L, RB = 5, 4096
-    ridx = torch.randint(0, RB, (1, L * N), generator=gen, device=dev,
-                         dtype=torch.int32)
-    lab = (rand(1, L * N) < 0.3).float()
-    held = (rand(1, L * N) < 0.2).float()
-    rpay = torch.cat([held * lab, held * (1 - lab)]).contiguous()
-    rlane = torch.arange(L, device=dev, dtype=torch.float32) \
-        .repeat_interleave(N)[None, :].contiguous()
+    d = HP.kernel_inputs(rows, seed)
+    N, F, B, Fo = d["N"], d["F"], d["B"], d["Fo"]
+    g, h = d["g"], d["h"]
 
     def nz(t):   # data-dependent work: nonzero payload entries
         return float((t != 0).sum())
 
-    # rows a route_hist pass histograms: those that go left
-    left16 = (TK.PLAIN["route"](Xb_t, node16, *t16) == 2 * node16).float()
-
-    specs = [
-        ("hist_folds", "tree root: F=64 B=33 Fo=5 S=1",
-         (Xb_t, pay, slot0), dict(n_slots=1, n_bins=B, derive_count=True),
-         TK.kernel_bytes("hist_folds", F, N, Fo, out_cells=Fo * 3 * F * B),
-         F * (nz(g) + 2 * nz(h))),
-        ("hist_folds", "rank metric: F=1 B=4096 S=5 lanes",
-         (ridx, rpay, rlane), dict(n_slots=L, n_bins=RB),
-         TK.kernel_bytes("hist_folds", 1, L * N, 1, xb_itemsize=4,
-                         out_cells=L * 2 * RB), nz(rpay)),
-        ("route_hist", "deepest level: F=64 B=33 Fo=5 S=16",
-         (Xb_t, pay, node16, *t16), dict(n_nodes=16, n_bins=B,
-                                          derive_count=True),
-         TK.kernel_bytes("route_hist", F, N, Fo,
-                         out_cells=Fo * 16 * 3 * F * B),
-         F * (nz(g * left16) + 2 * nz(h * left16)) + 4 * Fo * N),
-        ("route", "last level: F=64 Fo=5 nodes=32",
-         (Xb_t, node32, *t32), dict(n_nodes=32),
-         TK.kernel_bytes("route", F, N, Fo), 4 * Fo * N),
-        ("table_lookup", "leaves: Fo=5 M=64",
-         (leaf, leaf_idx), {}, TK.kernel_bytes("table_lookup", F, N, Fo),
-         Fo * N),
+    specs = []
+    for label, name, S, args, kw in HP.hist_shapes(d):
+        if name == "route_hist":    # rows a level histograms: left rows
+            left = (TK.PLAIN["route"](d["Xb"], args[2], *args[3:])
+                    == 2 * args[2]).float()
+            n_bytes = TK.kernel_bytes("route_hist", F, N, Fo,
+                                      out_cells=Fo * S * 3 * F * B)
+            n_adds = F * (nz(g * left) + 2 * nz(h * left))
+            n_ops = n_adds + 4 * Fo * N
+            del left
+        elif label.startswith("rank"):
+            n_bytes = TK.kernel_bytes("hist_folds", 1, d["L"] * N, 1,
+                                      xb_itemsize=4,
+                                      out_cells=d["L"] * 2 * d["RB"])
+            n_ops = n_adds = nz(d["rpay"])
+        else:
+            n_bytes = TK.kernel_bytes("hist_folds", F, N, Fo,
+                                      out_cells=Fo * 3 * F * B)
+            n_ops = n_adds = F * (nz(g) + 2 * nz(h))
+        specs.append((name, label, S, args, kw, n_bytes, n_ops, n_adds))
+    specs += [
+        ("route", "last level: F=64 Fo=5 nodes=32", 32,
+         (d["Xb"], d["node32"], *d["tables32"]), dict(n_nodes=32),
+         TK.kernel_bytes("route", F, N, Fo), 4 * Fo * N, None),
+        ("table_lookup", "leaves: Fo=5 M=64", 64,
+         (d["leaf"], d["leaf_idx"]), {},
+         TK.kernel_bytes("table_lookup", F, N, Fo), Fo * N, None),
     ]
     # library yardsticks, built when timed (their ids/weights take GBs)
     library = {
-        "tree root": lambda: _bincount_hist(Xb_t, pay, F, B, Fo, 1,
-                                            derive_count=True),
-        "rank metric": lambda: _bincount_hist(ridx, rpay, 1, RB, 1, L,
-                                              slot=rlane),
-        "leaves": lambda: lambda: torch.where(
-            (leaf_idx >= 0) & (leaf_idx < 64),
-            torch.gather(leaf, 1, leaf_idx.long().clamp(0, 63)), 0.0),
+        "tree root": lambda a: _bincount_hist(a[0], a[1], F, B, Fo, 1,
+                                              derive_count=True),
+        "rank metric": lambda a: _bincount_hist(a[0], a[1], 1, d["RB"], 1,
+                                                d["L"], slot=a[2]),
+        "leaves": lambda a: lambda: torch.where(
+            (a[1] >= 0) & (a[1] < 64),
+            torch.gather(a[0], 1, a[1].long().clamp(0, 63)), 0.0),
     }
     rows_out = []
-    for name, shape, args, kw, n_bytes, n_ops in specs:
+    for name, label, S, args, kw, n_bytes, n_ops, n_adds in specs:
         dispatch = getattr(TK, name)
-        plain_kw = {} if name in ("route", "table_lookup") else kw
         got = dispatch(*args, **kw)
         torch.cuda.synchronize()
+        plain_kw = {} if name in ("route", "table_lookup") else kw
         want = TK.PLAIN[name](*args, **plain_kw)
-        got_t = got if isinstance(got, tuple) else (got,)
-        want_t = want if isinstance(want, tuple) else (want,)
-        err = max(float((a - b).abs().max()) for a, b in zip(got_t, want_t))
+        err = HP.max_abs_err(got, want)
         if name in ("route", "table_lookup"):
             ok, tol = err == 0.0, "exact"
-        elif "rank" in shape:     # 0/1 weights: integer sums are exact
+        elif "rank" in label:     # 0/1 weights: integer sums are exact
             ok, tol = err == 0.0, "exact (integer payloads)"
         else:
             # both sides sum up to ~N/B f32 terms per cell in different
             # orders: hold each cell to 1e-4 of its sum of |terms| (about
             # 7 sqrt(n) ulps at n = 60K terms); the derived count channel
-            # (last of 3) is exact, as are the node ids
-            abs_args = (args[0], args[1].abs(), *args[2:])
-            scale = TK.PLAIN[name](*abs_args, **plain_kw)
-            scale = scale[0] if isinstance(scale, tuple) else scale
-            ok = bool(((got_t[0] - want_t[0]).abs()
-                       <= 1e-4 * scale + 1e-6).all())
-            cnt = [t.reshape(-1, 3, t.shape[-1])[:, 2]
-                   for t in (got_t[0], want_t[0])]
-            ok = ok and torch.equal(*cnt)
+            # and the node ids are exact
+            ok = HP.agrees(name, got, want, args, kw)
             tol = ("g/h cells within 1e-4 of the cell's sum of |terms| "
-                   "(f32 sums in another order); counts exact")
-            del scale
-            if name == "route_hist":
-                ok = ok and torch.equal(got_t[1], want_t[1])
-                tol += "; node ids exact"
-        del got, want, got_t, want_t
-        ms = cuda_ms(lambda: dispatch(*args, **kw))
-        plain_ms = cuda_ms(lambda: TK.PLAIN[name](*args, **plain_kw), reps=5,
-                           warm=1)
-        make_lib = library.get(shape.split(":")[0])
+                   "(f32 sums in another order); counts exact"
+                   + ("; node ids exact" if name == "route_hist" else ""))
+        del got, want
+        torch.cuda.empty_cache()
+        path = earlier_ms = None
+        if name in ("hist_folds", "route_hist"):
+            path = TK.plan_hist(
+                args[0].shape[0], S, 3 if kw.get("derive_count") else 2,
+                kw["n_bins"], args[2].shape[0], args[0].shape[1],
+                torch.cuda.get_device_properties(0).multi_processor_count,
+                itemsize=args[0].element_size(),
+                route=name == "route_hist").path
+            turns = {}
+            for p in ("rows", None, None, "rows"):
+                turns.setdefault(p, []).append(HP.cuda_ms(
+                    lambda: dispatch(*args, **kw, path=p), reps=7))
+            ms = statistics.mean(turns[None])
+            earlier_ms = statistics.mean(turns["rows"])
+        else:
+            ms = HP.cuda_ms(lambda: dispatch(*args, **kw), reps=7)
+        plain_ms = HP.cuda_ms(lambda: TK.PLAIN[name](*args, **plain_kw),
+                              reps=3)
+        make_lib = library.get(label.split(":")[0].split(",")[0])
         library_ms = None
         if make_lib is not None:
-            library_ms = cuda_ms(make_lib(), reps=5, warm=1)
+            library_ms = HP.cuda_ms(make_lib(args), reps=5)
         b_ms, b_by = bound(n_bytes, n_ops)
-        row = dict(name=name, shape=f"{shape} N={args[1].shape[1]}",
+        row = dict(name=name, shape=f"{label} N={args[1].shape[1]}",
                    route="cuda", source=SOURCE, replaces=REPLACES[name],
                    launches=None, max_abs_err=err, tolerance=tol, ok=ok,
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=library_ms)
+                   library_ms=library_ms, path=path, earlier_ms=earlier_ms,
+                   smem_floor_ms=n_adds and smem_floor_ms(n_adds),
+                   key=(f"{name} F={args[0].shape[0]} S={S}"
+                        if path else name))
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-            f"({b_by}) library_ms={library_ms}")
+            f"ms={ms:.4f} earlier_ms={earlier_ms} ({path} vs rows) "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"smem_floor_ms={row['smem_floor_ms']} library_ms={library_ms}")
         rows_out.append(row)
         torch.cuda.empty_cache()
+    del d
+    torch.cuda.empty_cache()
     return rows_out
 
 
@@ -330,6 +312,7 @@ def main_phase(rows: int, n_configs: int, seed: int, dev=None):
     pred, raw, prob = model.predict_arrays(X)
     score_s = time.perf_counter() - t0
     launches = dict(TK.launches)
+    shape_launches = dict(TK.shape_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     train_aupr = float(M.au_pr(torch.as_tensor(prob[:, 1], device=y.device),
                                y))
@@ -338,7 +321,7 @@ def main_phase(rows: int, n_configs: int, seed: int, dev=None):
                score_s=score_s, winner=best.best_grid,
                winner_cv_aupr=best.best_metric, refit_train_aupr=train_aupr,
                prevalence=prevalence, peak_mem_gb=peak_gb,
-               launches=launches,
+               launches=launches, shape_launches=shape_launches,
                cells={json.dumps(v.grid, sort_keys=True): v.mean_metric
                       for v in best.validated})
     log("main: " + json.dumps(res))
@@ -348,14 +331,15 @@ def main_phase(rows: int, n_configs: int, seed: int, dev=None):
           and bool(torch.isfinite(torch.as_tensor(prob)).all())
           and best.best_metric > prevalence + 0.1
           and train_aupr > prevalence + 0.1)
-    return ok, launches, (X, y, best.best_grid)
+    return ok, launches, shape_launches, (X, y, best.best_grid)
 
 
-def profile_phase(X, y, grid) -> None:
+def profile_phase(X, y, grid) -> bool:
     """Where one sweep cell's time goes: the winner's 5-fold cell (fit of
     all folds + fold metrics) once unprofiled and warm, then under
     torch.profiler: device time by kernel and the device's busy share of
-    the cell's wall (the profiler's host overhead lowers that share)."""
+    the cell's wall (the profiler's host overhead lowers that share).
+    False when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from transmogrifai_tpu_torch.automl.tuning.validators import \
@@ -384,7 +368,7 @@ def profile_phase(X, y, grid) -> None:
         if dt > 0:
             per[ev.key] = (dt / 1e3, ev.count)
     busy = sum(ms for ms, _ in per.values())
-    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:10]
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
     fit_bytes = TK.fused_fit_bytes(X.shape[0], X.shape[1], 5,
                                    grid["max_depth"], grid["num_round"])
     log("profile: " + json.dumps(dict(
@@ -393,6 +377,32 @@ def profile_phase(X, y, grid) -> None:
         fit_bytes=fit_bytes, fit_bound_ms=bound(fit_bytes, 0)[0],
         top=[dict(kernel=k[:80], ms=ms, calls=n, share=ms / busy)
              for k, (ms, n) in top])))
+    return busy > 0
+
+
+def sass_phase(lib_path: str) -> None:
+    """Shared-memory atomics in the built kernels, from the SASS: how many
+    ATOMS instructions of each kind each kernel holds (a CAS loop shows as
+    ATOMS.CAST.SPIN / ATOMS.CAS, a native add as ATOMS.ADD)."""
+    import re
+    from transmogrifai_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        log("sass: not measured (no cuobjdump beside nvcc)")
+        return
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : \S*?(\w+_kernel)(\w*)", line)
+        if m:
+            fn = m.group(1) + m.group(2)[:12]
+            counts[fn] = {}
+            continue
+        m = re.search(r"\b(ATOMS\.[A-Z0-9.]+)", line)
+        if m and fn:
+            counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+    log("sass: " + json.dumps(counts, sort_keys=True))
 
 
 def main() -> int:
@@ -412,18 +422,20 @@ def main() -> int:
     sys.path.insert(0, here)
     from transmogrifai_tpu_torch.device import resolve_device
     from transmogrifai_tpu_torch.ops import _build
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
 
     resolve_device()
     t_start = time.perf_counter()
-    card = card_line()
+    card = HP.card_line()
     log(f"device: {card} ({torch.cuda.get_device_name(0)}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     log(f"build: {time.perf_counter() - t0:.2f}s")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
+    sass_phase(lib._name)
 
     failures = []
     rows = kernel_phase(KERNEL_ROWS, SEED)
@@ -432,18 +444,16 @@ def main() -> int:
     small_ok, _ = small_phase(SEED)
     if not small_ok:
         failures.append("small CPU/GPU sweep disagreement")
-    main_ok, launches, (X, y, winner) = main_phase(args.rows, args.configs,
-                                                    SEED)
+    main_ok, launches, shape_launches, (X, y, winner) = main_phase(
+        args.rows, args.configs, SEED)
     if not main_ok:
         failures.append("main path")
-    try:   # a measurement aid: its failure must not hide the results
-        profile_phase(X, y, winner)
-    except Exception:
-        import traceback
-        log("profile: not measured\n" + traceback.format_exc())
+    if not profile_phase(X, y, winner):
+        failures.append("profile: no device time")
     del X, y
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        key = r.pop("key")    # a histogram shape, else the whole kernel
+        r["launches"] = shape_launches.get(key, launches.get(key, 0))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -59,3 +59,101 @@ def test_cuda_kernel_matches_plain(cuda_device, name, dtype):
         assert g.device.type == "cuda"
         np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-5,
                                    atol=1e-4)
+
+
+def _hist_case(name, F, S, Fo, N, dtype, B=33, skew=False, seed=7):
+    """Seeded inputs for one histogram launch: bins partly outside [0, B),
+    slots partly outside [0, S) (hist_folds), 20% zero hessians, and with
+    `skew` every row of feature 0 in one bin."""
+    rng = np.random.default_rng(seed)
+    lo = 0 if dtype == np.uint8 else -3
+    Xb_t = rng.integers(lo, B + 3, size=(F, N)).astype(dtype)
+    if skew:
+        Xb_t[0] = 5
+    pay = rng.normal(size=(2 * Fo, N)).astype(np.float32)
+    pay[1::2] = np.where(rng.uniform(size=(Fo, N)) < 0.2, 0.0,
+                         np.abs(pay[1::2]) + 0.1)      # hessian channel
+    kw = dict(n_bins=B, derive_count=True)
+    if name == "hist_folds":
+        slot = rng.integers(-1, S + 2, size=(Fo, N)).astype(np.float32)
+        return (Xb_t, pay, slot), dict(kw, n_slots=S)
+    node = rng.integers(0, S, size=(Fo, N)).astype(np.float32)
+    tables = [rng.integers(0, hi, size=(Fo, S)).astype(np.int32)
+              for hi in (F, B, 2)]
+    return (Xb_t, pay, node, *tables), dict(kw, n_nodes=S)
+
+
+# (kernel, F, S, Fo, N, bin dtype, path the planner must choose, skew):
+# N = 3001 leaves int8/uint8 rows unaligned to 4 bytes, N = 5000 does not;
+# neither is a multiple of a staged row tile.
+HIST_CASES = [
+    ("hist_folds", 64, 1, 5, 5000, np.int8, "private", False),
+    ("hist_folds", 64, 1, 1, 3001, np.uint8, "private", False),
+    ("hist_folds", 64, 1, 5, 5000, np.int8, "private", True),
+    ("hist_folds", 64, 2, 5, 3001, np.int32, "owned", False),
+    ("hist_folds", 65, 8, 1, 5000, np.uint8, "owned", False),
+    ("hist_folds", 9, 16, 5, 3001, np.int8, "owned", False),
+    ("hist_folds", 7, 4, 5, 5000, np.int32, "rows", False),
+    ("route_hist", 64, 1, 5, 5000, np.int8, "private", False),
+    ("route_hist", 64, 2, 1, 3001, np.uint8, "owned", False),
+    ("route_hist", 65, 8, 5, 5000, np.int32, "owned", False),
+    ("route_hist", 64, 16, 5, 3001, np.int8, "owned", True),
+    ("route_hist", 9, 16, 1, 5000, np.uint8, "owned", False),
+    ("route_hist", 7, 2, 5, 3001, np.int8, "rows", False),
+]
+FORCED = [("hist_folds", 64, 2, 5, 5000, np.uint8, "private", False),
+          ("route_hist", 64, 2, 5, 5000, np.int8, "private", False),
+          ("route_hist", 64, 4, 1, 3001, np.int32, "private", False),
+          ("hist_folds", 64, 1, 5, 3001, np.int8, "owned", True),
+          ("route_hist", 64, 16, 5, 5000, np.int8, "rows", False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", [c + (False,) for c in HIST_CASES] + [c + (True,) for c in FORCED]
+    + [("rank", 1, 5, 1, 20_000, np.int32, "rows", False, False),
+       ("wide", 64, 1, 5, 5000, np.int32, "owned", True, False)],
+    ids=lambda c: f"{c[0]}-F{c[1]}-S{c[2]}-Fo{c[3]}-N{c[4]}-"
+                  f"{np.dtype(c[5]).name}-{c[6]}{'-skew' if c[7] else ''}"
+                  f"{'-forced' if c[8] else ''}")
+def test_cuda_histogram_paths_match_plain(cuda_device, case):
+    """Every path of the two histogram kernels against the plain version:
+    g/h within rtol 1e-5 / atol 1e-4 (f32 sums in another order), the
+    derived counts and new node ids exact."""
+    name, F, S, Fo, N, dtype, path, skew, forced = case
+    if name == "rank":   # the lane-binned AuPR counts: F = 1, 4096 buckets
+        rng = np.random.default_rng(3)
+        args = (rng.integers(0, 4096, size=(1, N)).astype(np.int32),
+                rng.integers(0, 2, size=(2, N)).astype(np.float32),
+                np.repeat(np.arange(S, dtype=np.float32), N // S)[None, :])
+        kw, name = dict(n_slots=S, n_bins=4096), "hist_folds"
+    elif name == "wide":   # the estimator's default 256 bins, int32
+        args, kw = _hist_case("hist_folds", F, S, Fo, N, dtype, B=257,
+                              skew=skew)
+        name = "hist_folds"
+    else:
+        args, kw = _hist_case(name, F, S, Fo, N, dtype, skew=skew)
+    Co = 3 if kw.get("derive_count") else 2
+    tl = TK.plan_hist(F, S, Co, kw["n_bins"], Fo, N, n_sm=132,
+                      itemsize=np.dtype(dtype).itemsize,
+                      route=name == "route_hist")
+    if not forced:
+        assert tl.path == path
+    cpu = TK.PLAIN[name](*[torch.from_numpy(a) for a in args], **kw)
+    before = TK.launches[name]
+    got = getattr(TK, name)(*[torch.from_numpy(a).to(cuda_device)
+                              for a in args], **kw,
+                            path=path if forced else None)
+    torch.cuda.synchronize()
+    assert TK.launches[name] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    hist, want = got[0].cpu().numpy(), cpu[0].numpy()
+    np.testing.assert_allclose(hist, want, rtol=1e-5, atol=1e-4)
+    if Co == 3:
+        np.testing.assert_array_equal(hist.reshape(-1, 3, hist.shape[1])[:, 2],
+                                      want.reshape(-1, 3, want.shape[1])[:, 2])
+    else:
+        np.testing.assert_array_equal(hist, want)
+    if name == "route_hist":
+        np.testing.assert_array_equal(got[1].cpu().numpy(), cpu[1].numpy())

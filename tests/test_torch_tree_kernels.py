@@ -213,16 +213,96 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("F,S,Co,B,lanes,N", [
-    (64, 1, 3, 33, 5, 10_000_000),     # root histogram of the sweep
-    (64, 16, 3, 33, 5, 10_000_000),    # deepest route_hist level
-    (1, 5, 2, 4096, 1, 50_000_000),    # rank-metric counts
-    (3, 2, 3, 9, 2, 100),              # tiny
+def _tile_cover(tl, F, S, lanes):
+    """How often the launch's blocks take each (lane, slot, feature), with
+    the kernels' decode of the block index."""
+    n_ft, n_st = -(-F // tl.f_tile), -(-S // tl.s_tile)
+    seen = {}
+    for o in range(lanes * n_ft * n_st):
+        if tl.path == "rows":   # grid (row ranges, tiles, lanes)
+            k, ft, st = o // (n_ft * n_st), o % n_ft, (o % (n_ft * n_st)) // n_ft
+        else:                   # blockIdx.x % (lanes x tiles)
+            ft, st, k = o % n_ft, (o // n_ft) % n_st, o // (n_ft * n_st)
+        f0, s0 = ft * tl.f_tile, st * tl.s_tile
+        for s in range(s0, min(S, s0 + tl.s_tile)):
+            for f in range(f0, min(F, f0 + tl.f_tile)):
+                seen[k, s, f] = seen.get((k, s, f), 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("F,S,Co,B,lanes,N,itemsize,route,path", [
+    (64, 1, 3, 33, 5, 10_000_000, 1, False, "private"),  # sweep root
+    (64, 1, 3, 33, 1, 10_000_000, 1, False, "private"),  # refit root
+    (64, 1, 3, 33, 5, 10_000_000, 1, True, "private"),   # route_hist levels
+    (64, 2, 3, 33, 5, 10_000_000, 1, True, "owned"),
+    (64, 4, 3, 33, 5, 10_000_000, 1, True, "owned"),
+    (64, 8, 3, 33, 5, 10_000_000, 1, True, "owned"),
+    (64, 16, 3, 33, 5, 10_000_000, 1, True, "owned"),   # deepest level
+    (64, 16, 3, 33, 1, 10_000_000, 1, True, "owned"),
+    (1, 5, 2, 4096, 1, 50_000_000, 4, False, "rows"),    # rank-metric counts
+    (65, 16, 3, 257, 5, 1_000, 4, True, "rows"),        # 256 bins, int32
+    (64, 2, 3, 257, 5, 10_000_000, 4, True, "rows"),
+    (64, 1, 3, 257, 5, 10_000_000, 4, False, "owned"),
+    (9, 16, 3, 33, 1, 5_000, 1, True, "owned"),
+    (9, 4, 3, 33, 3, 5_000, 1, False, "owned"),
+    (3, 2, 3, 9, 2, 100, 1, False, "rows"),              # tiny
+    (7, 2, 3, 9, 2, 100, 1, True, "rows"),
 ])
-def test_hist_tiling_fits_shared_memory(F, S, Co, B, lanes, N):
-    tl = TK.plan_hist(F, S, Co, B, lanes, N, n_sm=132)
-    assert tl.smem_bytes <= TK._SMEM_BUDGET
-    assert tl.f_tile * -(-F // tl.f_tile) >= F
-    assert tl.s_tile * -(-S // tl.s_tile) >= S
-    assert tl.row_blocks * tl.rows_per_block >= N
-    assert (tl.row_blocks - 1) * tl.rows_per_block < N
+def test_hist_tiling_fits_shared_memory(F, S, Co, B, lanes, N, itemsize,
+                                        route, path):
+    tl = TK.plan_hist(F, S, Co, B, lanes, N, n_sm=132, itemsize=itemsize,
+                      route=route)
+    assert tl.path == path
+    assert tl.smem_bytes <= TK._SMEM_BLOCK_MAX
+    assert set(_tile_cover(tl, F, S, lanes).values()) == {1}
+    assert len(_tile_cover(tl, F, S, lanes)) == lanes * S * F
+    if path == "rows":
+        assert tl.smem_bytes <= TK._SMEM_BUDGET
+        assert tl.blocks * tl.rows_per_block >= N
+        assert (tl.blocks - 1) * tl.rows_per_block < N
+    else:
+        others = lanes * -(-F // tl.f_tile) * -(-S // tl.s_tile)
+        chunks, rem = divmod(tl.blocks, others)
+        assert rem == 0 and 1 <= chunks <= -(-N // tl.rows_per_block)
+        assert tl.blocks <= max(132, others)     # one block per SM
+        assert tl.rows_per_block == TK._FM_TILE_BYTES // itemsize
+        assert tl.f_tile <= TK._FM_MAX_FTILE
+        assert tl.smem_bytes == TK.fm_smem_bytes(
+            itemsize, tl.f_tile, tl.s_tile, Co, B, tl.copies,
+            path == "private", S if route else 0)
+        assert tl.copies == TK._FM_WARPS if path == "private" else \
+            TK._FM_WARPS % tl.copies == 0
+
+
+@pytest.mark.parametrize("path,F,S,B,itemsize", [
+    ("private", 1, 5, 4096, 4),    # 8 copies of 4096 bins x 32 lanes
+    ("owned", 64, 1, 4096, 4),
+    ("columns", 64, 1, 33, 1),
+])
+def test_hist_tiling_refuses_a_path_that_does_not_fit(path, F, S, B,
+                                                      itemsize):
+    with pytest.raises(ValueError, match="does not fit|unknown histogram path"):
+        TK.plan_hist(F, S, 3, B, 1, 1000, n_sm=132, itemsize=itemsize,
+                     path=path)
+
+
+@pytest.mark.parametrize("n_bins", [33, 257])
+def test_kernel_timing_inputs_cover_the_main_path_shapes(n_bins):
+    """The inputs chip_smoke.py and tools/hist_paths.py time the kernels on:
+    every histogram shape of the sweep, bins of the binning's dtype, and an
+    agreement check that holds a result to itself and rejects a change."""
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
+    d = HP.kernel_inputs(300, 0, dev="cpu", n_bins=n_bins)
+    assert d["Xb"].dtype == (torch.int8 if n_bins == 33 else torch.int32)
+    shapes = HP.hist_shapes(d)
+    assert [(name, S) for _, name, S, _, _ in shapes] == [
+        ("hist_folds", 1), ("hist_folds", 1), ("hist_folds", 5)] + [
+        ("route_hist", S) for S in (1, 2, 4, 8, 16)]
+    for label, name, S, args, kw in (shapes[0], shapes[2], shapes[4]):
+        got = getattr(TK, name)(*args, **kw)
+        assert HP.agrees(name, got, TK.PLAIN[name](*args, **kw), args, kw)
+        bad = tuple(t.clone() for t in (got if isinstance(got, tuple)
+                                        else (got,)))
+        bad[0][0] += 1.0
+        assert not HP.agrees(name, bad if name == "route_hist" else bad[0],
+                             got, args, kw)

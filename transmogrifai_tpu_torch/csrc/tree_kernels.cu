@@ -1,19 +1,31 @@
 // Hand-written Hopper (sm_90a) kernels for the gradient-boosted-tree sweep.
 //
-// One kernel for each Pallas kernel of transmogrifai_tpu/ops/pallas_hist.py:
+// One kernel family for each Pallas kernel of transmogrifai_tpu/ops/pallas_hist.py:
 //
-//   hist_kernel        <- _kernel            (hist_pallas / hist_folds)
-//   route_hist_kernel  <- _route_hist_kernel (route_hist)
-//   route_kernel       <- _route_kernel      (route_pallas / route)
-//   lookup_kernel      <- _lookup_kernel     (table_lookup_pallas)
+//   hist_fm_kernel<ROUTE=false>, hist_kernel  <- _kernel            (hist_folds)
+//   hist_fm_kernel<ROUTE=true>, route_hist_kernel
+//                                             <- _route_hist_kernel (route_hist)
+//   route_kernel                              <- _route_kernel      (route)
+//   lookup_kernel                             <- _lookup_kernel     (table_lookup)
 //
 // The TPU kernels build one-hot tiles and contract them on the MXU because
 // the TPU serialises scatters and gathers. On Hopper both are cheap, so the
-// histograms here are privatised shared-memory scatter-adds and routing is a
-// per-row gather. Layouts at the C interface are the JAX package's: the
-// binned matrix is [F, N] (feature-major), lane planes are [Fo, N], and the
+// histograms here are shared-memory scatter-adds and routing is a per-row
+// gather. Layouts at the C interface are the JAX package's: the binned
+// matrix is [F, N] (feature-major), lane planes are [Fo, N], and the
 // histogram output is [Fo * S * Co, F * B] f32 with row (k * S + s) * Co + c
 // and column f * B + b.
+//
+// The histograms have three paths, chosen per shape by plan_hist in
+// ops/tree_kernels.py:
+//   private, owned (hist_fm_kernel): threads map to features over a row
+//     tile staged in shared memory, with a histogram copy per warp (a
+//     tree's root) or copies whose slots the warps own (its deeper levels);
+//     the main path (F = 64, 33 bins) takes them;
+//   rows (hist_kernel, route_hist_kernel): threads map to rows and scatter
+//     with shared atomics; kept for narrow F (the rank-metric counts have
+//     F = 1), where mapping threads to features would idle most of a warp,
+//     and for histograms too wide for one pass of the features path.
 //
 // Every entry point launches on the stream it is given, allocates nothing
 // and returns cudaGetLastError() (0 on success). The Python wrappers in
@@ -21,9 +33,29 @@
 // outputs and choose the tiling.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kMaxChannels = 4;  // C payload channels + the derived count
+constexpr int kRowThreads = 512;  // block of the rows path
+
+// Paths of the histogram entry points (plan_hist's HistTiling.path).
+constexpr int kPathRows = 0;
+constexpr int kPathPrivate = 1;   // features, one histogram per warp
+constexpr int kPathOwned = 2;     // features, warps own slots of a copy
+
+// Features path geometry. A staged row tile holds kTileBytes of each
+// feature's bins (256 rows of int8/uint8, 64 of int32) in rows of
+// kXsStride words: the stride is odd, so the 32 threads of a warp reading
+// one row across 32 features hit 32 different banks.
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileBytes = 256;
+constexpr int kRowWords = kTileBytes / 4;
+constexpr int kXsStride = kRowWords + 1;
+constexpr int kMaxFTile = 64;                       // two features a thread
+constexpr int kXw = kMaxFTile * kRowWords / kThreads;  // prefetch words a thread
 
 // Payload channels of row i for one lane; with `derive` the unit-count
 // channel (last channel > 0) is appended, as the Pallas kernels' derive_count.
@@ -98,15 +130,16 @@ __device__ __forceinline__ int go_right(const XT* __restrict__ xb, long long N,
   return (x > t) || (x == 0 && m > 0);
 }
 
-// B1. Replaces _kernel (pallas_hist.py:395), the fold-fused gradient
-// histogram: out[k*S*Co + s*Co + c, f*B + b] = sum_i [slot[k,i] = s] *
-// pay[k,c,i] * [Xb[f,i] = b]. One block takes one lane (blockIdx.z), one
-// (feature tile, slot tile) pair (blockIdx.y) and one row range
-// (blockIdx.x). Bound on this card: the streamed bytes (Xb once per feature
-// tile, payload and slot planes once per tile) and, above them, the
-// shared-memory atomics, Fo * N * F * Co of them. The design keeps the
-// whole [s_tile, Co, f_tile, B] histogram in shared memory so each atomic
-// stays on the SM, and flushes it once per block.
+// B1, rows path. Replaces _kernel (pallas_hist.py:395) for narrow F, the
+// fold-fused gradient histogram: out[k*S*Co + s*Co + c, f*B + b] = sum_i
+// [slot[k,i] = s] * pay[k,c,i] * [Xb[f,i] = b]. One block takes one lane
+// (blockIdx.z), one (feature tile, slot tile) pair (blockIdx.y) and one row
+// range (blockIdx.x); each thread takes one row and scatters it with shared
+// atomics. Bound on this card: the shared-memory atomics — an f32 atomicAdd
+// on shared memory is a compare-and-swap loop on sm_90, and rows of a warp
+// that share a bin retry — which is why wide F takes the features path.
+// With F = 1 and thousands of bins (the rank-metric counts) the rows of a
+// warp rarely share a bin.
 template <typename XT>
 __global__ void hist_kernel(const XT* __restrict__ xb,
                             const float* __restrict__ pay,
@@ -140,13 +173,13 @@ __global__ void hist_kernel(const XT* __restrict__ xb,
   flush(sh, out, k, S, s0, ns, Co, F, f0, nf, f_tile, B);
 }
 
-// B2. Replaces _route_hist_kernel (pallas_hist.py:713): route one level and
-// histogram the next level's LEFT children in the same pass. A left row's
-// slot is its old node id; right rows are dropped (sibling subtraction
-// derives them). Same tiling and bound as hist_kernel, plus one gather of
-// the selected feature's bin per row; the split tables sit in shared
-// memory behind the histogram. Blocks of feature/slot tile 0 write the new
-// node ids (2 * node + right).
+// B2, rows path. Replaces _route_hist_kernel (pallas_hist.py:713) for narrow
+// F: route one level and histogram the next level's LEFT children in the
+// same pass. A left row's slot is its old node id; right rows are dropped
+// (sibling subtraction derives them). Same tiling and bound as hist_kernel,
+// plus one gather of the selected feature's bin per row; the split tables
+// sit in shared memory behind the histogram. Blocks of feature/slot tile 0
+// write the new node ids (2 * node + right).
 template <typename XT>
 __global__ void route_hist_kernel(const XT* __restrict__ xb,
                                   const float* __restrict__ pay,
@@ -194,6 +227,409 @@ __global__ void route_hist_kernel(const XT* __restrict__ xb,
   flush(sh, out, k, n_nodes, s0, ns, Co, F, f0, nf, f_tile, B);
 }
 
+// -- features path -----------------------------------------------------------
+
+// Shared memory of hist_fm_kernel, in layout order: `copies` histograms
+// [s_tile][f_tile / 32][B][Co][32], the staged tile's payload (float4 a row),
+// then for PRIVATE the row slots (int a row), else kWarps row lists of R
+// entries and their kWarps counts, then the staged bins and the split
+// tables. plan_hist mirrors this sum.
+__host__ __device__ inline long long fm_smem_bytes(int itemsize, int f_tile,
+                                                   int s_tile, int Co, int B,
+                                                   int copies, bool priv,
+                                                   int n_tbl) {
+  const long long G = (f_tile + 31) / 32;
+  const long long R = kTileBytes / itemsize;
+  return 4LL * copies * s_tile * G * B * Co * 32 + 16LL * R +
+         (priv ? 4LL * R : 4LL * kWarps * R + 4LL * kWarps) +
+         4LL * kXsStride * f_tile + 12LL * n_tbl;
+}
+
+struct FmArgs {
+  const void* xb;          // [F, N] bins
+  const float* pay;        // [lanes * C, N] payload channels
+  const float* key;        // [lanes, N] slot ids (hist) or node ids (route)
+  const int* tf;           // [lanes, S] split tables (route)
+  const int* tt;
+  const int* tm;
+  float* out;              // [lanes * S * Co, F * B]
+  float* node_out;         // [lanes, N] next node ids (route)
+  long long N;
+  int F, C, derive, S, B;
+  int lanes, f_tile, s_tile, n_ftiles, n_stiles, copies;
+};
+
+// Bins of this thread's share of a row tile: word j of the tile is feature
+// j / kRowWords, bytes 4 * (j % kRowWords) of its row. Words past N read 0.
+template <typename XT>
+__device__ __forceinline__ void load_bins(const XT* __restrict__ xb,
+                                          long long N, int f0, int nf,
+                                          long long r0, bool aligned,
+                                          unsigned (&xw)[kXw]) {
+  constexpr int EPW = 4 / (int)sizeof(XT);
+  constexpr int R = kTileBytes / (int)sizeof(XT);
+  using UT = std::make_unsigned_t<XT>;
+  const int lim = nf * kRowWords;
+  if (aligned && r0 + R <= N) {
+#pragma unroll
+    for (int j = 0; j < kXw; ++j) {
+      const int w = threadIdx.x + j * kThreads;
+      xw[j] = w < lim ? __ldg(reinterpret_cast<const unsigned*>(
+                            xb + (long long)(f0 + w / kRowWords) * N + r0 +
+                            (w % kRowWords) * EPW))
+                      : 0u;
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kXw; ++j) {
+    const int w = threadIdx.x + j * kThreads;
+    unsigned word = 0u;
+    if (w < lim) {
+      const long long i = r0 + (long long)(w % kRowWords) * EPW;
+      const XT* src = xb + (long long)(f0 + w / kRowWords) * N + i;
+#pragma unroll
+      for (int e = 0; e < EPW; ++e)
+        if (i + e < N) word |= (unsigned)(UT)src[e] << (8 * (int)sizeof(XT) * e);
+    }
+    xw[j] = word;
+  }
+}
+
+// Payload channels of row i for this thread (the derived count is added
+// at the staging, so that no instruction waits on these loads before).
+__device__ __forceinline__ void load_row_payload(const float* __restrict__ pay,
+                                                 long long N, int C,
+                                                 long long i, bool valid,
+                                                 float (&pv)[kMaxChannels]) {
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c)
+    pv[c] = (valid && c < C) ? __ldg(pay + (long long)c * N + i) : 0.f;
+}
+
+// The bin of row i in its node's split feature (feature 0 for node ids
+// outside the table or split features outside [0, F), as go_right).
+template <typename XT>
+__device__ __forceinline__ int split_bin(const XT* __restrict__ xb,
+                                         long long N, int F, int S,
+                                         const int* tf, float nd, long long i,
+                                         bool valid) {
+  if (!valid) return 0;
+  int fs = (nd >= 0.f && nd < (float)S) ? tf[(int)nd] : 0;
+  if (fs < 0 || fs >= F) fs = 0;
+  return (int)__ldg(xb + (long long)fs * N + i);
+}
+
+// Bins of staged rows r .. r + 3 (r a multiple of 4) of tile feature row f,
+// or of row r alone (ONE): -1 where the thread has no feature (`has`), so
+// the row adds nothing there. Feature row 0 is read in that case, so the
+// load stays inside the staged tile.
+template <typename XT>
+__device__ __forceinline__ void staged_bins4(const unsigned* xs, int f,
+                                             unsigned r, bool has,
+                                             int (&bn)[4]) {
+  const unsigned* row = xs + (has ? f : 0) * kXsStride;
+  if constexpr (sizeof(XT) == 1) {
+    const unsigned wd = row[r >> 2];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bn[e] = has ? (int)(XT)(wd >> (8 * e)) : -1;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bn[e] = has ? (int)(XT)row[r + e] : -1;
+  }
+}
+
+template <typename XT>
+__device__ __forceinline__ int staged_bin(const unsigned* xs, int f,
+                                          unsigned r, bool has) {
+  const unsigned* row = xs + (has ? f : 0) * kXsStride;
+  if constexpr (sizeof(XT) == 1)
+    return has ? (int)(XT)(row[r >> 2] >> (8 * (r & 3))) : -1;
+  else
+    return has ? (int)(XT)row[r] : -1;
+}
+
+// Add one row's payload v into this thread's cells of one slot's histogram:
+// the thread's features lane and lane + 32 have bins b[0], b[1]; a cell's
+// Co channels are 32 words apart (Co = CO when CO > 0, else co). Only this
+// thread ever touches these cells in this copy, so the add is plain loads,
+// then stores. Bins outside [0, B) add nothing, like the Pallas one-hot.
+template <int CO>
+__device__ __forceinline__ void add_cells(float* slot_hist, int b0, int b1,
+                                          const float4& v, int B, int co) {
+  const int Co = CO > 0 ? CO : co;
+  const float vv[kMaxChannels] = {v.x, v.y, v.z, v.w};
+  const int b[2] = {b0, b1};
+  bool ok[2];
+  float* cell[2];
+  float x[2][kMaxChannels];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    ok[j] = (unsigned)b[j] < (unsigned)B;
+    cell[j] = slot_hist + (j * B + b[j]) * Co * 32;
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c)
+      if (ok[j] && c < Co) x[j][c] = cell[j][c * 32];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c)
+      if (ok[j] && c < Co) cell[j][c * 32] = x[j][c] + vv[c];
+}
+
+// B1 and B2, features path. Replaces _kernel (pallas_hist.py:395) with
+// ROUTE = false and _route_hist_kernel (pallas_hist.py:713) with ROUTE =
+// true: out[k*S*Co + s*Co + c, f*B + b] = sum_i [slot(k,i) = s] * pay[k,c,i]
+// * [Xb[f,i] = b], where with ROUTE the slot of a row is its node id if it
+// goes left and none if it goes right (sibling subtraction derives the right
+// children), and the blocks of feature/slot tile 0 write the new node ids
+// 2 * node + right.
+//
+// Bound on this card: one shared-memory read-modify-write per (row,
+// feature, lane, channel), 32 a clock on each SM at best, well above the
+// bytes (each row's F bins, payload and slot or node once). An f32
+// atomicAdd on shared memory is a compare-and-swap loop on sm_90, and
+// retries whenever two threads hit one cell, so the design has no shared
+// atomics in its inner loop:
+// - threads map to features and a warp takes one row at a time, so no two
+//   threads of a warp ever add into one cell, whatever the bin skew; the
+//   histogram layout [slot][feature / 32][bin][channel][feature % 32] gives
+//   each thread its own bank, and a dropped row (outside the slot tile, or
+//   a right row) is skipped by the whole warp at once;
+// - PRIVATE (the root, where eight copies fit): each warp has its own
+//   histogram copy and takes groups of 4 staged rows, so counting is plain
+//   shared loads and stores; the copies are summed once at the flush;
+// - otherwise `copies` histograms each serve kWarps / copies warps, and a
+//   warp owns the slots s with s % (kWarps / copies) equal to its index in
+//   the group: the staging sorts the tile's counted rows into per-warp lists
+//   (rows alternate over the copies), so every cell still has one writer;
+// - a block stages one lane's row tile — bins of its feature tile in rows
+//   of odd word stride, payload with the derived count, and each row's
+//   local slot or -1 — from registers loaded while the previous tile was
+//   counted; with ROUTE each row's split bin is gathered and its route
+//   decided once in the staging, its node id read two tiles ahead;
+// - the grid is persistent, one block per SM: blockIdx.x % (lanes x feature
+//   tiles x slot tiles) picks the block's work, and blocks launched together
+//   stride over the same row tiles, so a lane's payload and the shared bins
+//   are re-read from L2. Each block adds its histogram into the output
+//   once, with one global atomicAdd per nonzero cell.
+// CO is the channel count where it is fixed at compile time (3: the trees'
+// g, h and derived count), 0 where it is read from the arguments.
+template <typename XT, bool ROUTE, bool PRIVATE, int CO>
+__global__ void __launch_bounds__(kThreads, 1) hist_fm_kernel(const FmArgs a) {
+  constexpr int R = kTileBytes / (int)sizeof(XT);   // rows of a staged tile
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  const int Co = CO > 0 ? CO : a.C + a.derive;
+  const int G = (a.f_tile + 31) >> 5;   // feature groups of 32
+  const int SS = G * a.B * Co * 32;     // slot stride of a histogram
+  const int hcells = a.s_tile * SS;
+  const int copies = PRIVATE ? kWarps : a.copies;
+  const int wpc = kWarps / copies;      // warps sharing one copy
+  float* hist = reinterpret_cast<float*>(fm_smem);
+  float4* rp = reinterpret_cast<float4*>(hist + copies * hcells);
+  int* rs = reinterpret_cast<int*>(rp + R);     // PRIVATE: row slots
+  int* lists = rs;                              // else: kWarps row lists
+  int* cnt = lists + kWarps * R;                //   and their lengths
+  unsigned* xs = reinterpret_cast<unsigned*>(PRIVATE ? rs + R : cnt + kWarps);
+  int* tbl = reinterpret_cast<int*>(xs + kXsStride * a.f_tile);
+
+  const int n_other = a.lanes * a.n_ftiles * a.n_stiles;
+  const int o = blockIdx.x % n_other;
+  const long long chunk = blockIdx.x / n_other;
+  const long long n_chunks = gridDim.x / n_other;
+  const int ft = o % a.n_ftiles;
+  const int st = (o / a.n_ftiles) % a.n_stiles;
+  const int k = o / (a.n_ftiles * a.n_stiles);
+  const int f0 = ft * a.f_tile, nf = min(a.f_tile, a.F - f0);
+  const int s0 = st * a.s_tile, ns = min(a.s_tile, a.S - s0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long N = a.N;
+  const XT* xb = static_cast<const XT*>(a.xb);
+  const bool aligned = reinterpret_cast<unsigned long long>(xb) % 4 == 0 &&
+                       (N * (long long)sizeof(XT)) % 4 == 0;
+  const float* key = a.key + (long long)k * N;
+  const float* pay = a.pay + (long long)k * a.C * N;
+  const bool write_node = ROUTE && ft == 0 && st == 0;
+  const bool has0 = lane < nf, has1 = G > 1 && lane + 32 < nf;
+
+  {
+    float4* h4 = reinterpret_cast<float4*>(hist);
+    const int n4 = copies * hcells / 4;
+    for (int j = tid; j < n4; j += kThreads)
+      h4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (!PRIVATE && tid < kWarps) cnt[tid] = 0;
+  if (ROUTE) {
+    for (int j = tid; j < a.S; j += kThreads) {
+      tbl[j] = a.tf[(long long)k * a.S + j];
+      tbl[a.S + j] = a.tt[(long long)k * a.S + j];
+      tbl[2 * a.S + j] = a.tm[(long long)k * a.S + j];
+    }
+  }
+  __syncthreads();
+
+  const long long n_tiles = (N + R - 1) / R;
+  long long t = chunk;
+  if (t < n_tiles) {
+    unsigned xw[kXw];
+    float pv[kMaxChannels];
+    float kc, kn = 0.f;   // key of this thread's row: this tile, two ahead
+    int xsel = 0;         // its split bin (ROUTE)
+    const bool has_row = tid < R;
+    load_bins<XT>(xb, N, f0, nf, t * R, aligned, xw);
+    load_row_payload(pay, N, a.C, t * R + tid, has_row && t * R + tid < N,
+                     pv);
+    kc = has_row && t * R + tid < N ? __ldg(key + t * R + tid) : 0.f;
+    if (ROUTE) {
+      const long long i2 = (t + n_chunks) * R + tid;
+      if (has_row && i2 < N) kn = __ldg(key + i2);
+      xsel = split_bin<XT>(xb, N, a.F, a.S, tbl, kc, t * R + tid,
+                           has_row && t * R + tid < N);
+    }
+    for (;;) {
+      __syncthreads();   // every warp is done counting the last tile
+#pragma unroll
+      for (int j = 0; j < kXw; ++j) {
+        const int w = tid + j * kThreads;
+        if (w < nf * kRowWords)
+          xs[(w / kRowWords) * kXsStride + w % kRowWords] = xw[j];
+      }
+      if (has_row) {
+        const long long i = t * R + tid;
+        int ls = -1;
+        if (i < N) {
+          if (ROUTE) {
+            int th = 0, m = 0;
+            if (kc >= 0.f && kc < (float)a.S) {
+              th = tbl[a.S + (int)kc];
+              m = tbl[2 * a.S + (int)kc];
+            }
+            const int right = (xsel > th) || (xsel == 0 && m > 0);
+            if (write_node) a.node_out[(long long)k * N + i] = 2.f * kc + (float)right;
+            if (!right && kc >= (float)s0 && kc < (float)(s0 + ns))
+              ls = (int)kc - s0;
+          } else if (kc >= (float)s0 && kc < (float)(s0 + ns)) {
+            ls = (int)kc - s0;   // slot >= S, negative or NaN: no slot
+          }
+        }
+        if (a.derive) {   // the unit count: last payload channel > 0
+#pragma unroll
+          for (int c = 1; c < kMaxChannels; ++c)
+            if (c == a.C) pv[c] = pv[c - 1] > 0.f ? 1.f : 0.f;
+        }
+        rp[tid] = make_float4(pv[0], pv[1], pv[2], pv[3]);
+        if (PRIVATE) {
+          rs[tid] = ls;
+        } else {
+          // append the row to its owner's list: one shared atomic per
+          // (staging warp, owner), the rows' places by rank among peers
+          const unsigned counted = __ballot_sync(0xffffffffu, ls >= 0);
+          if (ls >= 0) {
+            const int owner = (tid % copies) * wpc + ls % wpc;
+            const unsigned peers = __match_any_sync(counted, owner);
+            const int leader = __ffs(peers) - 1;
+            int base = 0;
+            if (lane == leader) base = atomicAdd(cnt + owner, __popc(peers));
+            base = __shfl_sync(peers, base, leader);
+            lists[owner * R + base + __popc(peers & ((1u << lane) - 1u))] =
+                ls << 8 | tid;
+          }
+        }
+      }
+      __syncthreads();
+
+      // load the next tile into registers while this one is counted
+      const long long tn = t + n_chunks;
+      const bool more = tn < n_tiles;
+      if (more) {
+        const long long i = tn * R + tid;
+        load_bins<XT>(xb, N, f0, nf, tn * R, aligned, xw);
+        load_row_payload(pay, N, a.C, i, has_row && i < N, pv);
+        if (ROUTE) {
+          kc = kn;
+          const long long i2 = (tn + n_chunks) * R + tid;
+          if (has_row && i2 < N) kn = __ldg(key + i2);
+          xsel = split_bin<XT>(xb, N, a.F, a.S, tbl, kc, i, has_row && i < N);
+        } else {
+          kc = has_row && i < N ? __ldg(key + i) : 0.f;
+        }
+      }
+
+      if (PRIVATE) {
+        // warp w counts groups of 4 rows w, w + kWarps, ... into its copy
+        float* mine = hist + warp * hcells + lane;
+#pragma unroll 1
+        for (int g4 = warp; g4 < R / 4; g4 += kWarps) {
+          const int4 sl = reinterpret_cast<const int4*>(rs)[g4];
+          if ((sl.x & sl.y & sl.z & sl.w) < 0) continue;   // all dropped
+          const int sv[4] = {sl.x, sl.y, sl.z, sl.w};
+          float4 v[4];
+          int bn0[4], bn1[4];
+          staged_bins4<XT>(xs, lane, 4u * g4, has0, bn0);
+          staged_bins4<XT>(xs, lane + 32, 4u * g4, has1, bn1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = rp[4 * g4 + e];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (sv[e] >= 0)
+              add_cells<CO>(mine + sv[e] * SS, bn0[e], bn1[e], v[e], a.B, Co);
+        }
+      } else {
+        // warp w counts its list, 4 rows at a time, into its group's copy
+        float* mine = hist + (warp / wpc) * hcells + lane;
+        const int n = cnt[warp];
+        const int* lst = lists + warp * R;
+#pragma unroll 1
+        for (int q = 0; q < n; q += 4) {
+          const int4 en = *reinterpret_cast<const int4*>(lst + q);
+          const int ent[4] = {en.x, q + 1 < n ? en.y : -1,
+                              q + 2 < n ? en.z : -1, q + 3 < n ? en.w : -1};
+          float4 v[4];
+          int bn0[4], bn1[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned r = ent[e] >= 0 ? ent[e] & 255 : 0;
+            v[e] = rp[r];
+            bn0[e] = staged_bin<XT>(xs, lane, r, has0);
+            bn1[e] = staged_bin<XT>(xs, lane + 32, r, has1);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (ent[e] >= 0)
+              add_cells<CO>(mine + (ent[e] >> 8) * SS, bn0[e], bn1[e], v[e],
+                            a.B, Co);
+        }
+        __syncwarp();
+        if (lane == 0) cnt[warp] = 0;   // ordered before the next staging
+      }
+      if (!more) break;
+      t = tn;
+    }
+  }
+  __syncthreads();
+
+  // flush: sum the copies, one global atomicAdd per nonzero cell
+  const long long FB = (long long)a.F * a.B;
+  for (int j = tid; j < hcells; j += kThreads) {
+    float val = hist[j];
+    for (int w = 1; w < copies; ++w) val += hist[w * hcells + j];
+    if (val == 0.f) continue;
+    int r = j >> 5;
+    const int c = r % Co;
+    r /= Co;
+    const int b = r % a.B;
+    r /= a.B;
+    const int g = r % G;
+    const int s = r / G;
+    const int f = g * 32 + (j & 31);
+    if (f < nf && s < ns)
+      atomicAdd(a.out + (((long long)k * a.S + s0 + s) * Co + c) * FB +
+                    (long long)(f0 + f) * a.B + b,
+                val);
+  }
+}
+
 // B3. Replaces _route_kernel (pallas_hist.py:598): one level of routing for
 // every lane. Elementwise over (lane, row); bound by bytes (node read and
 // write per lane, one bin byte gathered per lane and row). The tables are
@@ -234,125 +670,152 @@ __global__ void lookup_kernel(const float* __restrict__ tbl,
   }
 }
 
+// Launch a kernel with `smem` bytes of dynamic shared memory.
+template <typename Kernel, typename... Args>
+int launch(Kernel kern, dim3 grid, int threads, int smem, cudaStream_t stream,
+           Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The features path: check the tiling against the kernel's own layout,
+// then launch `blocks` blocks (a multiple of lanes x tiles).
+template <typename XT, bool ROUTE>
+int launch_fm(const FmArgs& a, int path, int blocks, int smem,
+              cudaStream_t stream) {
+  const bool priv = path == kPathPrivate;
+  const long long need =
+      fm_smem_bytes((int)sizeof(XT), a.f_tile, a.s_tile, a.C + a.derive, a.B,
+                    priv ? kWarps : a.copies, priv, ROUTE ? a.S : 0);
+  if (a.f_tile < 1 || a.f_tile > kMaxFTile || need != smem ||
+      (!priv && (a.copies < 1 || kWarps % a.copies != 0)) ||
+      blocks % (a.lanes * a.n_ftiles * a.n_stiles) != 0)
+    return (int)cudaErrorInvalidValue;
+  // the trees' payload (g, h and the derived count) gets its own code
+  const bool co3 = a.C + a.derive == 3;
+  if (priv)
+    return co3 ? launch(hist_fm_kernel<XT, ROUTE, true, 3>, dim3(blocks),
+                        kThreads, smem, stream, a)
+               : launch(hist_fm_kernel<XT, ROUTE, true, 0>, dim3(blocks),
+                        kThreads, smem, stream, a);
+  return co3 ? launch(hist_fm_kernel<XT, ROUTE, false, 3>, dim3(blocks),
+                      kThreads, smem, stream, a)
+             : launch(hist_fm_kernel<XT, ROUTE, false, 0>, dim3(blocks),
+                      kThreads, smem, stream, a);
+}
+
 template <typename XT>
 int launch_hist(const void* xb, const float* pay, const float* slot,
                 float* out, int F, long long N, int Fo, int C, int derive,
-                int S, int B, int f_tile, int s_tile, int row_blocks,
-                long long rows_per_block, int threads, cudaStream_t stream) {
+                int S, int B, int path, int f_tile, int s_tile, int copies,
+                int blocks, long long rows_per_block, int smem,
+                cudaStream_t stream) {
   const int n_ftiles = (F + f_tile - 1) / f_tile;
   const int n_stiles = (S + s_tile - 1) / s_tile;
-  const size_t smem = sizeof(float) * (size_t)s_tile * (C + derive) * f_tile * B;
-  cudaError_t e = cudaFuncSetAttribute(
-      hist_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(row_blocks, n_ftiles * n_stiles, Fo);
-  hist_kernel<XT><<<grid, threads, smem, stream>>>(
-      static_cast<const XT*>(xb), pay, slot, out, F, N, C, derive, S, B,
-      f_tile, s_tile, n_ftiles, rows_per_block);
-  return (int)cudaGetLastError();
+  if (path == kPathRows) {
+    if ((long long)smem != 4LL * s_tile * (C + derive) * f_tile * B)
+      return (int)cudaErrorInvalidValue;
+    return launch(hist_kernel<XT>, dim3(blocks, n_ftiles * n_stiles, Fo),
+                  kRowThreads, smem, stream, static_cast<const XT*>(xb), pay,
+                  slot, out, F, N, C, derive, S, B, f_tile, s_tile, n_ftiles,
+                  rows_per_block);
+  }
+  if (path != kPathPrivate && path != kPathOwned)
+    return (int)cudaErrorInvalidValue;
+  const FmArgs a{xb, pay, slot, nullptr, nullptr, nullptr, out, nullptr, N,
+                 F, C, derive, S, B, Fo, f_tile, s_tile, n_ftiles, n_stiles,
+                 copies};
+  return launch_fm<XT, false>(a, path, blocks, smem, stream);
 }
 
 template <typename XT>
 int launch_route_hist(const void* xb, const float* pay, const float* node,
                       const int* tf, const int* tt, const int* tm, float* out,
                       float* node_out, int F, long long N, int Fo, int C,
-                      int derive, int n_nodes, int B, int f_tile, int s_tile,
-                      int row_blocks, long long rows_per_block, int threads,
+                      int derive, int n_nodes, int B, int path, int f_tile,
+                      int s_tile, int copies, int blocks,
+                      long long rows_per_block, int smem,
                       cudaStream_t stream) {
   const int n_ftiles = (F + f_tile - 1) / f_tile;
   const int n_stiles = (n_nodes + s_tile - 1) / s_tile;
-  const size_t smem =
-      sizeof(float) * (size_t)s_tile * (C + derive) * f_tile * B +
-      sizeof(int) * 3 * (size_t)n_nodes;
-  cudaError_t e = cudaFuncSetAttribute(
-      route_hist_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(row_blocks, n_ftiles * n_stiles, Fo);
-  route_hist_kernel<XT><<<grid, threads, smem, stream>>>(
-      static_cast<const XT*>(xb), pay, node, tf, tt, tm, out, node_out, F, N,
-      C, derive, n_nodes, B, f_tile, s_tile, n_ftiles, rows_per_block);
-  return (int)cudaGetLastError();
+  if (path == kPathRows) {
+    if ((long long)smem != 4LL * s_tile * (C + derive) * f_tile * B +
+                               12LL * n_nodes)
+      return (int)cudaErrorInvalidValue;
+    return launch(route_hist_kernel<XT>,
+                  dim3(blocks, n_ftiles * n_stiles, Fo), kRowThreads, smem,
+                  stream, static_cast<const XT*>(xb), pay, node, tf, tt, tm,
+                  out, node_out, F, N, C, derive, n_nodes, B, f_tile, s_tile,
+                  n_ftiles, rows_per_block);
+  }
+  if (path != kPathPrivate && path != kPathOwned)
+    return (int)cudaErrorInvalidValue;
+  const FmArgs a{xb, pay, node, tf, tt, tm, out, node_out, N, F, C, derive,
+                 n_nodes, B, Fo, f_tile, s_tile, n_ftiles, n_stiles, copies};
+  return launch_fm<XT, true>(a, path, blocks, smem, stream);
 }
 
-template <typename XT>
-int launch_route(const void* xb, const float* node, const int* tf,
-                 const int* tt, const int* tm, float* out, int F, long long N,
-                 int Fo, int n_nodes, int blocks, int threads,
-                 cudaStream_t stream) {
-  dim3 grid(blocks, Fo);
-  route_kernel<XT><<<grid, threads, 0, stream>>>(
-      static_cast<const XT*>(xb), node, tf, tt, tm, out, F, N, n_nodes);
-  return (int)cudaGetLastError();
+// Call fn with a value of the bin type of xb_kind: 0 = int8, 1 = uint8,
+// 2 = int32 (the bin_dtype widths).
+template <typename Fn>
+int by_kind(int xb_kind, Fn fn) {
+  switch (xb_kind) {
+    case 0: return fn((signed char)0);
+    case 1: return fn((unsigned char)0);
+    case 2: return fn(0);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// xb_kind: 0 = int8, 1 = uint8, 2 = int32 (the bin_dtype widths).
 extern "C" {
 
+// path: 0 = rows, 1 = features with a histogram per warp, 2 = features with
+// `copies` histograms whose slots the warps own. blocks: the rows path's
+// row ranges (its grid is blocks x tiles x Fo), the features path's whole
+// grid. rows_per_block: the rows path's rows of one block (unused by the
+// features path). smem: the dynamic shared memory of one block, as
+// plan_hist computed it.
 int tk_hist(const void* xb, int xb_kind, const float* pay, const float* slot,
             float* out, int F, long long N, int Fo, int C, int derive, int S,
-            int B, int f_tile, int s_tile, int row_blocks,
-            long long rows_per_block, int threads, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (xb_kind) {
-    case 0:
-      return launch_hist<signed char>(xb, pay, slot, out, F, N, Fo, C, derive,
-                                      S, B, f_tile, s_tile, row_blocks,
-                                      rows_per_block, threads, s);
-    case 1:
-      return launch_hist<unsigned char>(xb, pay, slot, out, F, N, Fo, C,
-                                        derive, S, B, f_tile, s_tile,
-                                        row_blocks, rows_per_block, threads, s);
-    case 2:
-      return launch_hist<int>(xb, pay, slot, out, F, N, Fo, C, derive, S, B,
-                              f_tile, s_tile, row_blocks, rows_per_block,
-                              threads, s);
-  }
-  return (int)cudaErrorInvalidValue;
+            int B, int path, int f_tile, int s_tile, int copies, int blocks,
+            long long rows_per_block, int smem, void* stream) {
+  return by_kind(xb_kind, [&](auto tag) {
+    return launch_hist<decltype(tag)>(
+        xb, pay, slot, out, F, N, Fo, C, derive, S, B, path, f_tile, s_tile,
+        copies, blocks, rows_per_block, smem,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 int tk_route_hist(const void* xb, int xb_kind, const float* pay,
                   const float* node, const int* tf, const int* tt,
                   const int* tm, float* out, float* node_out, int F,
                   long long N, int Fo, int C, int derive, int n_nodes, int B,
-                  int f_tile, int s_tile, int row_blocks,
-                  long long rows_per_block, int threads, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (xb_kind) {
-    case 0:
-      return launch_route_hist<signed char>(
-          xb, pay, node, tf, tt, tm, out, node_out, F, N, Fo, C, derive,
-          n_nodes, B, f_tile, s_tile, row_blocks, rows_per_block, threads, s);
-    case 1:
-      return launch_route_hist<unsigned char>(
-          xb, pay, node, tf, tt, tm, out, node_out, F, N, Fo, C, derive,
-          n_nodes, B, f_tile, s_tile, row_blocks, rows_per_block, threads, s);
-    case 2:
-      return launch_route_hist<int>(
-          xb, pay, node, tf, tt, tm, out, node_out, F, N, Fo, C, derive,
-          n_nodes, B, f_tile, s_tile, row_blocks, rows_per_block, threads, s);
-  }
-  return (int)cudaErrorInvalidValue;
+                  int path, int f_tile, int s_tile, int copies, int blocks,
+                  long long rows_per_block, int smem, void* stream) {
+  return by_kind(xb_kind, [&](auto tag) {
+    return launch_route_hist<decltype(tag)>(
+        xb, pay, node, tf, tt, tm, out, node_out, F, N, Fo, C, derive,
+        n_nodes, B, path, f_tile, s_tile, copies, blocks, rows_per_block,
+        smem, static_cast<cudaStream_t>(stream));
+  });
 }
 
 int tk_route(const void* xb, int xb_kind, const float* node, const int* tf,
              const int* tt, const int* tm, float* out, int F, long long N,
              int Fo, int n_nodes, int blocks, int threads, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (xb_kind) {
-    case 0:
-      return launch_route<signed char>(xb, node, tf, tt, tm, out, F, N, Fo,
-                                       n_nodes, blocks, threads, s);
-    case 1:
-      return launch_route<unsigned char>(xb, node, tf, tt, tm, out, F, N, Fo,
-                                         n_nodes, blocks, threads, s);
-    case 2:
-      return launch_route<int>(xb, node, tf, tt, tm, out, F, N, Fo, n_nodes,
-                               blocks, threads, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return by_kind(xb_kind, [&](auto tag) {
+    using XT = decltype(tag);
+    route_kernel<XT><<<dim3(blocks, Fo), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const XT*>(xb), node, tf, tt, tm, out, F, N, n_nodes);
+    return (int)cudaGetLastError();
+  });
 }
 
 int tk_lookup(const float* tbl, const float* idx, float* out, int M,

@@ -31,9 +31,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "tk_hist": (_P, _I, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _I,
-                _L, _I, _P),
+                _I, _I, _L, _I, _P),
     "tk_route_hist": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _L, _I, _P),
+                      _I, _I, _I, _I, _I, _I, _I, _L, _I, _P),
     "tk_route": (_P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
     "tk_lookup": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
 }

@@ -14,7 +14,9 @@ A dispatcher runs its plain PyTorch version when its inputs lie on the CPU
 and launches the hand-written CUDA kernel (csrc/tree_kernels.cu) when they
 lie on a CUDA device; any other device raises. There is no fallback from
 the kernel to the plain version. `launches` counts kernel launches, one per
-dispatcher call that reached its kernel.
+dispatcher call that reached its kernel; `shape_launches` counts the same
+launches by (kernel, F, S), S being the slot or node count (the table
+width for `table_lookup`, whose F is 1).
 
 The port accumulates f32 payloads only: its histograms follow the JAX
 package's TMOG_HIST_BF16=0 mode. It pads no rows: the 4096-row blocks of the
@@ -22,6 +24,7 @@ Pallas kernels are a TPU artifact.
 """
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import torch
@@ -30,18 +33,33 @@ from . import _build
 
 KERNELS = ("hist_folds", "route_hist", "route", "table_lookup")
 launches = dict.fromkeys(KERNELS, 0)
+shape_launches: Counter = Counter()
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    shape_launches.clear()
+
+
+def _count_launch(name: str, n_feat: int, n_slots: int) -> None:
+    launches[name] += 1
+    shape_launches[f"{name} F={n_feat} S={n_slots}"] += 1
 
 
 _BIN_KINDS = {torch.int8: 0, torch.uint8: 1, torch.int32: 2}
 _MAX_CHANNELS = 4            # payload channels + derived count (kMaxChannels)
 _SMEM_BLOCK_MAX = 232_448    # dynamic shared memory one block may use (H100)
-_SMEM_BUDGET = _SMEM_BLOCK_MAX // 2   # two histogram blocks per SM
-_THREADS = 512
+_SMEM_BUDGET = _SMEM_BLOCK_MAX // 2   # rows path: two blocks per SM
+_THREADS = 512               # rows path (kRowThreads) and elementwise kernels
+# features path (hist_fm_kernel): kWarps, kTileBytes, kXsStride, kMaxFTile
+_FM_WARPS = 8
+_FM_TILE_BYTES = 256
+_FM_XS_STRIDE = _FM_TILE_BYTES // 4 + 1
+_FM_MAX_FTILE = 64
+_FM_MIN_FEATURES = 8         # narrower F takes the rows path
+PATHS = ("rows", "private", "owned")
+_PATH_CODES = {p: i for i, p in enumerate(PATHS)}
 
 
 # -- analytic HBM traffic (copied from the JAX package's byte model) --------
@@ -93,22 +111,70 @@ def fused_fit_bytes(n_rows: int, n_feat: int, lanes: int, depth: int,
 
 @dataclass(frozen=True)
 class HistTiling:
-    """Launch shape of hist_kernel / route_hist_kernel: one block per
-    (row range, feature tile x slot tile, lane)."""
+    """Launch shape of the histogram kernels.
 
+    path "rows" (hist_kernel / route_hist_kernel): one block per (row range
+    of `rows_per_block` rows, feature tile x slot tile, lane), `blocks` row
+    ranges. Paths "private" (a histogram copy per warp) and "owned"
+    (`copies` histograms, each shared by warps that own its slots) of
+    hist_fm_kernel: a persistent grid of `blocks` blocks, a multiple of
+    lanes x feature tiles x slot tiles, striding over staged row tiles of
+    `rows_per_block` rows."""
+
+    path: str
     f_tile: int
     s_tile: int
-    row_blocks: int
+    copies: int
+    blocks: int
     rows_per_block: int
     smem_bytes: int
 
 
-def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
-              lanes: int, n_rows: int, n_sm: int,
-              extra_smem: int = 0) -> HistTiling:
-    """Tile the private [s_tile, Co, f_tile, B] f32 histogram into half of a
-    block's shared memory (two blocks per SM), balancing the tiles, and cut
-    the rows so about four blocks per SM are launched."""
+def fm_smem_bytes(itemsize: int, f_tile: int, s_tile: int, channels: int,
+                  n_bins: int, copies: int, private: bool,
+                  n_tables: int) -> int:
+    """Shared memory of one hist_fm_kernel block (fm_smem_bytes in the
+    source): `copies` [s_tile, feature groups of 32, B, Co, 32] f32
+    histograms, the staged tile's payload (16 B a row), its row slots
+    (private) or _FM_WARPS row lists and counts (owned), its bins in rows
+    of _FM_XS_STRIDE words, and 3 split tables."""
+    groups = -(-f_tile // 32)
+    rows = _FM_TILE_BYTES // itemsize
+    lists = 4 * rows if private else 4 * _FM_WARPS * rows + 4 * _FM_WARPS
+    return (4 * copies * s_tile * groups * n_bins * channels * 32
+            + 16 * rows + lists + 4 * _FM_XS_STRIDE * f_tile + 12 * n_tables)
+
+
+def _fm_tiles(n_feat, n_slots, channels, n_bins, itemsize, private,
+              n_tables):
+    """(slot tiles, feature tiles, copies) of the features path: fewest
+    (slot tile, feature tile) pairs first (each stages every row and its
+    route), then fewest feature tiles (wider tiles share a row's list entry
+    and payload among more features), then most histogram copies (rows
+    spread over more warps); None when not even one slot fits."""
+    best = None
+    for groups in range(1, _FM_MAX_FTILE // 32 + 1):
+        if 32 * (groups - 1) >= n_feat:
+            break
+        for copies in (_FM_WARPS,) if private else (4, 2, 1):
+            def smem(s):
+                return fm_smem_bytes(itemsize, 32 * groups, s, channels,
+                                     n_bins, copies, private, n_tables)
+            s_fit = min(n_slots, (_SMEM_BLOCK_MAX - smem(0))
+                        // (smem(1) - smem(0)))
+            if s_fit < 1:
+                continue
+            n_st, n_ft = -(-n_slots // s_fit), -(-n_feat // (32 * groups))
+            key = (n_st * n_ft, n_ft, -copies, n_st)
+            best = key if best is None or key < best else best
+    return None if best is None else (best[3], best[1], -best[2])
+
+
+def _plan_rows(n_feat, n_slots, channels, n_bins, lanes, n_rows, n_sm,
+               extra_smem):
+    """Rows path: tile the [s_tile, Co, f_tile, B] f32 histogram into half
+    of a block's shared memory (two blocks per SM), balancing the tiles, and
+    cut the rows so about four blocks per SM are launched."""
     cell = channels * n_bins * 4                      # one (slot, feature)
     budget = _SMEM_BUDGET - extra_smem
     if cell > budget:
@@ -122,8 +188,58 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
     row_blocks = max(1, min(-(-4 * n_sm // others), -(-n_rows // _THREADS)))
     rows_per_block = -(-n_rows // row_blocks)
     row_blocks = -(-n_rows // rows_per_block)
-    return HistTiling(f_tile, s_tile, row_blocks, rows_per_block,
+    return HistTiling("rows", f_tile, s_tile, 1, row_blocks, rows_per_block,
                       s_tile * cell * f_tile + extra_smem)
+
+
+def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
+              lanes: int, n_rows: int, n_sm: int, *, itemsize: int = 1,
+              route: bool = False, path: str | None = None) -> HistTiling:
+    """Choose the path and tiling of a histogram launch (`route`: the
+    route_hist kernel, whose split tables take shared memory too).
+
+    Without `path`, from _FM_MIN_FEATURES features: "private" when eight
+    warp copies fit with the tiles the owned path needs (the root of a tree
+    at F = 64, B = 33); else "owned" when one (slot tile, feature tile)
+    pair covers the histogram, or two do and every warp owns a slot
+    (copies x s_tile >= _FM_WARPS); otherwise "rows" (narrow F, or wide
+    histograms split into slot tiles: at B = 257 each slot tile re-reads
+    every row while most of its warps own no slot). A given `path` is
+    forced (measurement and tests), and raises where it does not fit."""
+    n_tables = n_slots if route else 0
+    fit = {p: _fm_tiles(n_feat, n_slots, channels, n_bins, itemsize,
+                        p == "private", n_tables) for p in PATHS[1:]}
+    if path is None:
+        path, owned, private = "rows", fit["owned"], fit["private"]
+        if n_feat >= _FM_MIN_FEATURES and owned is not None:
+            n_st, n_ft, copies = owned
+            if private is not None and private[:2] == owned[:2]:
+                path = "private"
+            elif n_st * n_ft == 1 or (
+                    n_st * n_ft == 2
+                    and copies * -(-n_slots // n_st) >= _FM_WARPS):
+                path = "owned"
+    if path == "rows":
+        return _plan_rows(n_feat, n_slots, channels, n_bins, lanes, n_rows,
+                          n_sm, 3 * 4 * n_tables)
+    if path not in PATHS:
+        raise ValueError(f"unknown histogram path {path!r}; one of {PATHS}")
+    if fit[path] is None:
+        raise ValueError(f"path {path!r}: a histogram of {n_bins} bins x "
+                         f"{channels} channels does not fit a block's shared "
+                         f"memory")
+    n_st, n_ft, copies = fit[path]
+    s_tile = -(-n_slots // n_st)
+    f_tile = -(-n_feat // n_ft)
+    smem = fm_smem_bytes(itemsize, f_tile, s_tile, channels, n_bins, copies,
+                         path == "private", n_tables)
+    rows = _FM_TILE_BYTES // itemsize
+    # one block per SM (its threads hold 160+ registers each), every block
+    # resident at once, each striding over row tiles
+    others = lanes * n_ft * n_st
+    chunks = max(1, min(-(-n_rows // rows), n_sm // others))
+    return HistTiling(path, f_tile, s_tile, copies, others * chunks, rows,
+                      smem)
 
 
 # -- checks shared by the CUDA wrappers --------------------------------------
@@ -216,14 +332,15 @@ def hist_folds_plain(Xb_t, pay_t, slot_t, *, n_slots: int, n_bins: int,
 
 
 def hist_folds(Xb_t: torch.Tensor, pay_t: torch.Tensor, slot_t: torch.Tensor,
-               *, n_slots: int, n_bins: int,
-               derive_count: bool = False) -> torch.Tensor:
+               *, n_slots: int, n_bins: int, derive_count: bool = False,
+               path: str | None = None) -> torch.Tensor:
     """Gradient histograms [Fo * n_slots * Co, F * n_bins] f32.
 
     Xb_t [F, N] int bins (int8 / uint8 / int32); pay_t [Fo * C, N] f32
     payload channels, lane-major; slot_t [Fo, N] f32 slot ids (ids outside
     [0, n_slots) drop the row). derive_count appends a unit-count channel
-    (last channel > 0), so Co = C + 1."""
+    (last channel > 0), so Co = C + 1. `path` forces the kernel's path
+    (`plan_hist`: measurement and tests); the CPU ignores it."""
     _need(Xb_t, "Xb_t", _BIN_KINDS)
     _need(pay_t, "pay_t", (torch.float32,))
     _need(slot_t, "slot_t", (torch.float32,))
@@ -241,13 +358,15 @@ def hist_folds(Xb_t: torch.Tensor, pay_t: torch.Tensor, slot_t: torch.Tensor,
                       device=Xb_t.device)
     if N == 0:
         return out
-    tl = plan_hist(F, n_slots, Co, n_bins, Fo, N, _n_sm(Xb_t.device))
+    tl = plan_hist(F, n_slots, Co, n_bins, Fo, N, _n_sm(Xb_t.device),
+                   itemsize=Xb_t.element_size(), path=path)
     _build.check(lib, lib.tk_hist(
         Xb_t.data_ptr(), _BIN_KINDS[Xb_t.dtype], pay_t.data_ptr(),
         slot_t.data_ptr(), out.data_ptr(), F, N, Fo, C, int(derive_count),
-        n_slots, n_bins, tl.f_tile, tl.s_tile, tl.row_blocks,
-        tl.rows_per_block, _THREADS, _stream()), "hist_folds")
-    launches["hist_folds"] += 1
+        n_slots, n_bins, _PATH_CODES[tl.path], tl.f_tile, tl.s_tile,
+        tl.copies, tl.blocks, tl.rows_per_block, tl.smem_bytes, _stream()),
+        "hist_folds")
+    _count_launch("hist_folds", F, n_slots)
     return out
 
 
@@ -291,7 +410,7 @@ def route(Xb_t: torch.Tensor, node_t: torch.Tensor, f_lvl: torch.Tensor,
         f_lvl.data_ptr(), t_lvl.data_ptr(), m_lvl.data_ptr(), out.data_ptr(),
         F, N, Fo, n_nodes, _elementwise_blocks(N, Xb_t.device), _THREADS,
         _stream()), "route")
-    launches["route"] += 1
+    _count_launch("route", F, n_nodes)
     return out
 
 
@@ -311,12 +430,14 @@ def route_hist_plain(Xb_t, pay_t, node_t, f_lvl, t_lvl, m_lvl, *,
 
 def route_hist(Xb_t: torch.Tensor, pay_t: torch.Tensor, node_t: torch.Tensor,
                f_lvl: torch.Tensor, t_lvl: torch.Tensor, m_lvl: torch.Tensor,
-               *, n_nodes: int, n_bins: int, derive_count: bool = False):
+               *, n_nodes: int, n_bins: int, derive_count: bool = False,
+               path: str | None = None):
     """Route one level AND histogram the next level's left children in one
     pass over the binned matrix, for every lane. Returns (hist [Fo *
     n_nodes * Co, F * n_bins], new_node [Fo, N]); a left row's slot is its
     old node id, right rows are dropped (their histograms come from sibling
-    subtraction), and new_node is exactly what `route` returns."""
+    subtraction), and new_node is exactly what `route` returns. `path` as
+    in `hist_folds`."""
     _need(Xb_t, "Xb_t", _BIN_KINDS)
     _need(pay_t, "pay_t", (torch.float32,))
     _need(node_t, "node_t", (torch.float32,))
@@ -338,14 +459,16 @@ def route_hist(Xb_t: torch.Tensor, pay_t: torch.Tensor, node_t: torch.Tensor,
     if N == 0:
         return hist, new_node
     tl = plan_hist(F, n_nodes, Co, n_bins, Fo, N, _n_sm(Xb_t.device),
-                   extra_smem=3 * 4 * n_nodes)
+                   itemsize=Xb_t.element_size(), route=True, path=path)
     _build.check(lib, lib.tk_route_hist(
         Xb_t.data_ptr(), _BIN_KINDS[Xb_t.dtype], pay_t.data_ptr(),
         node_t.data_ptr(), f_lvl.data_ptr(), t_lvl.data_ptr(),
         m_lvl.data_ptr(), hist.data_ptr(), new_node.data_ptr(), F, N, Fo, C,
-        int(derive_count), n_nodes, n_bins, tl.f_tile, tl.s_tile,
-        tl.row_blocks, tl.rows_per_block, _THREADS, _stream()), "route_hist")
-    launches["route_hist"] += 1
+        int(derive_count), n_nodes, n_bins, _PATH_CODES[tl.path], tl.f_tile,
+        tl.s_tile, tl.copies, tl.blocks, tl.rows_per_block, tl.smem_bytes,
+        _stream()),
+        "route_hist")
+    _count_launch("route_hist", F, n_nodes)
     return hist, new_node
 
 
@@ -378,7 +501,7 @@ def table_lookup(tbl: torch.Tensor, idx_t: torch.Tensor) -> torch.Tensor:
         tbl.data_ptr(), idx_t.data_ptr(), out.data_ptr(), M, N, Fo,
         _elementwise_blocks(N, tbl.device), _THREADS, _stream()),
         "table_lookup")
-    launches["table_lookup"] += 1
+    _count_launch("table_lookup", 1, M)
     return out
 
 
