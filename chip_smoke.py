@@ -13,15 +13,19 @@ Phases, each of which fails the run on error:
              shared-memory atomics of each kernel;
 3. kernels — each of the four kernels at every shape the main path gives
              it (hist_folds at the root, with uniform and skewed bins, and
-             at the rank-metric shape; route_hist at S = 1..16; route;
-             table_lookup) against its plain PyTorch version on the same
-             inputs (stated tolerance), with its time (CUDA events, warm,
-             median), the histogram kernels' rows path (the row-mapped
-             kernels) timed in turns beside the chosen path (old, new, new,
-             old), the plain version's time, one library call's time where
-             one computes the same function, its bound on this card and,
-             for the histograms, the shared-memory floor (one read and one
-             write per add, 32 lanes a clock per SM);
+             at the rank-metric shape; route_hist at S = 1..16; route at 8
+             and 32 nodes, and at 32 with one split table shared by the
+             lanes; table_lookup at 16 and 64 leaves; route and
+             table_lookup at 2M and 10M rows) against its plain PyTorch
+             version on the same inputs (stated tolerance), with its time
+             (CUDA events, warm, median), the kernel's rows path (the
+             row-mapped kernels) timed in turns beside the chosen path
+             (old, new, new, old), the plain version's time, one library
+             call's time where one computes the same function, its bound
+             on this card and, for the histograms, the shared-memory floor
+             (one read and one write per add, 32 lanes a clock per SM), for
+             route and table_lookup the time of a device copy of the lane
+             plane they read and write (the card's streaming floor);
 4. small   — a small CV sweep on the CPU (plain versions) and on the GPU
              (kernels): same winner, per-cell AuPR within 5e-3;
 5. main    — the model selector's tree sweep at full width: 5-fold
@@ -30,9 +34,11 @@ Phases, each of which fails the run on error:
              on `--rows` x 64 features, then the refit of the winner and
              its scoring. Launch counters (per kernel and per kernel
              shape) are reset just before and read just after; every
-             kernel must have launched;
+             kernel must have launched, route and table_lookup at the
+             shapes of every depth swept;
 6. profile — the winner's 5-fold cell under torch.profiler: device time by
-             kernel and the device's busy share; it must see device time.
+             kernel (and of each of the port's kernels) and the device's
+             busy share; it must see device time.
 
 The last three lines of standard output are {"kernels": [...]}, the
 card's name and power limit, and {"ok": true, "device": {...}}. Exits
@@ -44,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +60,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 SOURCE = "transmogrifai_tpu_torch/csrc/tree_kernels.cu"
 KERNEL_ROWS = 2_000_000       # rows of the per-kernel checks and timings
+LANE_ROWS = 10_000_000        # route and table_lookup also at the main
+#                               path's rows
 SEED = 0
 REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
     "hist_folds": "transmogrifai_tpu/ops/pallas_hist.py:395",
@@ -88,53 +97,43 @@ def smem_floor_ms(n_adds: float) -> float:
     return 2 * n_adds / (n_sm * 32 * mhz * 1e6) * 1e3
 
 
-def kernel_phase(rows: int, seed: int):
+def kernel_phase(seed: int):
     """Each kernel against its plain version at every shape the main path
-    gives it: N rows, F = 64, B = 33 (32 bins + missing), Fo = 5 fold
-    lanes; hist_folds at the tree root (uniform and skewed bins) and at the
-    rank-metric shape (F = 1, 4096 buckets, the 5 lanes in the slot axis),
-    route_hist at S = 1, 2, 4, 8, 16, route at the last level (32 nodes)
-    and a 64-leaf lookup. The histogram kernels are timed in turns against
-    the rows path (the row-mapped kernels: old, new, new, old)."""
+    gives it, on `HP.kernel_inputs` at N = 2M rows (every shape) and 10M
+    (route and table_lookup, as the main path runs them): F = 64, B = 33
+    (32 bins + missing), Fo = 5 fold lanes; hist_folds at the tree root
+    (uniform and skewed bins) and at the rank-metric shape (F = 1, 4096
+    buckets, the 5 lanes in the slot axis), route_hist at S = 1, 2, 4, 8,
+    16, route at the last level (8 and 32 nodes, and 32 with one split
+    table shared by the lanes) and the 16- and 64-leaf lookups. Every
+    kernel is timed in turns against its rows path (the row-mapped
+    kernels: old, new, new, old)."""
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
+    import torch
+
+    d = HP.kernel_inputs(KERNEL_ROWS, seed)
+    out = kernel_rows(d, HP.hist_shapes(d) + HP.lane_shapes(d))
+    del d
+    torch.cuda.empty_cache()
+    d = HP.kernel_inputs(LANE_ROWS, seed, hist=False)
+    out += kernel_rows(d, HP.lane_shapes(d))
+    del d
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_rows(d: dict, shapes: list) -> list:
+    """One result row per shape of `shapes` on the inputs `d`."""
     import torch
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
     from transmogrifai_tpu_torch.tools import hist_paths as HP
 
-    d = HP.kernel_inputs(rows, seed)
     N, F, B, Fo = d["N"], d["F"], d["B"], d["Fo"]
-    g, h = d["g"], d["h"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def nz(t):   # data-dependent work: nonzero payload entries
         return float((t != 0).sum())
 
-    specs = []
-    for label, name, S, args, kw in HP.hist_shapes(d):
-        if name == "route_hist":    # rows a level histograms: left rows
-            left = (TK.PLAIN["route"](d["Xb"], args[2], *args[3:])
-                    == 2 * args[2]).float()
-            n_bytes = TK.kernel_bytes("route_hist", F, N, Fo,
-                                      out_cells=Fo * S * 3 * F * B)
-            n_adds = F * (nz(g * left) + 2 * nz(h * left))
-            n_ops = n_adds + 4 * Fo * N
-            del left
-        elif label.startswith("rank"):
-            n_bytes = TK.kernel_bytes("hist_folds", 1, d["L"] * N, 1,
-                                      xb_itemsize=4,
-                                      out_cells=d["L"] * 2 * d["RB"])
-            n_ops = n_adds = nz(d["rpay"])
-        else:
-            n_bytes = TK.kernel_bytes("hist_folds", F, N, Fo,
-                                      out_cells=Fo * 3 * F * B)
-            n_ops = n_adds = F * (nz(g) + 2 * nz(h))
-        specs.append((name, label, S, args, kw, n_bytes, n_ops, n_adds))
-    specs += [
-        ("route", "last level: F=64 Fo=5 nodes=32", 32,
-         (d["Xb"], d["node32"], *d["tables32"]), dict(n_nodes=32),
-         TK.kernel_bytes("route", F, N, Fo), 4 * Fo * N, None),
-        ("table_lookup", "leaves: Fo=5 M=64", 64,
-         (d["leaf"], d["leaf_idx"]), {},
-         TK.kernel_bytes("table_lookup", F, N, Fo), Fo * N, None),
-    ]
     # library yardsticks, built when timed (their ids/weights take GBs)
     library = {
         "tree root": lambda a: _bincount_hist(a[0], a[1], F, B, Fo, 1,
@@ -142,71 +141,95 @@ def kernel_phase(rows: int, seed: int):
         "rank metric": lambda a: _bincount_hist(a[0], a[1], 1, d["RB"], 1,
                                                 d["L"], slot=a[2]),
         "leaves": lambda a: lambda: torch.where(
-            (a[1] >= 0) & (a[1] < 64),
-            torch.gather(a[0], 1, a[1].long().clamp(0, 63)), 0.0),
+            (a[1] >= 0) & (a[1] < a[0].shape[1]),
+            torch.gather(a[0], 1, a[1].long().clamp(0, a[0].shape[1] - 1)),
+            0.0),
     }
     rows_out = []
-    for name, label, S, args, kw, n_bytes, n_ops, n_adds in specs:
+    for label, name, S, args, kw in shapes:
+        n_adds = moved = None
+        if name == "route_hist":    # rows a level histograms: left rows
+            left = (HP.plain("route", (d["Xb"], *args[2:]), {})
+                    == 2 * args[2]).float()
+            n_bytes = TK.kernel_bytes("route_hist", F, N, Fo,
+                                      out_cells=Fo * S * 3 * F * B)
+            n_adds = F * (nz(d["g"] * left) + 2 * nz(d["h"] * left))
+            n_ops = n_adds + 4 * Fo * N
+            del left
+        elif label.startswith("rank"):
+            n_bytes = TK.kernel_bytes("hist_folds", 1, d["L"] * N, 1,
+                                      xb_itemsize=4,
+                                      out_cells=d["L"] * 2 * d["RB"])
+            n_ops = n_adds = nz(d["rpay"])
+        elif name == "hist_folds":
+            n_bytes = TK.kernel_bytes("hist_folds", F, N, Fo,
+                                      out_cells=Fo * 3 * F * B)
+            n_ops = n_adds = F * (nz(d["g"]) + 2 * nz(d["h"]))
+        elif name == "route":       # compares, select, multiply-add a lane
+            n_bytes = TK.kernel_bytes(
+                "route", F, N, Fo, bins_read=HP.route_bins_read(args[1],
+                                                                args[2]))
+            n_ops = 4 * Fo * N
+            # what the staged path moves: the node planes and a row of bins
+            # of every feature some lane's table splits on
+            moved = TK.kernel_bytes("route", F, N, Fo, bins_read=N * int(
+                torch.unique(args[2]).numel()))
+        else:                       # a compare and a select a lane
+            n_bytes = TK.kernel_bytes("table_lookup", 1, N, Fo)
+            n_ops = 2 * Fo * N
         dispatch = getattr(TK, name)
         got = dispatch(*args, **kw)
         torch.cuda.synchronize()
-        plain_kw = {} if name in ("route", "table_lookup") else kw
-        want = TK.PLAIN[name](*args, **plain_kw)
+        want = HP.plain(name, args, kw)
         err = HP.max_abs_err(got, want)
+        ok = HP.agrees(name, got, want, args, kw)
         if name in ("route", "table_lookup"):
-            ok, tol = err == 0.0, "exact"
+            tol = "exact"
         elif "rank" in label:     # 0/1 weights: integer sums are exact
-            ok, tol = err == 0.0, "exact (integer payloads)"
+            tol = "exact (integer payloads)"
         else:
             # both sides sum up to ~N/B f32 terms per cell in different
             # orders: hold each cell to 1e-4 of its sum of |terms| (about
             # 7 sqrt(n) ulps at n = 60K terms); the derived count channel
             # and the node ids are exact
-            ok = HP.agrees(name, got, want, args, kw)
             tol = ("g/h cells within 1e-4 of the cell's sum of |terms| "
                    "(f32 sums in another order); counts exact"
                    + ("; node ids exact" if name == "route_hist" else ""))
         del got, want
         torch.cuda.empty_cache()
-        path = earlier_ms = None
-        if name in ("hist_folds", "route_hist"):
-            path = TK.plan_hist(
-                args[0].shape[0], S, 3 if kw.get("derive_count") else 2,
-                kw["n_bins"], args[2].shape[0], args[0].shape[1],
-                torch.cuda.get_device_properties(0).multi_processor_count,
-                itemsize=args[0].element_size(),
-                route=name == "route_hist").path
-            turns = {}
-            for p in ("rows", None, None, "rows"):
-                turns.setdefault(p, []).append(HP.cuda_ms(
-                    lambda: dispatch(*args, **kw, path=p), reps=7))
-            ms = statistics.mean(turns[None])
-            earlier_ms = statistics.mean(turns["rows"])
-        else:
-            ms = HP.cuda_ms(lambda: dispatch(*args, **kw), reps=7)
-        plain_ms = HP.cuda_ms(lambda: TK.PLAIN[name](*args, **plain_kw),
-                              reps=3)
+        path = HP.planner(name, S, args, kw, n_sm)[0]().path
+        turns = {}
+        for p in ("rows", None, None, "rows"):
+            turns.setdefault(p, []).append(HP.cuda_ms(
+                lambda: dispatch(*args, **kw, path=p), reps=7))
+        ms = statistics.mean(turns[None])
+        earlier_ms = statistics.mean(turns["rows"])
+        plain_ms = HP.cuda_ms(lambda: HP.plain(name, args, kw), reps=3)
         make_lib = library.get(label.split(":")[0].split(",")[0])
         library_ms = None
         if make_lib is not None:
             library_ms = HP.cuda_ms(make_lib(args), reps=5)
+        # the streaming floor of route and table_lookup on this card: a
+        # device-to-device copy of the lane plane they read and write
+        copy_ms = (HP.cuda_ms(args[1].clone, reps=7)
+                   if name in ("route", "table_lookup") else None)
         b_ms, b_by = bound(n_bytes, n_ops)
+        key_f = 1 if name == "table_lookup" else args[0].shape[0]
         row = dict(name=name, shape=f"{label} N={args[1].shape[1]}",
                    route="cuda", source=SOURCE, replaces=REPLACES[name],
                    launches=None, max_abs_err=err, tolerance=tol, ok=ok,
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms, path=path, earlier_ms=earlier_ms,
                    smem_floor_ms=n_adds and smem_floor_ms(n_adds),
-                   key=(f"{name} F={args[0].shape[0]} S={S}"
-                        if path else name))
+                   copy_ms=copy_ms, moved_bytes=moved,
+                   key=f"{name} F={key_f} S={S}")
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
-            f"ms={ms:.4f} earlier_ms={earlier_ms} ({path} vs rows) "
+            f"ms={ms:.4f} earlier_ms={earlier_ms:.4f} ({path} vs rows) "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"smem_floor_ms={row['smem_floor_ms']} library_ms={library_ms}")
+            f"smem_floor_ms={row['smem_floor_ms']} copy_ms={copy_ms} "
+            f"library_ms={library_ms}")
         rows_out.append(row)
         torch.cuda.empty_cache()
-    del d
-    torch.cuda.empty_cache()
     return rows_out
 
 
@@ -325,7 +348,12 @@ def main_phase(rows: int, n_configs: int, seed: int, dev=None):
                cells={json.dumps(v.grid, sort_keys=True): v.mean_metric
                       for v in best.validated})
     log("main: " + json.dumps(res))
+    # the last level's route and the leaf lookup of every depth swept
+    depths = {g["max_depth"] for g in grids}
+    shapes = ([f"route F={X.shape[1]} S={1 << (dp - 1)}" for dp in depths]
+              + [f"table_lookup F=1 S={1 << dp}" for dp in depths])
     ok = (all(n > 0 for n in launches.values())
+          and all(shape_launches.get(k, 0) > 0 for k in shapes)
           and prob.shape == (rows, 2) and raw.shape == (rows, 2)
           and pred.shape == (rows,)
           and bool(torch.isfinite(torch.as_tensor(prob)).all())
@@ -369,6 +397,9 @@ def profile_phase(X, y, grid) -> bool:
             per[ev.key] = (dt / 1e3, ev.count)
     busy = sum(ms for ms, _ in per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
+    ours = sorted((kv for kv in per.items()
+                   if re.search(r"(hist|route|lookup)\w*_kernel", kv[0])),
+                  key=lambda kv: -kv[1][0])
     fit_bytes = TK.fused_fit_bytes(X.shape[0], X.shape[1], 5,
                                    grid["max_depth"], grid["num_round"])
     log("profile: " + json.dumps(dict(
@@ -376,7 +407,9 @@ def profile_phase(X, y, grid) -> bool:
         device_busy_ms=busy, busy_share=busy / (prof_s * 1e3),
         fit_bytes=fit_bytes, fit_bound_ms=bound(fit_bytes, 0)[0],
         top=[dict(kernel=k[:80], ms=ms, calls=n, share=ms / busy)
-             for k, (ms, n) in top])))
+             for k, (ms, n) in top],
+        port_kernels=[dict(kernel=k[:80], ms=ms, calls=n, share=ms / busy)
+                      for k, (ms, n) in ours])))
     return busy > 0
 
 
@@ -384,7 +417,6 @@ def sass_phase(lib_path: str) -> None:
     """Shared-memory atomics in the built kernels, from the SASS: how many
     ATOMS instructions of each kind each kernel holds (a CAS loop shows as
     ATOMS.CAST.SPIN / ATOMS.CAS, a native add as ATOMS.ADD)."""
-    import re
     from transmogrifai_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -438,7 +470,7 @@ def main() -> int:
     sass_phase(lib._name)
 
     failures = []
-    rows = kernel_phase(KERNEL_ROWS, SEED)
+    rows = kernel_phase(SEED)
     failures += [f"kernel {r['name']} ({r['shape']})" for r in rows
                  if not r.pop("ok")]
     small_ok, _ = small_phase(SEED)
@@ -452,8 +484,7 @@ def main() -> int:
         failures.append("profile: no device time")
     del X, y
     for r in rows:
-        key = r.pop("key")    # a histogram shape, else the whole kernel
-        r["launches"] = shape_launches.get(key, launches.get(key, 0))
+        r["launches"] = shape_launches.get(r.pop("key"), 0)
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -157,3 +157,127 @@ def test_cuda_histogram_paths_match_plain(cuda_device, case):
         np.testing.assert_array_equal(hist, want)
     if name == "route_hist":
         np.testing.assert_array_equal(got[1].cpu().numpy(), cpu[1].numpy())
+
+
+def _on_card(a, device, offset):
+    """A numpy array on the card; with `offset`, as a contiguous view that
+    starts `offset` elements into a larger buffer (not 16-byte aligned)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if not offset:
+        return t.to(device)
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=device)
+    buf[offset:].copy_(t.reshape(-1).to(device))
+    return buf[offset:].view(t.shape)
+
+
+def _lane_case(name, Fo, S, N, dtype, seed=11):
+    """Seeded inputs of one route or table_lookup launch. route: bins with
+    0 = missing, valid node ids, split tables; table_lookup: a [Fo, S]
+    table and ids below 0, at S, above S, fractional and NaN."""
+    rng = np.random.default_rng(seed)
+    if name == "route":
+        F = 64
+        Xb_t = rng.integers(0, 33, size=(F, N)).astype(dtype)
+        node = rng.integers(0, S, size=(Fo, N)).astype(np.float32)
+        tables = [rng.integers(0, hi, size=(Fo, S)).astype(np.int32)
+                  for hi in (F, 33, 2)]
+        return (Xb_t, node, *tables), dict(n_nodes=S)
+    tbl = rng.normal(size=(Fo, S)).astype(np.float32)
+    idx = rng.integers(-2, S + 3, size=(Fo, N)).astype(np.float32)
+    idx[:, :4] = [-1.0, S, S + 1, np.nan]
+    idx[:, 4:6] = [-0.5, S - 0.5]
+    return (tbl, idx), {}
+
+
+# (kernel, Fo, S, N, bin dtype, offset, forced path): S = nodes or leaves;
+# N = 20 000 is a multiple of 4, N = 3001 is not, N = 100 is smaller than
+# one tile; offset 1 starts the first two inputs (route's bins and node
+# plane, the lookup's table and ids) one element into their buffers (not
+# 16-byte aligned); S = 8192 nodes (5 lanes) and 70 000 leaves are tables
+# too large for shared memory. The planner takes route's staged path for
+# 1-byte bins at 5 lanes, the rows path for int32 bins at 5 lanes and for
+# 8192 nodes.
+LANE_CASES = [
+    ("route", 5, 32, 20_000, np.int8, 0, None),
+    ("route", 5, 32, 20_000, np.int8, 0, "staged"),
+    ("route", 5, 32, 20_000, np.int8, 0, "rows"),
+    ("route", 5, 8, 20_000, np.uint8, 1, None),
+    ("route", 5, 8, 3001, np.int32, 0, None),
+    ("route", 5, 32, 3001, np.int32, 1, None),
+    ("route", 5, 8, 20_000, np.int32, 0, "staged"),
+    ("route", 5, 32, 20_000, np.int32, 1, "staged"),
+    ("route", 1, 8, 3001, np.uint8, 0, "staged"),
+    ("route", 1, 32, 3001, np.int8, 1, "staged"),
+    ("route", 5, 32, 3001, np.int8, 1, "staged"),
+    ("route", 5, 1, 100, np.int8, 0, None),
+    ("route", 1, 1, 100, np.int32, 1, "staged"),
+    ("route", 5, 8192, 3001, np.int8, 0, None),
+    ("route", 1, 32, 20_000, np.uint8, 0, "rows"),
+    ("table_lookup", 5, 64, 20_000, None, 0, None),
+    ("table_lookup", 5, 16, 20_000, None, 0, "rows"),
+    ("table_lookup", 1, 16, 3001, None, 0, None),
+    ("table_lookup", 5, 64, 3001, None, 1, None),
+    ("table_lookup", 5, 16, 20_000, None, 1, "rows"),
+    ("table_lookup", 1, 64, 100, None, 0, None),
+    ("table_lookup", 5, 64, 100, None, 1, "rows"),
+    ("table_lookup", 1, 70_000, 3001, None, 0, None),
+    ("table_lookup", 2, 70_000, 20_000, None, 1, "rows"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", LANE_CASES,
+    ids=lambda c: f"{c[0]}-Fo{c[1]}-S{c[2]}-N{c[3]}"
+                  f"{'-' + np.dtype(c[4]).name if c[4] else ''}"
+                  f"{'-offset' if c[5] else ''}-{c[6] or 'planned'}")
+def test_cuda_lane_kernels_match_plain(cuda_device, case):
+    """route and table_lookup on every path, forced and planned, exact
+    against the plain version; each call launches its kernel once."""
+    name, Fo, S, N, dtype, offset, path = case
+    args, kw = _lane_case(name, Fo, S, N, dtype)
+    cpu = TK.PLAIN[name](*[torch.from_numpy(a) for a in args])
+    # route's bins and node plane, the lookup's table and id plane at the
+    # offset
+    card = [_on_card(a, cuda_device, offset if j < 2 else 0)
+            for j, a in enumerate(args)]
+    key = f"{name} F={64 if name == 'route' else 1} S={S}"
+    before, before_shape = TK.launches[name], TK.shape_launches[key]
+    got = getattr(TK, name)(*card, **kw, path=path)
+    torch.cuda.synchronize()
+    assert TK.launches[name] == before + 1
+    assert TK.shape_launches[key] == before_shape + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+
+
+def _route_reference(Xb_t, node, tf, tt, tm):
+    """route's whole contract in numpy: node ids outside [0, n_nodes) (NaN
+    too) route as feature 0, threshold 0, missing direction 0; a split
+    feature outside [0, F) reads feature 0."""
+    F, N = Xb_t.shape
+    inside = (node >= 0) & (node < tf.shape[1])
+    nd = np.where(inside, node, 0).astype(np.int64)
+    f, t, m = (np.where(inside, np.take_along_axis(tb, nd, 1), 0)
+               for tb in (tf, tt, tm))
+    f = np.where((f < 0) | (f >= F), 0, f)
+    x = Xb_t[f, np.arange(N)[None, :]].astype(np.int64)
+    return node * 2 + ((x > t) | ((x == 0) & (m > 0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [20_000, 3001, 100])
+@pytest.mark.parametrize("path", [None, "staged", "rows"])
+def test_cuda_route_out_of_range_ids_and_features(cuda_device, path, N):
+    """Node ids below 0, at and above n_nodes and NaN, and split features
+    outside [0, F), on every route path, against the numpy contract."""
+    (Xb_t, node, tf, tt, tm), kw = _lane_case("route", 5, 32, N, np.int8,
+                                              seed=13)
+    node[:, :5] = [-1.0, 32.0, 40.0, np.nan, -0.5]
+    tf[:, :3] = [-3, 64, 70]
+    want = _route_reference(Xb_t, node, tf, tt, tm)
+    before = TK.launches["route"]
+    got = TK.route(*[torch.from_numpy(a).to(cuda_device)
+                     for a in (Xb_t, node, tf, tt, tm)], **kw, path=path)
+    torch.cuda.synchronize()
+    assert TK.launches["route"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -289,8 +289,10 @@ def test_hist_tiling_refuses_a_path_that_does_not_fit(path, F, S, B,
 @pytest.mark.parametrize("n_bins", [33, 257])
 def test_kernel_timing_inputs_cover_the_main_path_shapes(n_bins):
     """The inputs chip_smoke.py and tools/hist_paths.py time the kernels on:
-    every histogram shape of the sweep, bins of the binning's dtype, and an
-    agreement check that holds a result to itself and rejects a change."""
+    every histogram, route and leaf-lookup shape of the sweep (route at 8
+    and 32 nodes, and at 32 with one split table shared by every lane),
+    bins of the binning's dtype, and an agreement check that holds a result
+    to itself and rejects a change."""
     from transmogrifai_tpu_torch.tools import hist_paths as HP
     d = HP.kernel_inputs(300, 0, dev="cpu", n_bins=n_bins)
     assert d["Xb"].dtype == (torch.int8 if n_bins == 33 else torch.int32)
@@ -298,11 +300,130 @@ def test_kernel_timing_inputs_cover_the_main_path_shapes(n_bins):
     assert [(name, S) for _, name, S, _, _ in shapes] == [
         ("hist_folds", 1), ("hist_folds", 1), ("hist_folds", 5)] + [
         ("route_hist", S) for S in (1, 2, 4, 8, 16)]
-    for label, name, S, args, kw in (shapes[0], shapes[2], shapes[4]):
+    lanes = HP.lane_shapes(d)
+    assert [(name, S) for _, name, S, _, _ in lanes] == [
+        ("route", 8), ("route", 32), ("route", 32), ("table_lookup", 16),
+        ("table_lookup", 64)]
+    shared, apart = lanes[2][3][2:], lanes[1][3][2:]
+    assert all(bool((t == t[:1]).all()) for t in shared)
+    assert not bool((apart[0] == apart[0][:1]).all())
+    for label, name, S, args, kw in (shapes[0], shapes[2], shapes[4],
+                                     lanes[0], lanes[2], lanes[4]):
         got = getattr(TK, name)(*args, **kw)
-        assert HP.agrees(name, got, TK.PLAIN[name](*args, **kw), args, kw)
+        assert HP.agrees(name, got, HP.plain(name, args, kw), args, kw)
         bad = tuple(t.clone() for t in (got if isinstance(got, tuple)
                                         else (got,)))
         bad[0][0] += 1.0
         assert not HP.agrees(name, bad if name == "route_hist" else bad[0],
                              got, args, kw)
+        if name == "route":
+            n_read = HP.route_bins_read(args[1], args[2])
+            assert d["N"] <= n_read <= d["Fo"] * d["N"]
+    lean = HP.kernel_inputs(300, 0, dev="cpu", n_bins=n_bins, hist=False)
+    assert "pay" not in lean and [s[:3] for s in HP.lane_shapes(lean)] == [
+        s[:3] for s in lanes]
+
+
+def test_route_bins_read_counts_each_rows_distinct_features():
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
+    node = torch.tensor([[0., 1., 1.], [1., 1., 0.], [0., 0., 0.]])
+    f_lvl = torch.tensor([[3, 7], [3, 7], [3, 3]], dtype=torch.int32)
+    # row 0: features 3, 7, 3; row 1: 7, 7, 3; row 2: 7, 3, 3
+    assert HP.route_bins_read(node, f_lvl) == 6
+    assert TK.kernel_bytes("route", 64, 3, 3, bins_read=6) == 6 + 3 * 2 * 12
+    assert TK.kernel_bytes("route", 64, 3, 3) == 9 + 3 * 2 * 12
+
+
+# (kernel, F, S, lanes, N, bin itemsize, path the planner must choose): the
+# main path's shapes at 10M rows (the sweep's 5 lanes and the refit's 1;
+# route at 8 and 32 nodes, the 16- and 64-leaf lookups), then shapes off
+# it: int32 bins (at 8 nodes the staged copy reads 40 features x 4 B a row,
+# as many bytes as 5 lanes' gathered sectors, not fewer), one lane under 8
+# and 32 nodes (8 and 32 bytes a row against one 32-byte sector), a row
+# count that is no multiple of 4, and tables too large for a block's
+# shared memory
+LANE_PLANS = [
+    ("route", 64, 8, 5, 10_000_000, 1, "staged"),
+    ("route", 64, 32, 5, 10_000_000, 1, "staged"),
+    ("route", 64, 8, 1, 10_000_000, 1, "staged"),
+    ("route", 64, 32, 1, 10_000_000, 1, "rows"),
+    ("table_lookup", 1, 16, 5, 10_000_000, 4, "rows"),
+    ("table_lookup", 1, 64, 5, 10_000_000, 4, "rows"),
+    ("table_lookup", 1, 16, 1, 10_000_000, 4, "rows"),
+    ("table_lookup", 1, 64, 1, 10_000_000, 4, "rows"),
+    ("route", 64, 8, 5, 10_000_000, 4, "rows"),
+    ("route", 64, 32, 5, 10_000_000, 4, "rows"),
+    ("route", 64, 64, 5, 10_000_000, 1, "staged"),
+    ("route", 64, 32, 5, 3001, 1, "staged"),
+    ("route", 64, 8192, 5, 3008, 1, "rows"),
+    ("table_lookup", 1, 70_000, 1, 3001, 4, "rows"),
+]
+
+
+def _lane_plan(name, F, S, lanes, N, itemsize, path=None):
+    if name == "route":
+        return TK.plan_route(F, S, lanes, N, n_sm=132, itemsize=itemsize,
+                             path=path)
+    return TK.plan_lookup(S, lanes, N, n_sm=132, path=path)
+
+
+def _staged_smem(F, S, lanes, itemsize):
+    """The staged route's block: packed tables, feature map and list, and a
+    512-row tile (16 bytes more a row) of the bins of min(F, lanes x S)
+    features."""
+    return (-(-8 * lanes * (S + 1) // 16) * 16 + 8 * F
+            + min(F, lanes * S) * (512 * itemsize + 16))
+
+
+def _check_grid(tl, F, S, lanes, N, itemsize):
+    """The rows path: 512 threads, a row each, at most 8 blocks an SM of
+    132 SMs; the staged path: a persistent grid that stays resident (6
+    blocks an SM, fewer where 228 KiB of shared memory run out), no more
+    blocks than 512-row tiles, and shared memory that fits a block
+    (232 448 B)."""
+    if tl.path == "rows":
+        assert (tl.threads, tl.smem_bytes) == (512, 0)
+        assert tl.blocks == min(-(-N // 512), 8 * 132)
+        return
+    assert tl.threads == 128
+    assert tl.smem_bytes == _staged_smem(F, S, lanes, itemsize) <= 232_448
+    per_sm = min(6, 233_472 // (tl.smem_bytes + 1024))
+    assert 1 <= tl.blocks == min(-(-N // 512), per_sm * 132)
+
+
+@pytest.mark.parametrize("case", LANE_PLANS,
+                         ids=lambda c: f"{c[0]}-S{c[2]}-Fo{c[3]}-N{c[4]}"
+                                       f"-{c[5]}B")
+def test_lane_kernel_plan_fits_the_card(case):
+    """The planner of route and table_lookup at the main path's shapes and
+    off it: its path, and a grid and shared memory that fit the card."""
+    name, F, S, lanes, N, itemsize, path = case
+    tl = _lane_plan(name, F, S, lanes, N, itemsize)
+    assert tl.path == path
+    _check_grid(tl, F, S, lanes, N, itemsize)
+
+
+@pytest.mark.parametrize("name,F,S,lanes,itemsize,path", [
+    ("route", 64, 32, 5, 4, "staged"),
+    ("route", 64, 8, 1, 4, "staged"),
+    ("route", 64, 32, 5, 1, "rows"),
+    ("table_lookup", 1, 64, 5, 4, "rows"),
+])
+def test_forced_lane_paths(name, F, S, lanes, itemsize, path):
+    """A forced path keeps its own block and shared memory, where the
+    planner would choose the other one too."""
+    tl = _lane_plan(name, F, S, lanes, 10_000_000, itemsize, path)
+    assert tl.path == path
+    _check_grid(tl, F, S, lanes, 10_000_000, itemsize)
+
+
+@pytest.mark.parametrize("name,F,S,itemsize,path", [
+    ("route", 64, 8192, 1, "staged"),     # tables beside the tile: too big
+    ("route", 200, 32, 4, "staged"),      # 160 x 512 int32 bins: too big
+    ("route", 64, 8, 1, "lanes"),
+    ("table_lookup", 1, 64, 4, "staged"),
+])
+def test_lane_plan_refuses_a_path_that_does_not_fit(name, F, S, itemsize,
+                                                    path):
+    with pytest.raises(ValueError, match="do not fit|unknown"):
+        _lane_plan(name, F, S, 5, 10_000, itemsize, path)

@@ -5,7 +5,7 @@
 //   hist_fm_kernel<ROUTE=false>, hist_kernel  <- _kernel            (hist_folds)
 //   hist_fm_kernel<ROUTE=true>, route_hist_kernel
 //                                             <- _route_hist_kernel (route_hist)
-//   route_kernel                              <- _route_kernel      (route)
+//   route_staged_kernel, route_kernel         <- _route_kernel      (route)
 //   lookup_kernel                             <- _lookup_kernel     (table_lookup)
 //
 // The TPU kernels build one-hot tiles and contract them on the MXU because
@@ -26,6 +26,12 @@
 //     with shared atomics; kept for narrow F (the rank-metric counts have
 //     F = 1), where mapping threads to features would idle most of a warp,
 //     and for histograms too wide for one pass of the features path.
+// Routing has two paths, chosen per shape by plan_route: staged
+// (route_staged_kernel: every lane of a row tile in one block, the tile's
+// bins of the features the tables use copied into shared memory) where
+// that copy reads fewer bytes than the gathers, and rows (route_kernel: the
+// row-mapped kernel, a grid row per lane). The leaf lookup is row-mapped
+// (lookup_kernel).
 //
 // Every entry point launches on the stream it is given, allocates nothing
 // and returns cudaGetLastError() (0 on success). The Python wrappers in
@@ -630,10 +636,16 @@ __global__ void __launch_bounds__(kThreads, 1) hist_fm_kernel(const FmArgs a) {
   }
 }
 
-// B3. Replaces _route_kernel (pallas_hist.py:598): one level of routing for
-// every lane. Elementwise over (lane, row); bound by bytes (node read and
-// write per lane, one bin byte gathered per lane and row). The tables are
-// a few hundred bytes and stay in L1.
+// B3, rows path. Replaces _route_kernel (pallas_hist.py:598): out[k, i] =
+// 2 * node[k, i] + right (go_right), one lane per blockIdx.y, one row per
+// thread. Bound on this card: bytes — each lane's node plane read and
+// written once and the selected bins. What holds it back: a gathered bin
+// costs a 32-byte sector (the rows of a warp sit at different nodes, so on
+// different feature rows), a row's bins are gathered anew for each lane,
+// and each row runs the dependent chain node -> split tables -> bin.
+// plan_route takes it where the staged copy below would read more bytes
+// than those sectors (wide bins under many split features) or does not fit
+// in shared memory.
 template <typename XT>
 __global__ void route_kernel(const XT* __restrict__ xb,
                              const float* __restrict__ node,
@@ -654,9 +666,16 @@ __global__ void route_kernel(const XT* __restrict__ xb,
   }
 }
 
-// B4. Replaces _lookup_kernel (pallas_hist.py:866): out[k, i] =
-// tbl[k, idx[k, i]], 0 for ids outside [0, M). Elementwise, bound by bytes
-// (one id read and one value written per lane and row).
+// B4. Replaces _lookup_kernel (pallas_hist.py:866): out[k, i] = tbl[k,
+// idx[k, i]], 0 for ids outside [0, M) (compared in f32 before the cast, so
+// NaN gives 0); one lane per blockIdx.y, one row per thread. Bound on this
+// card: bytes — one id read and one value written a lane and row, the
+// traffic of a copy. It streams at about 81% of a device copy of the same
+// plane at 10M rows (PERF.md); the table stays in L1. Every lane's table in
+// shared memory, all lanes in one block, 16-byte id vectors, unrolled
+// persistent grids and a ring of TMA bulk copies were each measured against
+// it on the H100 and none was faster beyond the spread between turns, so
+// this simple form is the one kept.
 __global__ void lookup_kernel(const float* __restrict__ tbl,
                               const float* __restrict__ idx,
                               float* __restrict__ out, int M, long long N) {
@@ -667,6 +686,267 @@ __global__ void lookup_kernel(const float* __restrict__ tbl,
     const float x = idx[off + i];
     out[off + i] = (x >= 0.f && x < (float)M)
                        ? tbl[(long long)k * M + (int)x] : 0.f;
+  }
+}
+
+// -- staged path of route -----------------------------------------------------
+
+// Paths of the routing entry point (plan_route).
+constexpr int kRoutePathRows = 0;     // row-mapped: grid (blocks, lanes)
+constexpr int kRoutePathStaged = 1;   // every lane of a row tile in a block
+constexpr int kLaneRows = 4;          // rows a thread (one float4 a lane)
+constexpr int kLaneGroup = 4;         // lanes whose node loads are in flight
+constexpr int kStagedThreads = 128;   // staged path block
+constexpr int kStagedRows = kLaneRows * kStagedThreads;   // a staged tile
+
+// Row values i .. i + 3 of one lane plane: one 16-byte load where the plane
+// is 16-byte aligned and N % 4 == 0 (VEC), else scalar loads; rows past N
+// read 0 and are never stored.
+template <bool VEC>
+__device__ __forceinline__ void load_rows(const float* __restrict__ p,
+                                          long long i, long long N,
+                                          float (&v)[kLaneRows]) {
+  if (VEC) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p + i));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kLaneRows; ++e) v[e] = i + e < N ? __ldg(p + i + e) : 0.f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_rows(float* __restrict__ p, long long i,
+                                           long long N,
+                                           const float (&v)[kLaneRows]) {
+  if (VEC) {
+    *reinterpret_cast<float4*>(p + i) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kLaneRows; ++e)
+      if (i + e < N) p[i + e] = v[e];
+  }
+}
+
+// One node's split as the staged path keeps it: x = the feature, clamped to
+// 0 outside [0, F), with the missing direction (m > 0) in bit 31; y = the
+// threshold. Node ids outside the table (`in` false) route as feature 0,
+// threshold 0, missing direction 0, as go_right.
+__device__ __forceinline__ int2 pack_split(const int* __restrict__ tf,
+                                           const int* __restrict__ tt,
+                                           const int* __restrict__ tm,
+                                           long long at, bool in, int F) {
+  int fs = 0, t = 0, m = 0;
+  if (in) {
+    fs = __ldg(tf + at);
+    t = __ldg(tt + at);
+    m = __ldg(tm + at);
+  }
+  if (fs < 0 || fs >= F) fs = 0;
+  return make_int2(fs | (m > 0 ? (int)0x80000000u : 0), t);
+}
+
+// Bytes of the packed split tables in shared memory: lanes x (n_nodes + 1)
+// int2 (entry n_nodes is the out-of-range split), rounded up to 16 so the
+// staged bins behind them stay 16-byte aligned. plan_route mirrors it.
+__host__ __device__ inline long long route_table_bytes(int lanes,
+                                                       int n_nodes) {
+  return (8LL * lanes * (n_nodes + 1) + 15) / 16 * 16;
+}
+
+// Bytes of one feature's row in the staged tile: kStagedRows bins and 16
+// more, because a feature's row of bins need not start on 16 bytes and the
+// copy keeps each 16-byte chunk at its offset. plan_route mirrors it.
+__host__ __device__ constexpr int staged_row_bytes(int itemsize) {
+  return kStagedRows * itemsize + 16;
+}
+
+// Shared memory of route_staged_kernel: the packed tables, the feature ->
+// staged-row map and the list of staged features (F ints each), and a
+// kStagedRows-row tile of at most min(F, lanes x n_nodes) features' bins —
+// the features some lane's table splits on. plan_route mirrors it.
+__host__ __device__ inline long long route_staged_bytes(int F, int lanes,
+                                                        int n_nodes,
+                                                        int itemsize) {
+  const long long used = F < (long long)lanes * n_nodes
+                             ? F : (long long)lanes * n_nodes;
+  return route_table_bytes(lanes, n_nodes) + (8LL * F + 15) / 16 * 16 +
+         used * staged_row_bytes(itemsize);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+struct RouteArgs {
+  const void* xb;          // [F, N] bins
+  const float* node;       // [lanes, N] node ids
+  const int* tf;           // [lanes, n_nodes] split tables
+  const int* tt;
+  const int* tm;
+  float* out;              // [lanes, N] next node ids
+  long long N;
+  int F, lanes, n_nodes;
+};
+
+// Route rows i .. i + 3 of every lane of the staged tile, kLaneGroup lanes
+// at a time: the node loads of a group are issued first (the first group's
+// while the tile's copy lands), then its split lookups in the packed tables
+// `tbl` and its bin reads from the tile `xs` (a split's x is the byte of its
+// feature's row 0 in `xs` + 1; 0 reads feature 0 from global memory), and
+// only then any decision; new ids go out as 4-row vectors. Rows past N are
+// neither read nor stored.
+template <typename XT, bool VEC>
+__device__ __forceinline__ void route_rows(const RouteArgs& a, long long i,
+                                           const int2* tbl,
+                                           const unsigned char* xs) {
+  constexpr int G = kLaneGroup;
+  const long long N = a.N;
+  const int n1 = a.n_nodes + 1;
+  const int row = kLaneRows * threadIdx.x;   // of i in the tile
+  for (int k0 = 0; k0 < a.lanes; k0 += G) {
+    float nd[G][kLaneRows];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      if (k0 + j < a.lanes && i < N)
+        load_rows<VEC>(a.node + (long long)(k0 + j) * N, i, N, nd[j]);
+    if (k0 == 0) {   // the tile's bins have landed
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+    }
+    int2 sp[G][kLaneRows];
+    int x[G][kLaneRows];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+#pragma unroll
+      for (int e = 0; e < kLaneRows; ++e) {
+        sp[j][e] = make_int2(0, 0);
+        x[j][e] = 0;
+        if (k0 + j >= a.lanes || i + e >= N) continue;
+        const float v = nd[j][e];
+        const bool in = v >= 0.f && v < (float)a.n_nodes;
+        sp[j][e] = tbl[(k0 + j) * n1 + (in ? (int)v : a.n_nodes)];
+        const int at = sp[j][e].x & 0x7fffffff;
+        x[j][e] = at ? (int)*reinterpret_cast<const XT*>(
+                           xs + at - 1 + (row + e) * (int)sizeof(XT))
+                     : (int)__ldg(static_cast<const XT*>(a.xb) + i + e);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (k0 + j >= a.lanes || i >= N) continue;
+      float o[kLaneRows];
+#pragma unroll
+      for (int e = 0; e < kLaneRows; ++e) {
+        const int right =
+            (x[j][e] > sp[j][e].y) || (x[j][e] == 0 && sp[j][e].x < 0);
+        o[e] = 2.f * nd[j][e] + (float)right;
+      }
+      store_rows<VEC>(a.out + (long long)(k0 + j) * N, i, N, o);
+    }
+  }
+}
+
+// B3, staged path. Replaces _route_kernel (pallas_hist.py:598), the same
+// function as route_kernel. Bound on this card: bytes, as route_kernel.
+// The row-mapped kernel pays a 32-byte sector for each gathered bin, once
+// per lane. Here one block takes a 512-row tile for every lane: it first
+// packs the split tables into shared memory (feature | missing bit,
+// threshold; one entry more for node ids outside the table) and finds the
+// features they use (every lane, every node: at most lanes x n_nodes of
+// F); then, per tile, it copies just those features' rows of bins into
+// shared memory in 16-byte chunks with coalesced cp.async (a feature's row
+// need not start on 16 bytes: the chunks start at its start rounded down,
+// and each lands at its own offset) while the node ids of 4 lanes load as
+// 16-byte vectors, and decides 4 rows x every lane a thread from shared
+// memory (a thread's 4 rows are one word of a feature row: no bank
+// conflicts for 1-byte bins). A tile costs F_used rows of bins read whole, in place of
+// sectors gathered for single bins. Node ids outside the table route on
+// feature 0, read from global memory. The grid is persistent, several
+// blocks an SM, so that one block's copy overlaps another's decisions.
+template <typename XT, bool VEC>
+__global__ void __launch_bounds__(kStagedThreads, 6)
+    route_staged_kernel(const RouteArgs a) {
+  extern __shared__ __align__(16) unsigned char lane_smem[];
+  __shared__ int n_used;
+  constexpr int RB = staged_row_bytes(sizeof(XT));
+  constexpr int CPR = RB / 16;   // 16-byte chunks of a staged row
+  const int n1 = a.n_nodes + 1, tid = threadIdx.x;
+  const long long N = a.N;
+  const unsigned long long base = reinterpret_cast<unsigned long long>(a.xb);
+  int2* tbl = reinterpret_cast<int2*>(lane_smem);
+  int* fslot = reinterpret_cast<int*>(lane_smem +
+                                      route_table_bytes(a.lanes, a.n_nodes));
+  int* used = fslot + a.F;
+  unsigned char* xs =
+      reinterpret_cast<unsigned char*>(fslot) + (8LL * a.F + 15) / 16 * 16;
+  for (int f = tid; f < a.F; f += kStagedThreads) fslot[f] = -1;
+  for (int j = tid; j < a.lanes * n1; j += kStagedThreads) {
+    const int k = j / n1, nd = j - k * n1;
+    tbl[j] = pack_split(a.tf, a.tt, a.tm, (long long)k * a.n_nodes + nd,
+                        nd < a.n_nodes, a.F);
+  }
+  __syncthreads();
+  for (int j = tid; j < a.lanes * n1; j += kStagedThreads)
+    if (j % n1 != a.n_nodes) fslot[tbl[j].x & 0x7fffffff] = 1;
+  __syncthreads();
+  if (tid == 0) {
+    int c = 0;
+    for (int f = 0; f < a.F; ++f)
+      if (fslot[f] > 0) {
+        fslot[f] = c;
+        used[c++] = f;
+      }
+    n_used = c;
+  }
+  __syncthreads();
+  // the split's x: the byte of its feature's row 0 in the tile + 1 — a
+  // tile starts on a multiple of 16 bytes of the feature's row, so the
+  // row's offset in its first chunk is the same in every tile
+  for (int j = tid; j < a.lanes * n1; j += kStagedThreads) {
+    const int x = tbl[j].x, f = x & 0x7fffffff;
+    const int at =
+        j % n1 == a.n_nodes
+            ? 0
+            : 1 + fslot[f] * RB +
+                  (int)((base + (unsigned long long)f * N * sizeof(XT)) & 15);
+    tbl[j].x = at | (x & (int)0x80000000u);
+  }
+  __syncthreads();
+  constexpr int R = kStagedRows;
+  const int nu = n_used;
+  const long long n_tiles = (N + R - 1) / R;
+  const unsigned long long end =
+      base + (unsigned long long)a.F * N * sizeof(XT);
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long r0 = t * R;
+    const long long n_valid = N - r0 < R ? N - r0 : R;
+    // the tile's bins [s, e) of each used feature, chunk by chunk from s
+    // rounded down to 16 bytes, each chunk with one cp.async; only a chunk
+    // that reaches outside the bin matrix (its first or its last) is copied
+    // bin by bin, so no byte outside the matrix is read
+    for (int c = tid; c < nu * CPR; c += kStagedThreads) {
+      const int u = c / CPR, q = c - u * CPR;
+      const unsigned long long s =
+          base + ((unsigned long long)used[u] * N + r0) * sizeof(XT);
+      const unsigned long long e = s + n_valid * sizeof(XT);
+      const unsigned long long g = (s & ~15ULL) + 16ULL * q;
+      unsigned char* d = xs + u * RB + 16 * q;
+      if (g >= e) continue;
+      if (g >= base && g + 16 <= end) {
+        cp_async16(d, reinterpret_cast<const void*>(g));
+      } else {
+        for (int b = 0; b < 16; b += (int)sizeof(XT))
+          if (g + b >= s && g + b < e)
+            *reinterpret_cast<XT*>(d + b) =
+                *reinterpret_cast<const XT*>(g + b);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    route_rows<XT, VEC>(a, r0 + (long long)kLaneRows * tid, tbl, xs);
+    __syncthreads();   // every thread is done with the tile
   }
 }
 
@@ -758,6 +1038,28 @@ int launch_route_hist(const void* xb, const float* pay, const float* node,
   return launch_fm<XT, true>(a, path, blocks, smem, stream);
 }
 
+// route: the rows path on a grid (blocks, lanes) of `threads`; the staged
+// path on a persistent grid of `blocks`, after checking the launch shape
+// against the kernel's own layout.
+template <typename XT>
+int launch_route(const RouteArgs& a, int path, int blocks, int threads,
+                 int smem, cudaStream_t stream) {
+  if (path == kRoutePathRows)
+    return launch(route_kernel<XT>, dim3(blocks, a.lanes), threads, 0, stream,
+                  static_cast<const XT*>(a.xb), a.node, a.tf, a.tt, a.tm,
+                  a.out, a.F, a.N, a.n_nodes);
+  if (path != kRoutePathStaged || threads != kStagedThreads ||
+      smem != route_staged_bytes(a.F, a.lanes, a.n_nodes, sizeof(XT)))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<unsigned long long>(a.node) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(a.out) % 16 == 0 &&
+                   a.N % kLaneRows == 0;
+  return vec ? launch(route_staged_kernel<XT, true>, dim3(blocks), threads,
+                      smem, stream, a)
+             : launch(route_staged_kernel<XT, false>, dim3(blocks), threads,
+                      smem, stream, a);
+}
+
 // Call fn with a value of the bin type of xb_kind: 0 = int8, 1 = uint8,
 // 2 = int32 (the bin_dtype widths).
 template <typename Fn>
@@ -806,24 +1108,25 @@ int tk_route_hist(const void* xb, int xb_kind, const float* pay,
   });
 }
 
+// path: 0 = rows (row-mapped, grid blocks x Fo of `threads`), 1 = staged
+// (persistent grid of `blocks`); smem: the dynamic shared memory of one
+// block, as plan_route computed it.
 int tk_route(const void* xb, int xb_kind, const float* node, const int* tf,
              const int* tt, const int* tm, float* out, int F, long long N,
-             int Fo, int n_nodes, int blocks, int threads, void* stream) {
+             int Fo, int n_nodes, int path, int blocks, int threads, int smem,
+             void* stream) {
+  const RouteArgs a{xb, node, tf, tt, tm, out, N, F, Fo, n_nodes};
   return by_kind(xb_kind, [&](auto tag) {
-    using XT = decltype(tag);
-    route_kernel<XT><<<dim3(blocks, Fo), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const XT*>(xb), node, tf, tt, tm, out, F, N, n_nodes);
-    return (int)cudaGetLastError();
+    return launch_route<decltype(tag)>(a, path, blocks, threads, smem,
+                                       static_cast<cudaStream_t>(stream));
   });
 }
 
+// A grid of blocks x Fo blocks of `threads` (plan_lookup).
 int tk_lookup(const float* tbl, const float* idx, float* out, int M,
               long long N, int Fo, int blocks, int threads, void* stream) {
-  dim3 grid(blocks, Fo);
-  lookup_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tbl, idx, out, M, N);
-  return (int)cudaGetLastError();
+  return launch(lookup_kernel, dim3(blocks, Fo), threads, 0,
+                static_cast<cudaStream_t>(stream), tbl, idx, out, M, N);
 }
 
 const char* tk_error_string(int code) {

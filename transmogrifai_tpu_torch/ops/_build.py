@@ -34,7 +34,8 @@ _SIGNATURES = {
                 _I, _I, _L, _I, _P),
     "tk_route_hist": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _L, _I, _P),
-    "tk_route": (_P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
+    "tk_route": (_P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
+                 _I, _P),
     "tk_lookup": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
 }
 

@@ -10,6 +10,10 @@ the JAX signature and output layout (binned matrix [F, N], lane planes
 - `route`        (B3, `_route_kernel`): one level of routing;
 - `table_lookup` (B4, `_lookup_kernel`): per-lane small-table lookup.
 
+`plan_hist` picks the launch shape of the first two, `plan_route` and
+`plan_lookup` that of the last two; each dispatcher takes `path=` to force
+one (measurement and tests).
+
 A dispatcher runs its plain PyTorch version when its inputs lie on the CPU
 and launches the hand-written CUDA kernel (csrc/tree_kernels.cu) when they
 lie on a CUDA device; any other device raises. There is no fallback from
@@ -51,7 +55,7 @@ _BIN_KINDS = {torch.int8: 0, torch.uint8: 1, torch.int32: 2}
 _MAX_CHANNELS = 4            # payload channels + derived count (kMaxChannels)
 _SMEM_BLOCK_MAX = 232_448    # dynamic shared memory one block may use (H100)
 _SMEM_BUDGET = _SMEM_BLOCK_MAX // 2   # rows path: two blocks per SM
-_THREADS = 512               # rows path (kRowThreads) and elementwise kernels
+_THREADS = 512               # rows paths (kRowThreads, route/lookup rows)
 # features path (hist_fm_kernel): kWarps, kTileBytes, kXsStride, kMaxFTile
 _FM_WARPS = 8
 _FM_TILE_BYTES = 256
@@ -60,6 +64,17 @@ _FM_MAX_FTILE = 64
 _FM_MIN_FEATURES = 8         # narrower F takes the rows path
 PATHS = ("rows", "private", "owned")
 _PATH_CODES = {p: i for i, p in enumerate(PATHS)}
+# route's staged path: kStagedThreads, kStagedRows, the blocks an SM its
+# __launch_bounds__ keep resident
+ROUTE_PATHS = ("rows", "staged")
+LOOKUP_PATHS = ("rows",)
+_ROUTE_PATH_CODES = {p: i for i, p in enumerate(ROUTE_PATHS)}
+_STAGED_THREADS = 128
+_STAGED_ROWS = 4 * _STAGED_THREADS
+_STAGED_RESIDENT = 6
+_SECTOR = 32                 # bytes of an L2 sector: a gathered bin's cost
+_SMEM_SM = 233_472           # shared memory of one SM (228 KiB)
+_SMEM_BLOCK_RESERVED = 1024  # the runtime's shared memory of each block
 
 
 # -- analytic HBM traffic (copied from the JAX package's byte model) --------
@@ -242,6 +257,90 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
                       smem)
 
 
+# -- launch shape of route and table_lookup ----------------------------------
+
+@dataclass(frozen=True)
+class LaneTiling:
+    """Launch shape of route and table_lookup.
+
+    path "rows" (route_kernel / lookup_kernel, the row-mapped kernels): a
+    grid of `blocks` x lanes blocks of `threads`, one row a thread. Route's
+    path "staged" (route_staged_kernel): a persistent grid of `blocks`
+    blocks of `threads` striding over tiles of 4 x `threads` rows of every
+    lane, with `smem_bytes` of dynamic shared memory a block."""
+
+    path: str
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def route_table_bytes(lanes: int, n_nodes: int) -> int:
+    """Shared memory of route's packed split tables (route_table_bytes in
+    the source): lanes x (n_nodes + 1) int2, rounded up to 16 bytes."""
+    return -(-8 * lanes * (n_nodes + 1) // 16) * 16
+
+
+def route_staged_bytes(n_feat: int, lanes: int, n_nodes: int,
+                       itemsize: int) -> int:
+    """Shared memory of one route_staged_kernel block (route_staged_bytes
+    in the source): the packed tables, a feature map and list (n_feat
+    ints each, rounded up to 16 bytes), and a 512-row tile of the bins of
+    at most min(n_feat, lanes x n_nodes) features, 16 bytes more a feature
+    (staged_row_bytes: a feature's row need not start on 16 bytes)."""
+    return (route_table_bytes(lanes, n_nodes) + -(-8 * n_feat // 16) * 16
+            + min(n_feat, lanes * n_nodes) * (_STAGED_ROWS * itemsize + 16))
+
+
+def _rows_grid(n_rows: int, n_sm: int) -> LaneTiling:
+    return LaneTiling("rows", max(1, min(-(-n_rows // _THREADS), 8 * n_sm)),
+                      _THREADS, 0)
+
+
+def plan_route(n_feat: int, n_nodes: int, lanes: int, n_rows: int,
+               n_sm: int, *, itemsize: int = 1,
+               path: str | None = None) -> LaneTiling:
+    """Choose the path and grid of a `route` launch. Without `path`:
+    "staged" where its tile fits a block's shared memory and its copy reads
+    fewer bytes a row (one bin of each feature the tables may split on,
+    min(n_feat, lanes x n_nodes)) than the row-mapped kernel's gathers
+    touch (a 32-byte sector a lane), else "rows". The sweep's 5 lanes of
+    1-byte bins take the staged path at 8 and 32 nodes; int32 bins (the
+    estimator's default of 256 bins) at F = 64, one lane under 32 nodes
+    or more, and tables too large for shared memory take the rows path.
+    A given `path` is forced (measurement and tests), and raises where it
+    does not fit."""
+    smem = route_staged_bytes(n_feat, lanes, n_nodes, itemsize)
+    if path is None:
+        path = ("staged" if smem <= _SMEM_BLOCK_MAX and min(
+            n_feat, lanes * n_nodes) * itemsize < _SECTOR * lanes
+                else "rows")
+    if path not in ROUTE_PATHS:
+        raise ValueError(f"unknown route path {path!r}; one of {ROUTE_PATHS}")
+    if path == "rows":
+        return _rows_grid(n_rows, n_sm)
+    if smem > _SMEM_BLOCK_MAX:
+        raise ValueError(f"path {path!r}: {smem} B of tables and staged "
+                         f"bins do not fit a block's shared memory")
+    # as many blocks as stay resident on every SM at once (fewer where
+    # shared memory runs out), at most one a tile
+    per_sm = min(_STAGED_RESIDENT, _SMEM_SM // (smem + _SMEM_BLOCK_RESERVED))
+    return LaneTiling(path, max(1, min(-(-n_rows // _STAGED_ROWS),
+                                       per_sm * n_sm)),
+                      _STAGED_THREADS, smem)
+
+
+def plan_lookup(n_leaves: int, lanes: int, n_rows: int, n_sm: int, *,
+                path: str | None = None) -> LaneTiling:
+    """The grid of a `table_lookup` launch. It has the one path "rows": the
+    redesigns measured against it (PERF.md) were no faster. `path` is taken
+    as the other dispatchers take it, and raises unless "rows"."""
+    if path not in (None, *LOOKUP_PATHS):
+        raise ValueError(f"unknown lookup path {path!r}; one of "
+                         f"{LOOKUP_PATHS}")
+    return _rows_grid(n_rows, n_sm)
+
+
 # -- checks shared by the CUDA wrappers --------------------------------------
 
 def _is_cpu(*tensors: torch.Tensor) -> bool:
@@ -271,10 +370,6 @@ def _stream() -> int:
 
 def _n_sm(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _elementwise_blocks(n: int, device: torch.device) -> int:
-    return max(1, min(-(-n // _THREADS), 8 * _n_sm(device)))
 
 
 def _check_tables(f_lvl, t_lvl, m_lvl, lanes: int, n_nodes: int) -> None:
@@ -387,11 +482,12 @@ def route_plain(Xb_t, node_t, f_lvl, t_lvl, m_lvl) -> torch.Tensor:
 
 def route(Xb_t: torch.Tensor, node_t: torch.Tensor, f_lvl: torch.Tensor,
           t_lvl: torch.Tensor, m_lvl: torch.Tensor, *,
-          n_nodes: int) -> torch.Tensor:
+          n_nodes: int, path: str | None = None) -> torch.Tensor:
     """Next level's node ids [Fo, N] f32 = 2 * node + right, right = bin >
     thresh, or bin 0 (missing) with the node's learned missing direction.
     Xb_t [F, N] int bins; node_t [Fo, N] f32; f/t/m_lvl [Fo, n_nodes]
-    int32 split tables."""
+    int32 split tables. `path` forces the kernel's path (`plan_route`:
+    measurement and tests); the CPU ignores it."""
     _need(Xb_t, "Xb_t", _BIN_KINDS)
     _need(node_t, "node_t", (torch.float32,))
     F, N = Xb_t.shape
@@ -403,13 +499,15 @@ def route(Xb_t: torch.Tensor, node_t: torch.Tensor, f_lvl: torch.Tensor,
         return route_plain(Xb_t, node_t, f_lvl, t_lvl, m_lvl)
     lib = _build.library()
     out = torch.empty_like(node_t)
-    if N == 0:
+    if out.numel() == 0:
         return out
+    tl = plan_route(F, n_nodes, Fo, N, _n_sm(Xb_t.device),
+                    itemsize=Xb_t.element_size(), path=path)
     _build.check(lib, lib.tk_route(
         Xb_t.data_ptr(), _BIN_KINDS[Xb_t.dtype], node_t.data_ptr(),
         f_lvl.data_ptr(), t_lvl.data_ptr(), m_lvl.data_ptr(), out.data_ptr(),
-        F, N, Fo, n_nodes, _elementwise_blocks(N, Xb_t.device), _THREADS,
-        _stream()), "route")
+        F, N, Fo, n_nodes, _ROUTE_PATH_CODES[tl.path], tl.blocks, tl.threads,
+        tl.smem_bytes, _stream()), "route")
     _count_launch("route", F, n_nodes)
     return out
 
@@ -482,9 +580,11 @@ def table_lookup_plain(tbl, idx_t) -> torch.Tensor:
     return torch.where(valid, vals, 0.0)
 
 
-def table_lookup(tbl: torch.Tensor, idx_t: torch.Tensor) -> torch.Tensor:
-    """out[k, i] = tbl[k, idx_t[k, i]]; ids outside [0, M) give 0.
-    tbl [Fo, M] f32 (e.g. leaf payloads); idx_t [Fo, N] f32 ids."""
+def table_lookup(tbl: torch.Tensor, idx_t: torch.Tensor, *,
+                 path: str | None = None) -> torch.Tensor:
+    """out[k, i] = tbl[k, idx_t[k, i]]; ids outside [0, M) (and NaN) give
+    0. tbl [Fo, M] f32 (e.g. leaf payloads); idx_t [Fo, N] f32 ids. `path`
+    as `plan_lookup` takes it; the CPU ignores it."""
     _need(tbl, "tbl", (torch.float32,))
     _need(idx_t, "idx_t", (torch.float32,))
     Fo, M = tbl.shape
@@ -495,12 +595,12 @@ def table_lookup(tbl: torch.Tensor, idx_t: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     N = idx_t.shape[1]
     out = torch.empty_like(idx_t)
-    if N == 0:
+    if out.numel() == 0:
         return out
+    tl = plan_lookup(M, Fo, N, _n_sm(tbl.device), path=path)
     _build.check(lib, lib.tk_lookup(
         tbl.data_ptr(), idx_t.data_ptr(), out.data_ptr(), M, N, Fo,
-        _elementwise_blocks(N, tbl.device), _THREADS, _stream()),
-        "table_lookup")
+        tl.blocks, tl.threads, _stream()), "table_lookup")
     _count_launch("table_lookup", 1, M)
     return out
 
@@ -510,9 +610,12 @@ PLAIN = {"hist_folds": hist_folds_plain, "route_hist": route_hist_plain,
 
 
 def kernel_bytes(name: str, F: int, N: int, lanes: int, *, channels: int = 2,
-                 xb_itemsize: int = 1, out_cells: int = 0) -> int:
+                 xb_itemsize: int = 1, out_cells: int = 0,
+                 bins_read: int | None = None) -> int:
     """Bytes a kernel must move at least: each input read once, each output
-    written once. `out_cells` counts the histogram outputs (f32)."""
+    written once. `out_cells` counts the histogram outputs (f32);
+    `bins_read` the distinct (feature, row) bins a route reads on its data
+    (at most min(F, lanes) a row, the count without it)."""
     plane = 4 * N
     if name == "hist_folds":       # Xb + payload + slot planes + histogram
         return (F * N * xb_itemsize + lanes * (channels + 1) * plane
@@ -520,9 +623,9 @@ def kernel_bytes(name: str, F: int, N: int, lanes: int, *, channels: int = 2,
     if name == "route_hist":       # one Xb pass + g/h, node in/out per lane
         return sweep_level_bytes(N, F, lanes, channels=channels,
                                  xb_itemsize=xb_itemsize) + 4 * out_cells
-    if name == "route":            # selected bins (rows of <= lanes
-        #                            features), node in/out per lane
-        return min(F, lanes) * N * xb_itemsize + lanes * 2 * plane
+    if name == "route":            # selected bins, node in/out per lane
+        bins = min(F, lanes) * N if bins_read is None else bins_read
+        return bins * xb_itemsize + lanes * 2 * plane
     if name == "table_lookup":     # ids in, values out
         return lanes * 2 * plane
     raise ValueError(f"unknown kernel {name!r}")
