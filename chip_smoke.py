@@ -13,7 +13,8 @@ Phases, each of which fails the run on error:
              shared-memory atomics of each kernel;
 3. kernels — each of the four kernels at every shape the main path gives
              it (hist_folds at the root, with uniform and skewed bins, and
-             at the rank-metric shape; route_hist at S = 1..16; route at 8
+             at the rank-metric shapes of the tree sweep, 5 lanes, and of
+             the GLM sweep, 8 lanes; route_hist at S = 1..16; route at 8
              and 32 nodes, and at 32 with one split table shared by the
              lanes; table_lookup at 16 and 64 leaves; route and
              table_lookup at 2M and 10M rows) against its plain PyTorch
@@ -38,7 +39,32 @@ Phases, each of which fails the run on error:
              shapes of every depth swept;
 6. profile — the winner's 5-fold cell under torch.profiler: device time by
              kernel (and of each of the port's kernels) and the device's
-             busy share; it must see device time.
+             busy share; it must see device time;
+7. glm-small — one GLM sweep (logistic regression, 12 grids, and the
+             linear SVC, 4 grids; 5 folds, 16 features) on the CPU (plain
+             versions) and on the GPU, at 200 000 rows (streamed route)
+             and at 50 000 (vmapped route): the same winner, the same
+             route labels, identical retirement telemetry and every fold
+             metric within 1e-4;
+8. glm-main — the BASELINE sweep's GLM half at full width: 5-fold
+             CrossValidation over 48 logistic-regression grids (reg
+             logspace(-4, -0.5, 16) x elastic net {0, .25, .5},
+             max_iter 15, no standardization) on `--rows` x 64 features
+             without missing values, then the refit of the winner and its
+             scoring: wall, route and retirement telemetry, executed
+             FLOPs (bench.py's streamed model) and their share of the
+             card's f32 rate, CV and refit AuPR. Launch counters are
+             reset just before the sweep and read just after; the rank-
+             metric kernel must have launched at the grid chunk's 8 lanes;
+9. baseline — one validate over the 48 LR grids and the 16 XGBoost
+             configs on the same data: the port's whole BASELINE sweep;
+10. glm-profile — one round of the streamed route (240 lanes, 5 Newton
+             iterations) under torch.profiler: the device's busy share
+             and the top operations.
+
+Float32 products stay in full f32: the run fails unless TF32 is off
+(`torch.backends.cuda.matmul.allow_tf32` False, float32 matmul precision
+"highest").
 
 The last three lines of standard output are {"kernels": [...]}, the
 card's name and power limit, and {"ok": true, "device": {...}}. Exits
@@ -69,9 +95,18 @@ REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
     "route": "transmogrifai_tpu/ops/pallas_hist.py:598",
     "table_lookup": "transmogrifai_tpu/ops/pallas_hist.py:866",
 }
+GLM_EVAL_LANES = 8            # the streamed eval's grid chunk
 XGB_GRID = [dict(num_round=10, max_depth=d, eta=e, reg_lambda=lam,
                  max_bins=32)
             for d in (4, 6) for e in (0.05, 0.1, 0.2, 0.3) for lam in (1.0, 5.0)]
+
+
+def glm_grid(n_regs: int = 16):
+    """The BASELINE sweep's logistic-regression grids (bench.py
+    glm_grids): reg logspace(-4, -0.5, n_regs) x elastic net {0, .25, .5}."""
+    import numpy as np
+    return [{"reg_param": float(r), "elastic_net_param": a}
+            for r in np.logspace(-4, -0.5, n_regs) for a in (0.0, 0.25, 0.5)]
 
 
 def log(msg: str) -> None:
@@ -105,9 +140,11 @@ def kernel_phase(seed: int):
     (uniform and skewed bins) and at the rank-metric shape (F = 1, 4096
     buckets, the 5 lanes in the slot axis), route_hist at S = 1, 2, 4, 8,
     16, route at the last level (8 and 32 nodes, and 32 with one split
-    table shared by the lanes) and the 16- and 64-leaf lookups. Every
-    kernel is timed in turns against its rows path (the row-mapped
-    kernels: old, new, new, old)."""
+    table shared by the lanes) and the 16- and 64-leaf lookups; then
+    hist_folds at the GLM streamed eval's shape (F = 1, 4096 buckets, a
+    grid chunk of 8 lanes over 10M rows). Every kernel is timed in turns
+    against its rows path (the row-mapped kernels: old, new, new, old).
+    Each row names the main-path phase whose launches it reads."""
     from transmogrifai_tpu_torch.tools import hist_paths as HP
     import torch
 
@@ -119,7 +156,17 @@ def kernel_phase(seed: int):
     out += kernel_rows(d, HP.lane_shapes(d))
     del d
     torch.cuda.empty_cache()
-    return out
+    # the GLM streamed eval's rank-metric counts: a grid chunk of 8 lanes
+    # over the 10M rows of a fold's scores
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    d = dict(N=LANE_ROWS, F=1, B=0, Fo=GLM_EVAL_LANES,
+             **HP.rank_inputs(gen, LANE_ROWS, GLM_EVAL_LANES))
+    glm_rows = kernel_rows(d, [HP.rank_shape(d, "rank metric, GLM eval")])
+    for r in glm_rows:
+        r["phase"] = "glm"
+    del d
+    torch.cuda.empty_cache()
+    return out + glm_rows
 
 
 def kernel_rows(d: dict, shapes: list) -> list:
@@ -215,7 +262,7 @@ def kernel_rows(d: dict, shapes: list) -> list:
                    if name in ("route", "table_lookup") else None)
         b_ms, b_by = bound(n_bytes, n_ops)
         key_f = 1 if name == "table_lookup" else args[0].shape[0]
-        row = dict(name=name, shape=f"{label} N={args[1].shape[1]}",
+        row = dict(phase="tree", name=name, shape=f"{label} N={args[1].shape[1]}",
                    route="cuda", source=SOURCE, replaces=REPLACES[name],
                    launches=None, max_abs_err=err, tolerance=tol, ok=ok,
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -257,10 +304,13 @@ def _bincount_hist(Xb_t, pay, F, B, lanes, n_slots, slot=None,
     return run
 
 
-def make_data(rows: int, seed: int, n_feat: int = 64, dev: str = "cuda"):
-    """Seeded binary data on the device: a nonlinear label, random missing
-    values in a few columns and values missing when large in one (so the
-    missing bin and the learned missing direction carry signal)."""
+def make_data(rows: int, seed: int, n_feat: int = 64, dev: str = "cuda",
+              missing: bool = True):
+    """Seeded binary data on the device: a nonlinear label and, with
+    `missing`, random missing values in a few columns and values missing
+    when large in one (so the missing bin and the learned missing
+    direction carry signal). The GLM phases take the data without missing
+    values: logistic regression has no rule for NaN."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
     X = torch.randn((rows, n_feat), generator=gen, device=dev)
@@ -270,6 +320,8 @@ def make_data(rows: int, seed: int, n_feat: int = 64, dev: str = "cuda"):
              - 1.0)
     y = (torch.rand((rows,), generator=gen, device=dev)
          < torch.sigmoid(logit)).float()
+    if not missing:
+        return X, y
     for j in range(4):
         X[torch.rand((rows,), generator=gen, device=dev) < 0.05, j] = \
             float("nan")
@@ -362,6 +414,31 @@ def main_phase(rows: int, n_configs: int, seed: int, dev=None):
     return ok, launches, shape_launches, (X, y, best.best_grid)
 
 
+def device_time(prof):
+    """(busy ms, {name: (ms, records)}) from the profiler's device records
+    (kernels, copies, fills): busy is the union of their intervals on the
+    card, so nested or overlapping records count once. The sums of
+    `key_averages()`' self device times count an aten op and the kernels
+    it launched both. CUPTI's "Command Buffer Full" records (the host
+    waiting on a full launch queue) are not device work."""
+    from torch.autograd import DeviceType
+    spans, per = [], {}
+    for ev in prof.events():
+        if (ev.device_type != DeviceType.CUDA
+                or "Command Buffer Full" in ev.name):
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        spans.append((a, b))
+        ms, n = per.get(ev.name, (0.0, 0))
+        per[ev.name] = (ms + (b - a) / 1e3, n + 1)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, per
+
+
 def profile_phase(X, y, grid) -> bool:
     """Where one sweep cell's time goes: the winner's 5-fold cell (fit of
     all folds + fold metrics) once unprofiled and warm, then under
@@ -390,12 +467,7 @@ def profile_phase(X, y, grid) -> bool:
         t0 = time.perf_counter()
         cell()
         prof_s = time.perf_counter() - t0
-    per = {}
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total", 0) or 0
-        if dt > 0:
-            per[ev.key] = (dt / 1e3, ev.count)
-    busy = sum(ms for ms, _ in per.values())
+    busy, per = device_time(prof)
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
     ours = sorted((kv for kv in per.items()
                    if re.search(r"(hist|route|lookup)\w*_kernel", kv[0])),
@@ -411,6 +483,233 @@ def profile_phase(X, y, grid) -> bool:
         port_kernels=[dict(kernel=k[:80], ms=ms, calls=n, share=ms / busy)
                       for k, (ms, n) in ours])))
     return busy > 0
+
+
+TEL_KEYS = ("glm_rounds", "data_passes", "lane_passes", "active_per_round",
+            "iters_per_round", "lanes_retired", "lanes_at_cap")
+
+
+def _glm_estimators(dev):
+    from transmogrifai_tpu_torch.models.glm import (OpLinearSVC,
+                                                    OpLogisticRegression)
+    return [(OpLogisticRegression(max_iter=30, device=dev), glm_grid(4)),
+            (OpLinearSVC(max_iter=30, device=dev),
+             [{"reg_param": g["reg_param"]} for g in glm_grid(4)[::3]])]
+
+
+def glm_small_phase(seed: int) -> bool:
+    """One GLM sweep (LR 12 grids + SVC 4 grids, 5 folds, 16 features) on
+    the CPU (plain versions) and on the card, at 200 000 rows (streamed
+    route) and at 50 000 (vmapped route): the same winner, route labels
+    and retirement telemetry, every fold metric within 1e-4 (f32 sums in
+    another order inside Newton solves with tol 1e-6)."""
+    import torch
+    from transmogrifai_tpu_torch.automl.tuning.validators import \
+        CrossValidation
+    from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
+    from transmogrifai_tpu_torch.ops import glm_sweep as GS
+
+    ok = True
+    for rows, route in ((200_000, "streamed"), (50_000, "vmapped")):
+        X, y = make_data(rows, seed + 2, n_feat=16, missing=False)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            infos = []
+            driver = GS.sweep_glm_streamed_rounds
+
+            def recording(*a, **k):
+                res = driver(*a, **k)
+                infos.append({t: res[2][t] for t in TEL_KEYS})
+                return res
+            GS.sweep_glm_streamed_rounds = recording
+            try:
+                t0 = time.perf_counter()
+                cv = CrossValidation(Evaluators.BinaryClassification.au_pr(),
+                                     num_folds=5, device=dev)
+                best = cv.validate(_glm_estimators(dev), X.to(dev), y.to(dev))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                GS.sweep_glm_streamed_rounds = driver
+            out[dev] = (best, infos, wall)
+        (cb, ci, cw), (gb, gi, gw) = out["cpu"], out["cuda"]
+        diff = max(abs(a - b) for va, vb in zip(cb.validated, gb.validated)
+                   for a, b in zip(va.fold_metrics, vb.fold_metrics))
+        routes = {v.route for v in cb.validated + gb.validated}
+        same = (cb.name == gb.name and cb.best_grid == gb.best_grid
+                and routes == {route} and ci == gi
+                and len(gi) == (2 if route == "streamed" else 0)
+                and [v.grid for v in cb.validated]
+                == [v.grid for v in gb.validated])
+        log(f"glm-small {route} {rows} rows: winner cpu={cb.name} "
+            f"{cb.best_grid} cuda={gb.name} {gb.best_grid}; routes {routes}; "
+            f"max |dAuPR| {diff:.3g}; telemetry cpu={ci} cuda={gi}; "
+            f"wall cpu {cw:.2f}s cuda {gw:.2f}s")
+        ok = ok and same and diff <= 1e-4
+    return ok
+
+
+def glm_main_phase(rows: int, seed: int):
+    """The BASELINE sweep's GLM half at full width, then the refit of the
+    winner and its scoring. Returns (ok, shape launches, (X, y))."""
+    import torch
+    from transmogrifai_tpu_torch.automl.tuning.validators import \
+        CrossValidation
+    from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.ops import metrics_ops as M
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+
+    X, y = make_data(rows, seed, missing=False)
+    torch.cuda.synchronize()
+    prevalence = float(y.mean())
+    n, d = X.shape
+    cv = CrossValidation(Evaluators.BinaryClassification.au_pr(),
+                         num_folds=5)
+    lr = OpLogisticRegression(max_iter=15, standardization=False)
+    torch.cuda.reset_peak_memory_stats()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    best = cv.validate([(lr, glm_grid())], X, y)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    shape_launches = dict(TK.shape_launches)
+    tel = cv.last_streamed_telemetry
+    t0 = time.perf_counter()
+    model = best.estimator.fit_arrays(X, y)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred, raw, prob = model.predict_arrays(X)
+    score_s = time.perf_counter() - t0
+    refit_aupr = float(M.au_pr(torch.as_tensor(prob[:, 1], device=y.device),
+                               y))
+    # bench.py's streamed FLOP model: eta 2nd + gradient 2nd + the full
+    # weighted Gram 2nd^2 per executed lane pass
+    flops = (4 * n * d + 2 * n * d * d) * tel["padded_lane_passes"]
+    res = dict(rows=n, features=d, folds=5, grids=len(best.validated),
+               sweep_s=sweep_s, refit_s=refit_s, score_s=score_s,
+               route=best.validated[0].route,
+               telemetry={k: tel[k] for k in (
+                   "route", "kernel", "lanes_total", "glm_rounds",
+                   "data_passes", "lane_passes", "padded_lane_passes",
+                   "lanes_retired", "lanes_at_cap", "active_per_round",
+                   "iters_per_round", "warm_start")},
+               executed_flops=flops,
+               flop_share=flops / sweep_s / FP32_OPS_PER_S,
+               winner=best.best_grid, winner_cv_aupr=best.best_metric,
+               refit_aupr=refit_aupr, prevalence=prevalence,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=dict(TK.launches))
+    log("glm-main: " + json.dumps(res))
+    key = f"hist_folds F=1 S={GLM_EVAL_LANES}"
+    ok = (res["route"] == "streamed" and tel["kernel"] == "rounds"
+          and tel["lanes_total"] == 240 and shape_launches.get(key, 0) > 0
+          and prob.shape == (n, 2) and pred.shape == (n,)
+          and bool(torch.isfinite(torch.as_tensor(raw)).all())
+          and best.best_metric > prevalence + 0.05
+          and refit_aupr > prevalence + 0.05)
+    return ok, shape_launches, (X, y)
+
+
+def baseline_phase(X, y) -> bool:
+    """One validate over the 48 LR grids and the 16 XGBoost configs: the
+    port's whole BASELINE sweep, wall and winner."""
+    import torch
+    from transmogrifai_tpu_torch.automl.tuning.validators import \
+        CrossValidation
+    from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+
+    cv = CrossValidation(Evaluators.BinaryClassification.au_pr(),
+                         num_folds=5)
+    t0 = time.perf_counter()
+    best = cv.validate([
+        (OpLogisticRegression(max_iter=15, standardization=False),
+         glm_grid()),
+        (OpXGBoostClassifier(), [dict(g) for g in XGB_GRID])], X, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_family = {}
+    for v in best.validated:
+        top = by_family.get(v.model_name)
+        if top is None or v.mean_metric > top[1]:
+            by_family[v.model_name] = (v.grid, v.mean_metric)
+    routes = [v.route for v in best.validated]
+    log("baseline: " + json.dumps(dict(
+        rows=X.shape[0], features=X.shape[1], folds=5, cells=len(routes),
+        wall_s=wall, winner=best.name, winner_grid=best.best_grid,
+        winner_cv_aupr=best.best_metric, best_by_family=by_family,
+        routes={r: routes.count(r) for r in set(routes)})))
+    return (routes.count("streamed") == 48 and routes.count("mask_folds") == 16
+            and all(v.mean_metric == v.mean_metric for v in best.validated))
+
+
+def glm_profile_phase(X, y) -> bool:
+    """One round of the streamed route (all 240 lanes from zero, 5 Newton
+    iterations, as the driver runs a round) under torch.profiler: the
+    device's busy share of the round's wall and the top operations.
+    False when the profiler saw no device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from transmogrifai_tpu_torch.automl.tuning.validators import \
+        CrossValidation
+    from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
+    from transmogrifai_tpu_torch.ops import glm_sweep as GS
+
+    cv = CrossValidation(Evaluators.BinaryClassification.au_pr(),
+                         num_folds=5)
+    masks = torch.as_tensor(cv.fold_masks(y.cpu().numpy()), device=X.device)
+    w = torch.ones_like(y)
+    grid = glm_grid()
+    regs = np.array([g["reg_param"] for g in grid], np.float32)
+    alphas = np.array([g["elastic_net_param"] for g in grid], np.float32)
+    F, Gn = masks.shape[0], len(grid)
+    L = F * Gn
+    sel = torch.repeat_interleave(torch.eye(F, device=X.device), Gn, dim=1)
+    l1 = torch.as_tensor(np.tile(regs * alphas, F), device=X.device)
+    l2 = torch.as_tensor(np.tile(regs * (1 - alphas), F), device=X.device)
+    B0 = torch.zeros((L, X.shape[1]), device=X.device)
+    b00 = torch.zeros(L, device=X.device)
+
+    def one_round():
+        out = GS.sweep_glm_round(X, y, w, masks, sel, l1, l2, B0, b00, None,
+                                 None, GS.ROUND_ITERS_DEFAULT, 1e-6,
+                                 loss="logistic")
+        torch.cuda.synchronize()
+        return out
+    t0 = time.perf_counter()
+    one_round()
+    warm_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, _, iters = one_round()
+        prof_s = time.perf_counter() - t0
+    busy, per = device_time(prof)
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
+    n, d = X.shape
+    flops = (4 * n * d + 2 * n * d * d) * L * iters
+    log("glm-profile: " + json.dumps(dict(
+        lanes=L, iterations=iters, warm_wall_s=warm_s,
+        profiled_wall_s=prof_s, device_busy_ms=busy,
+        busy_share=busy / (prof_s * 1e3), flops=flops,
+        flop_share_of_warm_wall=flops / warm_s / FP32_OPS_PER_S,
+        top=[dict(op=k[:80], ms=ms, calls=c, share=ms / busy)
+             for k, (ms, c) in top])))
+    return busy > 0
+
+
+def tf32_phase() -> bool:
+    """Float32 products must stay in full f32 (no TF32)."""
+    import torch
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    prec = torch.get_float32_matmul_precision()
+    log(f"tf32: torch.backends.cuda.matmul.allow_tf32={tf32} "
+        f"float32_matmul_precision={prec!r}")
+    return tf32 is False and prec == "highest"
 
 
 def sass_phase(lib_path: str) -> None:
@@ -470,6 +769,8 @@ def main() -> int:
     sass_phase(lib._name)
 
     failures = []
+    if not tf32_phase():
+        failures.append("TF32 is on")
     rows = kernel_phase(SEED)
     failures += [f"kernel {r['name']} ({r['shape']})" for r in rows
                  if not r.pop("ok")]
@@ -483,8 +784,21 @@ def main() -> int:
     if not profile_phase(X, y, winner):
         failures.append("profile: no device time")
     del X, y
+    if not glm_small_phase(SEED):
+        failures.append("glm-small CPU/GPU sweep disagreement")
+    glm_ok, glm_launches, (X, y) = glm_main_phase(args.rows, SEED)
+    if not glm_ok:
+        failures.append("glm-main")
+    if not baseline_phase(X, y):
+        failures.append("baseline")
+    if not glm_profile_phase(X, y):
+        failures.append("glm-profile: no device time")
+    del X, y
+    counts = {"tree": shape_launches, "glm": glm_launches}
     for r in rows:
-        r["launches"] = shape_launches.get(r.pop("key"), 0)
+        r["launches"] = counts[r.pop("phase")].get(r.pop("key"), 0)
+    failures += [f"kernel {r['name']} ({r['shape']}): no launch on its "
+                 "main path" for r in rows if not r["launches"]]
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

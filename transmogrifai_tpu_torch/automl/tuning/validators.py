@@ -4,17 +4,34 @@
 Reference: core/.../impl/tuning/{OpValidator.scala:94,
 OpCrossValidation.scala:41, OpTrainValidationSplit.scala:34}. Folds are
 weight masks over one device-resident feature matrix: no data moves
-between folds. This slice ports the tree route (`_validate_mask_folds`):
-the matrix is binned once per `max_bins` value and every grid point fits
-all of its folds in one fold-fused call. At 2M rows and more, each cell's
-fold metrics come from one lane-batched binned-counts kernel launch
-instead of a sort per fold. The streamed, vmapped and sequential GLM
-routes, sweep checkpoints and mesh sharding arrive in later slices.
+between folds. Three routes, picked per estimator as the reference picks
+them:
+
+- streamed (`_validate_streamed`): large binary GLM sweeps (logistic
+  regression, linear SVC) fit every (fold x grid) lane through shared
+  passes over X, with per-lane retirement (ops/glm_sweep.py); each fold's
+  grid chunk is then scored by one product and one lane-batched metric
+  call;
+- vmapped (`_validate_vmapped`): smaller GLM sweeps fit the (fold x grid
+  chunk) lanes in one lane-batched solve (ops/glm.py);
+- mask folds (`_validate_mask_folds`): tree sweeps bin the matrix once per
+  `max_bins` value and fit all folds of a grid point in one fold-fused
+  call.
+
+At 2M rows and more, in-sweep AuPR/AuROC come from the lane-batched
+binned-counts kernel instead of a sort per lane. GLM cells can be
+checkpointed (`checkpoint_path`), and the streamed route also per
+retirement round. The sequential route (host-side evaluator calls on
+prediction columns), the squared-loss Gram route, multiclass sweeps and
+mesh sharding arrive in later slices.
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,13 +39,16 @@ import torch
 from ...device import DeviceLike, resolve_device
 from ...evaluators.evaluators import Evaluator
 from ...models.base import PredictorEstimator
+from ...ops import glm_sweep as GS
 from ...ops import metrics_ops as M
 from ...stages.params import ParamMap
 
 
 @dataclass
 class ValidatedModel:
-    """Validation record for one (estimator, grid point)."""
+    """Validation record for one (estimator, grid point). `route` names
+    the sweep route that produced the metrics ("streamed" | "vmapped" |
+    "mask_folds")."""
 
     model_name: str
     model_uid: str
@@ -59,28 +79,95 @@ class BestEstimator:
 BINNED_RANK_METRIC_MIN_ROWS = 2_000_000
 RANK_METRIC_BINS = 4096
 
+# Device-memory budget the auto grid-chunker assumes for one sweep call:
+# each lane of the vmapped route holds [n, d] row-scaled products, so
+# lanes are capped at budget / (n * d * itemsize).
+SWEEP_LANE_BUDGET_BYTES = 12e9
 
-def _fold_metric_fn(metric: str, rank_bins: Optional[int]):
-    """(scores [F, n], labels [n], w_lanes [F, n]) -> [F] metric values."""
-    if rank_bins:
-        lanes = {"au_pr": M.au_pr_binned_lanes,
-                 "au_roc": M.au_roc_binned_lanes}[metric]
-        return lambda s, y, wl: lanes(s, y, wl, rank_bins)
-    exact = {"au_pr": M.au_pr, "au_roc": M.au_roc}[metric]
+# Rows from which GLM sweeps take the streamed route (one X pass per
+# Newton iteration for ALL lanes instead of one per lane). The reference's
+# planner may move this floor from measurements; the planner is not
+# ported, so the hand default holds.
+STREAMED_SWEEP_MIN_ROWS = 200_000
+
+_RANK_METRICS = {"au_pr": M.au_pr, "au_roc": M.au_roc}
+
+
+def _lanes_metric_fn(metric: str, problem_type: str, rank_bins):
+    """(scores [L, n], labels [n], w_lanes [L, n]) -> [L] metric values
+    when the metric has a lane-batched binned kernel, else None."""
+    if not (rank_bins and problem_type == "binary"):
+        return None
+    if metric == "au_pr":
+        return lambda s, y, wl: M.au_pr_binned_lanes(s, y, wl, rank_bins)
+    if metric == "au_roc":
+        return lambda s, y, wl: M.au_roc_binned_lanes(s, y, wl, rank_bins)
+    return None
+
+
+def _metric_fn(problem_type: str, metric: str,
+               rank_bins: Optional[int] = None) -> Callable:
+    """(scores [n], labels, weights, margin_threshold) -> scalar for one
+    lane. Binary scores are margins (monotone in probability, so rank
+    metrics match). This slice ports the binary rank metrics; the
+    thresholded, multiclass and regression metrics come later."""
+    if problem_type != "binary" or metric not in _RANK_METRICS:
+        raise NotImplementedError(
+            f"in-sweep metric {metric!r} ({problem_type}) is not ported "
+            f"yet; this slice has the binary {sorted(_RANK_METRICS)}")
+    lanes = _lanes_metric_fn(metric, problem_type, rank_bins)
+    if lanes is not None:
+        return lambda s, y, w, thr: lanes(s[None], y, w[None])[0]
+    exact = _RANK_METRICS[metric]
+    return lambda s, y, w, thr: exact(s, y, w)
+
+
+def _lane_metrics(metric: str, problem_type: str, rank_bins, thr: float):
+    """(scores [L, n], labels [n], w_lanes [L, n]) -> [L] metric values:
+    one lane-batched kernel call where the metric has one, else the
+    one-lane metric per lane."""
+    lanes = _lanes_metric_fn(metric, problem_type, rank_bins)
+    if lanes is not None:
+        return lanes
+    mfn = _metric_fn(problem_type, metric, rank_bins=rank_bins)
     return lambda s, y, wl: torch.stack(
-        [exact(s[f], y, wl[f]) for f in range(s.shape[0])])
+        [mfn(s[j], y, wl[j], thr) for j in range(s.shape[0])])
+
+
+def _streamed_eval(X, y, vw, Bc, b0c, thr, *, metric, problem_type,
+                   rank_bins=None):
+    """Metrics for one fold's grid chunk of streamed-sweep coefficients:
+    scores in one product, then one lane-batched metric call for the
+    chunk (the binned kernel where the metric has one)."""
+    s = GS.sweep_scores_fold(X, Bc, b0c)                # [n, chunk]
+    wl = vw[None, :].expand(s.shape[1], vw.shape[0])
+    return _lane_metrics(metric, problem_type, rank_bins, thr)(s.T, y, wl)
 
 
 class Validator:
     """Base validator (reference OpValidator.scala:94). `device` is where
-    the sweep runs: None means CUDA."""
+    the sweep runs: None means CUDA. `grid_chunk` is the number of grid
+    points per vmapped-route call (None: from the memory budget)."""
+
+    # the streamed route scores each fold in grid chunks of this many
+    # lanes, one metric-kernel call each
+    _STREAMED_EVAL_CHUNK = 8
 
     def __init__(self, evaluator: Evaluator, seed: int = 42,
-                 stratify: bool = False, device: DeviceLike = None):
+                 stratify: bool = False, device: DeviceLike = None,
+                 grid_chunk: Optional[int] = None):
         self.evaluator = evaluator
         self.seed = int(seed)
         self.stratify = bool(stratify)
         self.device = device
+        self.grid_chunk = grid_chunk
+        # optional sweep checkpoint (resume skips finished model x grid
+        # cells of the GLM routes; the streamed route also resumes at its
+        # last retirement round)
+        self.checkpoint_path: Optional[str] = None
+        # round/pass telemetry of the LAST streamed GLM sweep
+        self.last_streamed_telemetry: Optional[Dict[str, Any]] = None
+        self._external_mask_tag = ""  # set per validate() call
 
     # -- folds -------------------------------------------------------------
     def fold_masks(self, y: np.ndarray) -> np.ndarray:
@@ -117,6 +204,12 @@ class Validator:
             else np.asarray(y)
         if masks is None:
             masks = self.fold_masks(y_host)
+            self._external_mask_tag = ""
+        else:
+            # checkpoint cells must be keyed by WHICH masks ran
+            self._external_mask_tag = hashlib.sha1(
+                np.ascontiguousarray(masks, np.float32).tobytes()
+            ).hexdigest()[:12]
         metric = self.evaluator.default_metric
         larger = self.evaluator.is_larger_better()
         Xd = torch.as_tensor(X, dtype=torch.float32, device=dev)
@@ -129,14 +222,22 @@ class Validator:
         for est, grids in models:
             if not grids:
                 grids = [dict()]
-            if not (getattr(est, "supports_mask_folds", False)
-                    and problem_type in getattr(est, "problem_types", ())):
+            if self._streamable(est, grids, problem_type, Xd, md.shape[0]):
+                validated.extend(self._validate_streamed(
+                    est, grids, Xd, yd, wd, md, metric, problem_type))
+            elif self._vmappable(est, grids, problem_type):
+                validated.extend(self._validate_vmapped(
+                    est, grids, Xd, yd, wd, md, metric, problem_type))
+            elif (getattr(est, "supports_mask_folds", False)
+                  and problem_type in getattr(est, "problem_types", ())):
+                validated.extend(self._validate_mask_folds(
+                    est, grids, Xd, yd, wd, md, metric))
+            else:
                 raise NotImplementedError(
                     f"{type(est).__name__} ({problem_type}) has no ported "
-                    "sweep route yet: the GLM routes come with the GLM "
-                    "slice, other tree families with the forest slice")
-            validated.extend(self._validate_mask_folds(
-                est, grids, Xd, yd, wd, md, metric))
+                    "sweep route yet: the sequential route comes with the "
+                    "workflow slice, other tree families with the forest "
+                    "slice")
 
         if not validated:
             raise ValueError("No models to validate")
@@ -153,14 +254,287 @@ class Validator:
         return RANK_METRIC_BINS if n_rows >= BINNED_RANK_METRIC_MIN_ROWS \
             else None
 
-    # -- mask-fold tree path ------------------------------------------------
+    # -- GLM route tests -----------------------------------------------------
+    @staticmethod
+    def _constant_off_axis(est: PredictorEstimator, grids: List[ParamMap],
+                           axes) -> bool:
+        """Every non-axis grid key must be constant across the grid (it
+        binds once, via copy, for all lanes)."""
+        others = {k for g in grids for k in g if k not in axes}
+        for k in others:
+            vals = {repr(g.get(k, est.get_param(k))) for g in grids}
+            if len(vals) > 1:
+                return False
+        return True
+
+    @staticmethod
+    def _vmappable(est: PredictorEstimator, grids: List[ParamMap],
+                   problem_type: str) -> bool:
+        if not getattr(est, "supports_grid_vmap", False):
+            return False
+        if problem_type == "multiclass":
+            if not getattr(est, "supports_multiclass_vmap", False):
+                return False
+        elif problem_type not in ("binary", "regression"):
+            return False
+        _, axes = est.batched_fit_fn()
+        return Validator._constant_off_axis(est, grids, axes)
+
+    def _streamable(self, est: PredictorEstimator, grids: List[ParamMap],
+                    problem_type: str, X, n_folds: int) -> bool:
+        """Large binary/regression GLM sweeps take the streamed route; the
+        guard beyond the row floor is the per-iteration [L, d, d] Hessian
+        and solve footprint against the sweep memory budget (lanes L =
+        folds x grid points)."""
+        if getattr(est, "streamed_loss", None) is None:
+            return False
+        if problem_type not in ("binary", "regression"):
+            return False
+        if X.shape[0] < STREAMED_SWEEP_MIN_ROWS:
+            return False
+        lanes = n_folds * max(len(grids), 1)
+        if not GS.streamed_route_ok(X.shape[1], lanes,
+                                    SWEEP_LANE_BUDGET_BYTES):
+            return False
+        _, axes = est.batched_fit_fn()
+        return self._constant_off_axis(est, grids, axes)
+
+    # -- shared helpers for the GLM routes -----------------------------------
+    def _margin_threshold(self, est) -> float:
+        """Thresholded metrics: probability threshold t maps to margin
+        logit(t) for probabilistic models; margin models cut at 0 (their
+        decision rule)."""
+        thr = float(getattr(self.evaluator, "threshold", 0.5))
+        if getattr(est, "produces_probabilities", True) and 0.0 < thr < 1.0:
+            return float(np.log(thr / (1.0 - thr)))
+        return 0.0
+
+    def _auto_grid_chunk(self, n: int, d: int, n_folds: int,
+                         itemsize: int, n_grids: int) -> int:
+        if self.grid_chunk is not None:
+            return max(1, int(self.grid_chunk))
+        lane_bytes = max(n * d * itemsize, 1)
+        lanes = max(int(SWEEP_LANE_BUDGET_BYTES / lane_bytes), 1)
+        # the reference caps a call at 8 grid points (its compile time
+        # grows with lanes); the cap is kept so the chunks, and with them
+        # the checkpoint granularity, match
+        return int(np.clip(lanes // max(n_folds, 1), 1, min(n_grids, 8)))
+
+    def _sweep_path(self, base: str) -> str:
+        """Checkpoint path tag: externally supplied fold masks must not
+        replay one fold's cells into another."""
+        if self._external_mask_tag:
+            base = f"{base}:masks{self._external_mask_tag}"
+        return base
+
+    def _checkpoint(self):
+        if self.checkpoint_path is None:
+            return None
+        from .checkpoint import SweepCheckpoint
+        return SweepCheckpoint(self.checkpoint_path)
+
+    def _cell_bookkeeping(self, est, grids, X, y, metric, n_folds,
+                          path: str = ""):
+        """(checkpoint, per-grid keys, finished results) — cell-level
+        records shared across resumes of the SAME sweep path. `path` names
+        the compute path: metrics from one path are never replayed into
+        another."""
+        from .checkpoint import data_fingerprint, sweep_key
+        ckpt = self._checkpoint()
+        if ckpt is None:
+            return None, [None] * len(grids), {}
+        data_fp = data_fingerprint(X, y)
+        base_params = est.param_values() if hasattr(est, "param_values") \
+            else None
+        metric_key = getattr(self.evaluator, "metric_key", metric)
+        keys = [sweep_key(type(est).__name__, g, n_folds,
+                          self.seed, self.stratify, metric_key,
+                          data_fp=data_fp, base_params=base_params,
+                          path=path)
+                for g in grids]
+        results = {}
+        for gi, key in enumerate(keys):
+            done = ckpt.get(key)
+            if done is not None:
+                results[gi] = [float(v) for v in done["fold_metrics"]]
+        return ckpt, keys, results
+
+    @staticmethod
+    def _grid_axis_arrays(est, grids) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-grid (regs, alphas) along the estimator's sweep axes —
+        shared by the vmapped and streamed routes."""
+        _, axes = est.batched_fit_fn()
+        regs = np.array([g.get(axes[0], est.get_param(axes[0]))
+                         for g in grids], np.float32)
+        second = axes[1] if len(axes) > 1 else None
+        alphas = np.array([g.get(second, est.get_param(second)) if second
+                           else 0.0 for g in grids], np.float32)
+        return regs, alphas
+
+    def _land(self, est, grids, keys, ckpt, results, pending, out, metric):
+        """Record each pending cell's fold metrics (out [F, len(pending)])
+        and checkpoint it."""
+        for j, gi in enumerate(pending):
+            fm = [float(v) for v in out[:, j]]
+            results[gi] = fm
+            if ckpt is not None:
+                ckpt.record(keys[gi], type(est).__name__, grids[gi], fm,
+                            metric)
+
+    @staticmethod
+    def _validated(est, grids, metric, results, route):
+        return [
+            ValidatedModel(model_name=type(est).__name__, model_uid=est.uid,
+                           grid=g, metric_name=metric,
+                           fold_metrics=results[gi], route=route)
+            for gi, g in enumerate(grids)
+        ]
+
+    # -- vmapped GLM route ---------------------------------------------------
+    def _validate_vmapped(self, est, grids, X, y, w, masks, metric,
+                          problem_type) -> List[ValidatedModel]:
+        """GLM-family sweep: one lane-batched solve per grid chunk over
+        (folds x chunk) lanes, each lane fitting on its fold's training
+        weights and scored on the held-out rows. Chunking bounds the
+        per-call memory (each lane holds [n, d] row-scaled products) and
+        gives the checkpoint mid-grid granularity."""
+        base = est.copy(**{k: v for k, v in grids[0].items()})
+        fit_one, _ = base.batched_fit_fn()
+        regs, alphas = self._grid_axis_arrays(est, grids)
+        F, n = masks.shape
+        ckpt, keys, results = self._cell_bookkeeping(
+            est, grids, X, y, metric, F,
+            path=self._sweep_path("vmapped:float32"))
+        pending = [gi for gi in range(len(grids)) if gi not in results]
+        if pending:
+            lane_metrics = _lane_metrics(metric, problem_type,
+                                         self._rank_bins(n),
+                                         self._margin_threshold(est))
+            chunk = self._auto_grid_chunk(n, X.shape[1], F, 4, len(pending))
+            dev = X.device
+            w_fit = masks * w[None, :]                       # [F, n]
+            w_eval = (1.0 - masks) * w[None, :]
+            for start in range(0, len(pending), chunk):
+                idx = pending[start:start + chunk]
+                k = len(idx)
+                # lanes fold-major: l = f * k + j
+
+                def lanes(a):
+                    return a[:, None, :].expand(F, k, n).reshape(F * k, n)
+
+                def grid_vec(v):
+                    return torch.as_tensor(v[idx], device=dev).repeat(F)
+                B, b0 = fit_one(X, y, lanes(w_fit), grid_vec(regs),
+                                grid_vec(alphas))
+                scores = (X @ B.T + b0[None, :]).T           # [F*k, n]
+                vals = lane_metrics(scores, y, lanes(w_eval))
+                self._land(est, grids, keys, ckpt, results, idx,
+                           vals.reshape(F, k).cpu().numpy(), metric)
+        return self._validated(est, grids, metric, results, "vmapped")
+
+    # -- streamed GLM route --------------------------------------------------
+    def _round_checkpoint(self, keys, pending, fit_kwargs):
+        """(RoundCheckpoint, key, resumable state) for the round driver —
+        keyed by the pending cells' sweep keys (which already fold in the
+        data fingerprint, masks, base params and compute path) plus the
+        solver knobs, so state from a different sweep is never replayed."""
+        if self.checkpoint_path is None or keys[0] is None:
+            return None, None, None
+        from .checkpoint import RoundCheckpoint
+        payload = json.dumps(
+            [[keys[gi] for gi in pending],
+             {k: repr(v) for k, v in sorted(fit_kwargs.items())},
+             os.environ.get("TMOG_GLM_ROUND_ITERS", "")], sort_keys=True)
+        rkey = hashlib.sha256(payload.encode()).hexdigest()[:24]
+        rc = RoundCheckpoint(self.checkpoint_path + ".glm_rounds.npz")
+        return rc, rkey, rc.load(rkey)
+
+    def _streamed_fit(self, est, fit_kwargs, X, y, w, masks, regs_p,
+                      alphas_p, keys, pending):
+        """Fit every pending (fold x grid) lane through the streamed
+        route: the host-driven round loop with per-lane retirement
+        (round-granular checkpointing when a checkpoint path is set), or,
+        with TMOG_GLM_ROUNDS=0, the legacy single-program global-max
+        route. Returns (B [F, Gp, d], b0 [F, Gp] tensors in RAW units,
+        telemetry, round checkpoint or None — the CALLER clears it only
+        after the cells land in the JSONL checkpoint)."""
+        L = int(masks.shape[0]) * len(pending)
+        if GS.env_on("TMOG_GLM_ROUNDS"):
+            rc, rkey, state = self._round_checkpoint(keys, pending,
+                                                     fit_kwargs)
+            on_round = None if rc is None else \
+                (lambda st: rc.save(rkey, st))
+            B, b0, info = GS.sweep_glm_streamed_rounds(
+                X, y, w, masks, regs_p, alphas_p, state=state,
+                on_round=on_round, **fit_kwargs)
+            dev = X.device
+            return (torch.as_tensor(B, device=dev),
+                    torch.as_tensor(b0, device=dev), info, rc)
+        B, b0 = GS.sweep_glm_streamed(X, y, w, masks, regs_p, alphas_p,
+                                      **fit_kwargs)
+        return B, b0, {"route": "streamed", "kernel": "global",
+                       "lanes_total": L}, None
+
+    def _validate_streamed(self, est, grids, X, y, w, masks, metric,
+                           problem_type) -> List[ValidatedModel]:
+        """Streamed convergence-aware sweep: every pending (fold x grid)
+        cell fits through _streamed_fit; metrics then run per fold in grid
+        chunks of one scoring product and one metric call each."""
+        regs, alphas = self._grid_axis_arrays(est, grids)
+        # constant off-axis grid keys (admitted by _constant_off_axis) bind
+        # exactly as on the vmapped route: est.copy(**grids[0])
+        base = est.copy(**{k: v for k, v in grids[0].items()})
+        # stale telemetry must never survive into a sweep that runs no fit
+        self.last_streamed_telemetry = None
+        F = masks.shape[0]
+        ckpt, keys, results = self._cell_bookkeeping(
+            est, grids, X, y, metric, F,
+            path=self._sweep_path("streamed:float32"))
+        pending = [gi for gi in range(len(grids)) if gi not in results]
+        if pending:
+            fit_kwargs = dict(
+                loss=est.streamed_loss,
+                max_iter=int(base.get_param("max_iter")),
+                tol=float(base.get_param("tol")),
+                fit_intercept=bool(base.get_param("fit_intercept"))
+                if base.has_param("fit_intercept") else True,
+                standardize=bool(base.get_param("standardization"))
+                if base.has_param("standardization") else True)
+            B, b0, sweep_info, round_ckpt = self._streamed_fit(
+                est, fit_kwargs, X, y, w, masks, regs[pending],
+                alphas[pending], keys, pending)
+            self.last_streamed_telemetry = dict(sweep_info,
+                                                model=type(est).__name__)
+            rank_bins = self._rank_bins(X.shape[0])
+            thr = self._margin_threshold(est)
+            chunk = min(self._STREAMED_EVAL_CHUNK, len(pending))
+            out = np.empty((F, len(pending)), np.float64)
+            for f in range(F):
+                vw = (1.0 - masks[f]) * w
+                for s in range(0, len(pending), chunk):
+                    sl = slice(s, min(s + chunk, len(pending)))
+                    vals = _streamed_eval(
+                        X, y, vw, B[f, sl], b0[f, sl], thr, metric=metric,
+                        problem_type=problem_type, rank_bins=rank_bins)
+                    out[f, sl] = vals.cpu().numpy()
+            self._land(est, grids, keys, ckpt, results, pending, out, metric)
+            if round_ckpt is not None:
+                # only NOW are all cells in the JSONL checkpoint: a
+                # preemption during the evaluation above resumes from the
+                # fully-retired round state instead of refitting
+                round_ckpt.clear()
+        return self._validated(est, grids, metric, results, "streamed")
+
+    # -- mask-fold tree route ------------------------------------------------
     def _validate_mask_folds(self, est, grids, X, y, w, masks,
                              metric) -> List[ValidatedModel]:
         """Tree-family sweep with folds as weight masks: the feature matrix
         is quantile-binned ONCE per max_bins value on the device, then each
         grid point fits all folds at once against it, with the folds'
         training masks as sample weights, and scores the held-out rows."""
-        fold_metrics = _fold_metric_fn(metric, self._rank_bins(X.shape[0]))
+        fold_metrics = _lane_metrics(metric, "binary",
+                                     self._rank_bins(X.shape[0]),
+                                     self._margin_threshold(est))
         w_eval = (1.0 - masks) * w[None, :]
 
         def bins_of(g):
@@ -178,12 +552,7 @@ class Validator:
                 results[gi] = [float(v) for v in
                                fold_metrics(scores, y, w_eval).cpu()]
             del ctx  # free the binned matrix before the next group
-        return [
-            ValidatedModel(model_name=type(est).__name__, model_uid=est.uid,
-                           grid=g, metric_name=metric,
-                           fold_metrics=results[gi], route="mask_folds")
-            for gi, g in enumerate(grids)
-        ]
+        return self._validated(est, grids, metric, results, "mask_folds")
 
 
 class CrossValidation(Validator):
@@ -191,9 +560,9 @@ class CrossValidation(Validator):
 
     def __init__(self, evaluator: Evaluator, num_folds: int = 3,
                  seed: int = 42, stratify: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, **kwargs):
         super().__init__(evaluator, seed=seed, stratify=stratify,
-                         device=device)
+                         device=device, **kwargs)
         if num_folds < 2:
             raise ValueError("num_folds must be >= 2")
         self.num_folds = int(num_folds)
@@ -212,9 +581,9 @@ class TrainValidationSplit(Validator):
 
     def __init__(self, evaluator: Evaluator, train_ratio: float = 0.75,
                  seed: int = 42, stratify: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, **kwargs):
         super().__init__(evaluator, seed=seed, stratify=stratify,
-                         device=device)
+                         device=device, **kwargs)
         if not 0.0 < train_ratio < 1.0:
             raise ValueError("train_ratio must be in (0, 1)")
         self.train_ratio = float(train_ratio)

@@ -1,9 +1,9 @@
 """Carry fitted parameters across from the JAX package.
 
-Both take plain numpy arrays — what the JAX package's
-`TreeEnsembleModel.save_args()` and `Tree` fields hold — so this module
-imports nothing of the JAX package. With them both packages score the same
-fitted model.
+Each takes plain numpy arrays or lists — what the JAX package's
+`TreeEnsembleModel.save_args()`, `LinearBinaryModel.save_args()` and `Tree`
+fields hold — so this module imports nothing of the JAX package. With them
+both packages score the same fitted model.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .models.glm import LinearBinaryModel
 from .models.trees import TreeEnsembleModel
 from .ops.trees import Tree
 
@@ -28,6 +29,17 @@ def tree_model_from_jax(save_args: Dict[str, Any],
         base=float(save_args.get("base", 0.0)),
         n_classes=int(save_args.get("n_classes", 2)),
         operation_name=str(save_args.get("operation_name", "treeEnsemble")),
+        device=device)
+
+
+def linear_model_from_jax(save_args: Dict[str, Any],
+                          device: DeviceLike = None) -> LinearBinaryModel:
+    """A port LinearBinaryModel from the JAX LinearBinaryModel's
+    save_args(): beta, intercept, probabilistic."""
+    return LinearBinaryModel(
+        beta=save_args["beta"], intercept=float(save_args["intercept"]),
+        probabilistic=bool(save_args.get("probabilistic", True)),
+        operation_name=str(save_args.get("operation_name", "linBin")),
         device=device)
 
 

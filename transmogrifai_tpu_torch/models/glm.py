@@ -1,0 +1,202 @@
+"""GLM-family binary predictors (counterpart of models/glm.py): logistic
+regression and the linear SVC.
+
+Reference wrappers: core/.../impl/classification/{OpLogisticRegression,
+OpLinearSVC}.scala. Param names mirror the Spark params the reference
+grids over (DefaultSelectorParams.scala:35-56). Fits run through the
+lane-batched ops/glm solvers, so the model selector fits (fold x grid)
+lanes in one call (`batched_fit_fn`) or streams them
+(`streamed_loss`, ops/glm_sweep.py). This slice ports the binary
+problems; softmax (multiclass) logistic regression, naive Bayes, linear
+and generalized linear regression come in later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..ops import glm as G
+from ..stages.params import Param
+from .base import PredictionModel, PredictorEstimator, stable_sigmoid
+
+
+class LinearBinaryModel(PredictionModel):
+    """Binary linear scorer: logistic (prob via sigmoid) or SVC (margin).
+    The margins are computed on the model's device; results are numpy."""
+
+    def __init__(self, beta: np.ndarray, intercept: float,
+                 probabilistic: bool = True,
+                 operation_name: str = "linBin", uid: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(operation_name, uid=uid, device=device)
+        self.beta = np.array(beta, np.float32)
+        self.intercept = float(intercept)
+        self.probabilistic = probabilistic
+
+    def predict_arrays(self, X):
+        dev = resolve_device(self.device)
+        Xd = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        margin = (Xd @ torch.as_tensor(self.beta, device=dev)
+                  + self.intercept).cpu().numpy()
+        raw = np.stack([-margin, margin], axis=1)
+        if self.probabilistic:
+            p1 = stable_sigmoid(margin)
+            prob = np.stack([1.0 - p1, p1], axis=1)
+            pred = (p1 >= 0.5).astype(np.float32)
+        else:
+            prob = None
+            pred = (margin >= 0.0).astype(np.float32)
+        return pred, raw, prob
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        d.update(beta=self.beta.tolist(), intercept=self.intercept,
+                 probabilistic=self.probabilistic)
+        return d
+
+
+def _weights(y: torch.Tensor, w) -> torch.Tensor:
+    return torch.ones_like(y) if w is None else \
+        torch.as_tensor(w, dtype=torch.float32, device=y.device)
+
+
+def _binary_only(y: torch.Tensor, name: str) -> None:
+    if y.numel() and int(y.max()) > 1:
+        raise NotImplementedError(
+            f"multiclass {name} is not ported yet: this slice fits binary "
+            "problems")
+
+
+# the selector's lane-batched fit: fit_one(X [n, d], y [n], w [L, n],
+# reg [L], alpha [L]) -> (B [L, d], b0 [L]), every lane its own fit
+def _batched_logistic(max_iter, fit_intercept, standardize):
+    def fit_one(X, y, w, reg, alpha):
+        return G.fit_logistic(X, y, w, reg, alpha, max_iter=max_iter,
+                              fit_intercept=fit_intercept,
+                              standardize=standardize)
+    return fit_one
+
+
+def _batched_svc(max_iter, fit_intercept, standardize):
+    def fit_one(X, y, w, reg, _alpha):
+        return G.fit_linear_svc(X, y, w, reg, max_iter=max_iter,
+                                fit_intercept=fit_intercept,
+                                standardize=standardize)
+    return fit_one
+
+
+class OpLogisticRegression(PredictorEstimator):
+    """Reference OpLogisticRegression (impl/classification/, 212 LoC),
+    binary."""
+
+    problem_types = ("binary",)
+    supports_grid_vmap = True
+    # large binary sweeps stream ALL (fold x grid) lanes through shared
+    # X passes (ops/glm_sweep.py); the round driver retires each lane at
+    # its OWN delta <= tol — the stopping rule of fit_arrays' solver
+    streamed_loss = "logistic"
+
+    @classmethod
+    def _declare_params(cls):
+        return [
+            Param("reg_param", "regularization strength", 0.0),
+            Param("elastic_net_param", "L1 ratio", 0.0),
+            Param("max_iter", "Newton iterations", 50),
+            Param("tol", "termination tolerance", 1e-6),
+            Param("fit_intercept", "fit intercept", True),
+            Param("standardization", "standardize features", True),
+        ]
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("logreg", uid=uid, device=device, **params)
+
+    def fit_arrays(self, X, y, w=None) -> LinearBinaryModel:
+        dev = resolve_device(self.device)
+        yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        _binary_only(yd, "logistic regression (softmax)")
+        beta, b0 = G.fit_logistic(
+            torch.as_tensor(X, dtype=torch.float32, device=dev), yd,
+            _weights(yd, w), float(self.get_param("reg_param")),
+            float(self.get_param("elastic_net_param")),
+            max_iter=int(self.get_param("max_iter")),
+            tol=float(self.get_param("tol")),
+            fit_intercept=bool(self.get_param("fit_intercept")),
+            standardize=bool(self.get_param("standardization")))
+        return LinearBinaryModel(beta.cpu().numpy(), float(b0),
+                                 probabilistic=True,
+                                 operation_name=self.operation_name,
+                                 device=self.device)
+
+    def batched_fit_fn(self, n_classes: int = 2):
+        if n_classes > 2:
+            raise NotImplementedError(
+                "the multiclass (softmax) lane fit is not ported yet")
+        fit_one = _batched_logistic(
+            int(self.get_param("max_iter")),
+            bool(self.get_param("fit_intercept")),
+            bool(self.get_param("standardization")))
+        return fit_one, ("reg_param", "elastic_net_param")
+
+    def model_from_params(self, beta, b0) -> LinearBinaryModel:
+        return LinearBinaryModel(np.asarray(beta), float(b0),
+                                 probabilistic=True,
+                                 operation_name=self.operation_name,
+                                 device=self.device)
+
+
+class OpLinearSVC(PredictorEstimator):
+    """Reference OpLinearSVC (impl/classification/, 166 LoC)."""
+
+    problem_types = ("binary",)
+    supports_grid_vmap = True
+    produces_probabilities = False
+    # same retirement parity contract as OpLogisticRegression; the
+    # 0.5*gap^2 loss scaling keeps reg_param's effective L2 identical on
+    # the streamed and per-lane routes
+    streamed_loss = "squared_hinge"
+
+    @classmethod
+    def _declare_params(cls):
+        return [
+            Param("reg_param", "L2 strength", 0.0),
+            Param("max_iter", "Newton iterations", 50),
+            Param("tol", "termination tolerance", 1e-6),
+            Param("fit_intercept", "fit intercept", True),
+            Param("standardization", "standardize features", True),
+        ]
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("svc", uid=uid, device=device, **params)
+
+    def fit_arrays(self, X, y, w=None) -> LinearBinaryModel:
+        dev = resolve_device(self.device)
+        yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        _binary_only(yd, "linear SVC")
+        beta, b0 = G.fit_linear_svc(
+            torch.as_tensor(X, dtype=torch.float32, device=dev), yd,
+            _weights(yd, w), float(self.get_param("reg_param")),
+            max_iter=int(self.get_param("max_iter")),
+            tol=float(self.get_param("tol")),
+            fit_intercept=bool(self.get_param("fit_intercept")),
+            standardize=bool(self.get_param("standardization")))
+        return LinearBinaryModel(beta.cpu().numpy(), float(b0),
+                                 probabilistic=False,
+                                 operation_name=self.operation_name,
+                                 device=self.device)
+
+    def batched_fit_fn(self):
+        fit_one = _batched_svc(int(self.get_param("max_iter")),
+                               bool(self.get_param("fit_intercept")),
+                               bool(self.get_param("standardization")))
+        return fit_one, ("reg_param",)
+
+    def model_from_params(self, beta, b0) -> LinearBinaryModel:
+        return LinearBinaryModel(np.asarray(beta), float(b0),
+                                 probabilistic=False,
+                                 operation_name=self.operation_name,
+                                 device=self.device)

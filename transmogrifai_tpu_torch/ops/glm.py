@@ -1,0 +1,208 @@
+"""Generalized-linear-model solvers in PyTorch (counterpart of ops/glm.py).
+
+Binary logistic regression (IRLS-Newton with a proximal L1 step) and the
+linear SVC (squared hinge, Newton on the active set), as the reference's
+OpLogisticRegression / OpLinearSVC wrappers fit them. Every solver takes
+per-row weights, so fold masks enter as weights and no data moves between
+folds.
+
+The JAX package vmaps its per-lane `while_loop` over (fold x grid) lanes.
+Here the same fits are lane-batched: weights `w` [L, n] and penalties [L]
+give L fits at once, each stopping at its own `delta <= tol` (or
+`max_iter`) exactly as under `vmap`, where a lane whose condition fails
+keeps its state frozen while the others iterate. The loop asks the host
+once per iteration whether any lane is still active. A single fit is the
+one-lane case: `w` [n] and scalar penalties.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+EPS = 1e-12
+
+
+def _moments(X: torch.Tensor, w: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weighted two-pass column moments in f32: (centered, mean, std).
+    `w` [n] gives mean/std [d] and centered [n, d]; `w` [L, n] gives
+    [L, d] and [L, n, d]. One-pass E[x^2] - mean^2 would cancel
+    catastrophically in f32 for large-mean columns."""
+    wsum = torch.clamp(w.sum(-1), min=EPS)
+    mean = (w @ X) / wsum[..., None]
+    centered = X - mean[..., None, :]
+    var = (w[..., None, :] @ (centered * centered))[..., 0, :] / wsum[..., None]
+    std = torch.sqrt(torch.clamp(var, min=EPS))
+    return centered, mean, std
+
+
+def _standardize(X: torch.Tensor, w: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weighted column standardization; returns (Xs, mean, std), per lane
+    when `w` is [L, n]."""
+    centered, mean, std = _moments(X, w)
+    return centered / std[..., None, :], mean, std
+
+
+def _unstandardize_beta(beta: torch.Tensor, intercept: torch.Tensor,
+                        mean: torch.Tensor, std: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b = beta / std
+    return b, intercept - (b * mean).sum(-1)
+
+
+def _soft_threshold(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.clamp(torch.abs(x) - t, min=0.0)
+
+
+def _lanes_eta(Xs: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """[L, n] linear predictors of the lanes' beta [L, d] on Xs, shared
+    [n, d] or per lane [L, n, d]."""
+    if Xs.dim() == 2:
+        return beta @ Xs.T
+    return torch.bmm(Xs, beta[:, :, None])[..., 0]
+
+
+def _lanes_xt(Xs: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """[L, d] = Xs^T r for each lane's row vector r [L, n]."""
+    if Xs.dim() == 2:
+        return r @ Xs
+    return torch.bmm(r[:, None, :], Xs)[:, 0]
+
+
+def _lanes_gram(Xs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """[L, d, d] = Xs^T diag(s_l) Xs: each lane's row-scaled [n, d] copy,
+    as the reference's vmapped lanes build theirs."""
+    return torch.matmul((Xs * s[..., None]).transpose(-1, -2), Xs)
+
+
+def _newton_prox_fit(grad_hess_fn: Callable, L: int, d: int,
+                     reg: torch.Tensor, alpha: torch.Tensor, max_iter: int,
+                     tol: float, device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Damped Newton with L2 in the Hessian and L1 by a proximal step, for
+    L lanes at once. grad_hess_fn(beta [L, d], b0 [L]) -> (g [L, d],
+    H [L, d, d], g0 [L], h0 [L]) for the unpenalized loss; the intercept
+    is unregularized. Each lane iterates while its own iteration count is
+    below max_iter and its own delta above tol; the others stay frozen."""
+    f32 = torch.float32
+    l1 = (reg * alpha)[:, None]
+    l2 = reg * (1.0 - alpha)
+    eye = torch.eye(d, dtype=f32, device=device)
+    beta = torch.zeros((L, d), dtype=f32, device=device)
+    b0 = torch.zeros(L, dtype=f32, device=device)
+    delta = torch.full((L,), float("inf"), dtype=f32, device=device)
+    it = torch.zeros(L, dtype=torch.int64, device=device)
+    while True:
+        active = (it < max_iter) & (delta > tol)
+        if not bool(active.any()):     # the iteration's one host check
+            break
+        g, H, g0, h0 = grad_hess_fn(beta, b0)
+        g = g + l2[:, None] * beta
+        H = H + l2[:, None, None] * eye
+        # solve with jitter for safety
+        step = torch.linalg.solve(H + 1e-6 * eye, g[..., None])[..., 0]
+        # proximal L1 using diagonal curvature as scaling
+        hdiag = torch.clamp(torch.diagonal(H, dim1=1, dim2=2), min=EPS)
+        beta_new = _soft_threshold(beta - step, l1 / hdiag)
+        b0_new = b0 - g0 / torch.clamp(h0, min=EPS)
+        d_new = (beta_new - beta).abs().amax(1) + (b0_new - b0).abs()
+        beta = torch.where(active[:, None], beta_new, beta)
+        b0 = torch.where(active, b0_new, b0)
+        delta = torch.where(active, d_new, delta)
+        it = it + active.long()
+    return beta, b0
+
+
+def _lanes(X: torch.Tensor, w: torch.Tensor, reg, elastic_net):
+    """(w [L, n], reg [L], alpha [L], single) from one fit's or L fits'
+    arguments; X's device and f32 throughout."""
+    dev = X.device
+    single = w.dim() == 1
+    w = w.to(device=dev, dtype=torch.float32).reshape(-1, X.shape[0])
+    L = w.shape[0]
+
+    def lane_vec(v):
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=dev).reshape(-1).expand(L)
+    return w, lane_vec(reg), lane_vec(elastic_net), single
+
+
+def _fit(X, y, w, reg, alpha, max_iter, tol, fit_intercept, standardize,
+         grad_hess):
+    """The shared frame of the binary solvers: lanes, standardization,
+    the Newton loop and the way back to raw feature units."""
+    X = X.to(torch.float32)
+    n, d = X.shape
+    w, reg, alpha, single = _lanes(X, w, reg, alpha)
+    L = w.shape[0]
+    if standardize:
+        # one lane standardizes into a shared [n, d]; L lanes into [L, n, d]
+        Xs, mean, std = _standardize(X, w[0] if single else w)
+    else:
+        Xs = X
+    wsum = torch.clamp(w.sum(-1), min=EPS)
+    y = y.to(device=X.device, dtype=torch.float32)
+
+    def gh(beta, b0):
+        g, H, g0, h0 = grad_hess(Xs, y, w, wsum, beta, b0)
+        if not fit_intercept:
+            g0 = torch.zeros_like(b0)
+            h0 = torch.ones_like(b0)
+        return g, H, g0, h0
+
+    beta, b0 = _newton_prox_fit(gh, L, d, reg, alpha, int(max_iter),
+                                float(tol), X.device)
+    if standardize:
+        beta, b0 = _unstandardize_beta(beta, b0, mean, std)
+    if not fit_intercept:
+        b0 = torch.zeros_like(b0)
+    return (beta[0], b0[0]) if single else (beta, b0)
+
+
+def _logistic_grad_hess(Xs, y, w, wsum, beta, b0):
+    eta = _lanes_eta(Xs, beta) + b0[:, None]
+    p = torch.sigmoid(eta)
+    r = (p - y) * w
+    g = _lanes_xt(Xs, r) / wsum[:, None]
+    s = torch.clamp(p * (1 - p), min=1e-6) * w
+    H = _lanes_gram(Xs, s) / wsum[:, None, None]
+    return g, H, r.sum(-1) / wsum, s.sum(-1) / wsum
+
+
+def _svc_grad_hess(Xs, y, w, wsum, beta, b0):
+    ypm = 2.0 * y - 1.0  # {0,1} -> {-1,+1}
+    margin = ypm * (_lanes_eta(Xs, beta) + b0[:, None])
+    active = (margin < 1.0).to(torch.float32) * w
+    r = -ypm * torch.clamp(1.0 - margin, min=0.0) * w
+    g = _lanes_xt(Xs, r) / wsum[:, None]
+    H = _lanes_gram(Xs, active) / wsum[:, None, None]
+    return (g, H, r.sum(-1) / wsum,
+            torch.clamp(active.sum(-1) / wsum, min=1e-6))
+
+
+def fit_logistic(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                 reg, elastic_net, max_iter: int = 50, tol: float = 1e-6,
+                 fit_intercept: bool = True, standardize: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Binary logistic regression via IRLS-Newton (+proximal L1).
+
+    `w` [n] with scalar reg / elastic_net returns (coefficients [d],
+    intercept); `w` [L, n] with [L] (or scalar) penalties returns L fits,
+    ([L, d], [L]), each standardized with its own weights. Matches Spark's
+    LogisticRegression(standardization=true, family=binomial) closely."""
+    return _fit(X, y, w, reg, elastic_net, max_iter, tol, fit_intercept,
+                standardize, _logistic_grad_hess)
+
+
+def fit_linear_svc(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                   reg, max_iter: int = 50, tol: float = 1e-6,
+                   fit_intercept: bool = True, standardize: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Linear SVM with squared-hinge loss + L2 (Spark LinearSVC
+    semantics). Squared hinge is differentiable, so Newton steps apply
+    with the active-set (margin < 1) indicator inside the Hessian. Lanes
+    as in fit_logistic."""
+    return _fit(X, y, w, reg, 0.0, max_iter, tol, fit_intercept,
+                standardize, _svc_grad_hess)

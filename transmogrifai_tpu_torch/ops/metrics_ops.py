@@ -72,7 +72,7 @@ def binned_cum_counts_lanes(scores: torch.Tensor, labels: torch.Tensor,
     pay = torch.stack([(w_lanes * labels[None, :]).reshape(total),
                        (w_lanes * (1.0 - labels[None, :])).reshape(total)])
     lane = torch.arange(L, dtype=torch.float32, device=scores.device)
-    lane = lane[:, None].expand(L, n).reshape(1, total)
+    lane = lane.repeat_interleave(n)[None, :]
     hist = TK.hist_folds(idx, pay, lane, n_slots=L,
                          n_bins=n_bins).reshape(L, 2, n_bins)
     tps = torch.cumsum(hist[:, 0].flip(-1), dim=1)

@@ -100,17 +100,26 @@ def kernel_inputs(rows: int, seed: int, dev: str = "cuda",
     out.update(Xskew=Xskew, g=g, h=h,
                pay=torch.stack([g, h], 1).reshape(2 * Fo, N).contiguous(),
                slot0=torch.zeros((Fo, N), device=dev))
-    L, RB = 5, 4096
-    lab = (rand(1, L * N) < 0.3).float()
-    held = (rand(1, L * N) < 0.2).float()
-    out.update(
+    out.update(rank_inputs(gen, N, 5, dev))
+    return out
+
+
+def rank_inputs(gen, rows: int, lanes: int, dev: str = "cuda") -> dict:
+    """The rank-metric counts' inputs of `lanes` lanes over `rows` rows,
+    drawn from `gen`: bucket ids in [0, 4096), 0/1 positive and negative
+    weights (30% positives, 20% held out) and each entry's lane; the tree
+    sweep scores 5 fold lanes at once, the GLM sweep a grid chunk of 8."""
+    import torch
+    L, RB, N = lanes, 4096, rows
+    lab = (torch.rand((1, L * N), generator=gen, device=dev) < 0.3).float()
+    held = (torch.rand((1, L * N), generator=gen, device=dev) < 0.2).float()
+    return dict(
         L=L, RB=RB,
         ridx=torch.randint(0, RB, (1, L * N), generator=gen, device=dev,
                            dtype=torch.int32),
         rpay=torch.cat([held * lab, held * (1 - lab)]).contiguous(),
         rlane=torch.arange(L, device=dev, dtype=torch.float32)
         .repeat_interleave(N)[None, :].contiguous())
-    return out
 
 
 def hist_shapes(d: dict) -> list:
@@ -124,15 +133,21 @@ def hist_shapes(d: dict) -> list:
         (f"tree root, skewed bins: F=64 B={B} Fo=5 S=1", "hist_folds", 1,
          (d["Xskew"], d["pay"], d["slot0"]),
          dict(n_slots=1, n_bins=B, derive_count=True)),
-        ("rank metric: F=1 B=4096 S=5 lanes", "hist_folds", d["L"],
-         (d["ridx"], d["rpay"], d["rlane"]),
-         dict(n_slots=d["L"], n_bins=d["RB"])),
+        rank_shape(d),
     ]
     for S in (1, 2, 4, 8, 16):
         shapes.append((f"level S={S}: F=64 B={B} Fo=5", "route_hist", S,
                        (d["Xb"], d["pay"], d[f"node{S}"], *d[f"tables{S}"]),
                        dict(n_nodes=S, n_bins=B, derive_count=True)))
     return shapes
+
+
+def rank_shape(d: dict, label: str = "rank metric") -> tuple:
+    """(label, kernel, S, args, kwargs) of the rank-metric counts on the
+    inputs of `rank_inputs` (in `d`)."""
+    return (f"{label}: F=1 B={d['RB']} S={d['L']} lanes", "hist_folds",
+            d["L"], (d["ridx"], d["rpay"], d["rlane"]),
+            dict(n_slots=d["L"], n_bins=d["RB"]))
 
 
 def lane_shapes(d: dict) -> list:
