@@ -18,7 +18,9 @@ Phases, each of which fails the run on error:
              and 32 nodes, and at 32 with one split table shared by the
              lanes; table_lookup at 16 and 64 leaves; route and
              table_lookup at 2M and 10M rows) against its plain PyTorch
-             version on the same inputs (stated tolerance), with its time
+             version on the same inputs (stated tolerance; the g/h
+             histograms, like the plain version's, against the float64
+             sums: `hist_paths.accuracy`), with its time
              (CUDA events, warm, median), the kernel's rows path (the
              row-mapped kernels) timed in turns beside the chosen path
              (old, new, new, old), the plain version's time, one library
@@ -60,20 +62,46 @@ Phases, each of which fails the run on error:
              configs on the same data: the port's whole BASELINE sweep;
 10. glm-profile — one round of the streamed route (240 lanes, 5 Newton
              iterations) under torch.profiler: the device's busy share
-             and the top operations.
+             and the top operations;
+11. workflow-small — the user's flow (FeatureBuilder -> transmogrify ->
+             SanityChecker -> BinaryClassificationModelSelector ->
+             Workflow.train() -> score()) on 100 000 titanic-shaped
+             records through ListReader, on the CPU (plain versions) and
+             twice on the card: identical matrix and metadata, the same
+             drops and winner, cells within 5e-3, the scores' AuPR within
+             1e-3, the CPU-fitted workflow scored on the card within 1e-5
+             on every row, and the card's scores within 1e-5 of the CPU's
+             on every row unless the refit trees split a node differently,
+             where the first such node must be a tie within the f32 noise
+             of the two histograms (the witness is printed); the second
+             card run is held to the first the same way;
+12. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
+             5 folds, the LR default grid and XGBoost depth {4, 6}): the
+             wall of each stage, each host-to-device copy, peak device
+             memory, widths, winner and AuPRs; launch counters reset just
+             before train() and read just after, every kernel must have
+             launched; each kernel at every (kernel, F, S) launch key of
+             train(), on the inputs of its first launch there, against its
+             plain version (rows of the kernels line, phase "workflow");
+             then one statistics pass over the whole matrix, streamed,
+             against the fused route.
 
 Float32 products stay in full f32: the run fails unless TF32 is off
 (`torch.backends.cuda.matmul.allow_tf32` False, float32 matmul precision
 "highest").
 
-The last three lines of standard output are {"kernels": [...]}, the
-card's name and power limit, and {"ok": true, "device": {...}}. Exits
+The last three lines of standard output are {"kernels": [...]} (each
+row's `launches` at its (kernel, F, S) key in the phase it names, and
+`workflow_launches` at that key inside workflow-main's train()), the
+card's name and power limit, and
+{"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is unavailable or the package is
 not beside this script.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -149,11 +177,11 @@ def kernel_phase(seed: int):
     import torch
 
     d = HP.kernel_inputs(KERNEL_ROWS, seed)
-    out = kernel_rows(d, HP.hist_shapes(d) + HP.lane_shapes(d))
+    out = kernel_rows(HP.hist_shapes(d) + HP.lane_shapes(d))
     del d
     torch.cuda.empty_cache()
     d = HP.kernel_inputs(LANE_ROWS, seed, hist=False)
-    out += kernel_rows(d, HP.lane_shapes(d))
+    out += kernel_rows(HP.lane_shapes(d))
     del d
     torch.cuda.empty_cache()
     # the GLM streamed eval's rank-metric counts: a grid chunk of 8 lanes
@@ -161,58 +189,62 @@ def kernel_phase(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     d = dict(N=LANE_ROWS, F=1, B=0, Fo=GLM_EVAL_LANES,
              **HP.rank_inputs(gen, LANE_ROWS, GLM_EVAL_LANES))
-    glm_rows = kernel_rows(d, [HP.rank_shape(d, "rank metric, GLM eval")])
-    for r in glm_rows:
-        r["phase"] = "glm"
+    glm_rows = kernel_rows([HP.rank_shape(d, "rank metric, GLM eval")],
+                           phase="glm")
     del d
     torch.cuda.empty_cache()
     return out + glm_rows
 
 
-def kernel_rows(d: dict, shapes: list) -> list:
-    """One result row per shape of `shapes` on the inputs `d`."""
+def kernel_rows(shapes: list, phase: str = "tree") -> list:
+    """One result row per (label, kernel, S, args, kwargs) of `shapes`: the
+    kernel against its plain version on those inputs, timed in turns
+    against its rows path, with its bound, plain and library times. Every
+    count of the work (bytes, adds, data-dependent nonzeros) is taken from
+    the inputs themselves. `phase` names the main-path phase whose launch
+    counts the row reads."""
     import torch
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
     from transmogrifai_tpu_torch.tools import hist_paths as HP
 
-    N, F, B, Fo = d["N"], d["F"], d["B"], d["Fo"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def nz(t):   # data-dependent work: nonzero payload entries
         return float((t != 0).sum())
 
-    # library yardsticks, built when timed (their ids/weights take GBs)
-    library = {
-        "tree root": lambda a: _bincount_hist(a[0], a[1], F, B, Fo, 1,
-                                              derive_count=True),
-        "rank metric": lambda a: _bincount_hist(a[0], a[1], 1, d["RB"], 1,
-                                                d["L"], slot=a[2]),
-        "leaves": lambda a: lambda: torch.where(
-            (a[1] >= 0) & (a[1] < a[0].shape[1]),
-            torch.gather(a[0], 1, a[1].long().clamp(0, a[0].shape[1] - 1)),
-            0.0),
-    }
     rows_out = []
     for label, name, S, args, kw in shapes:
-        n_adds = moved = None
+        n_adds = moved = make_lib = None
+        rank = name == "hist_folds" and not kw.get("derive_count")
+        if name in ("hist_folds", "route_hist") and not rank:
+            Xb, pay = args[0], args[1]
+            F, N = Xb.shape
+            Fo, B = pay.shape[0] // 2, kw["n_bins"]
+            g, h = pay[0::2], pay[1::2]
         if name == "route_hist":    # rows a level histograms: left rows
-            left = (HP.plain("route", (d["Xb"], *args[2:]), {})
+            left = (HP.plain("route", (Xb, *args[2:]), {})
                     == 2 * args[2]).float()
             n_bytes = TK.kernel_bytes("route_hist", F, N, Fo,
                                       out_cells=Fo * S * 3 * F * B)
-            n_adds = F * (nz(d["g"] * left) + 2 * nz(d["h"] * left))
+            n_adds = F * (nz(g * left) + 2 * nz(h * left))
             n_ops = n_adds + 4 * Fo * N
             del left
-        elif label.startswith("rank"):
-            n_bytes = TK.kernel_bytes("hist_folds", 1, d["L"] * N, 1,
-                                      xb_itemsize=4,
-                                      out_cells=d["L"] * 2 * d["RB"])
-            n_ops = n_adds = nz(d["rpay"])
+        elif rank:                  # lanes in the slot axis, 0/1 weights
+            L, RB = kw["n_slots"], kw["n_bins"]
+            n_bytes = TK.kernel_bytes("hist_folds", 1, args[0].shape[1], 1,
+                                      xb_itemsize=4, out_cells=L * 2 * RB)
+            n_ops = n_adds = nz(args[1])
+            make_lib = lambda a: _bincount_hist(a[0], a[1], 1, RB, 1, L,
+                                                slot=a[2])
         elif name == "hist_folds":
             n_bytes = TK.kernel_bytes("hist_folds", F, N, Fo,
                                       out_cells=Fo * 3 * F * B)
-            n_ops = n_adds = F * (nz(d["g"]) + 2 * nz(d["h"]))
+            n_ops = n_adds = F * (nz(g) + 2 * nz(h))
+            make_lib = lambda a: _bincount_hist(a[0], a[1], F, B, Fo, 1,
+                                                derive_count=True)
         elif name == "route":       # compares, select, multiply-add a lane
+            F, N = args[0].shape
+            Fo = args[1].shape[0]
             n_bytes = TK.kernel_bytes(
                 "route", F, N, Fo, bins_read=HP.route_bins_read(args[1],
                                                                 args[2]))
@@ -222,25 +254,30 @@ def kernel_rows(d: dict, shapes: list) -> list:
             moved = TK.kernel_bytes("route", F, N, Fo, bins_read=N * int(
                 torch.unique(args[2]).numel()))
         else:                       # a compare and a select a lane
+            Fo, N = args[1].shape
             n_bytes = TK.kernel_bytes("table_lookup", 1, N, Fo)
             n_ops = 2 * Fo * N
+            make_lib = lambda a: lambda: torch.where(
+                (a[1] >= 0) & (a[1] < a[0].shape[1]),
+                torch.gather(a[0], 1,
+                             a[1].long().clamp(0, a[0].shape[1] - 1)),
+                0.0)
         dispatch = getattr(TK, name)
         got = dispatch(*args, **kw)
         torch.cuda.synchronize()
         want = HP.plain(name, args, kw)
-        err = HP.max_abs_err(got, want)
-        ok = HP.agrees(name, got, want, args, kw)
+        acc = HP.accuracy(name, got, want, args, kw)
+        err, ok = acc["max_abs_err"], acc["ok"]
         if name in ("route", "table_lookup"):
             tol = "exact"
-        elif "rank" in label:     # 0/1 weights: integer sums are exact
+        elif rank:                # 0/1 weights: integer sums are exact
             tol = "exact (integer payloads)"
         else:
-            # both sides sum up to ~N/B f32 terms per cell in different
-            # orders: hold each cell to 1e-4 of its sum of |terms| (about
-            # 7 sqrt(n) ulps at n = 60K terms); the derived count channel
-            # and the node ids are exact
-            tol = ("g/h cells within 1e-4 of the cell's sum of |terms| "
-                   "(f32 sums in another order); counts exact"
+            # f32 sums of up to N terms a cell, in the kernel's order and
+            # the plain version's: both are held to the float64 sums
+            tol = ("g/h cells: error over the cell's sum of |terms|, "
+                   "against the float64 sums, within 1e-4 or the plain "
+                   "version's own, whichever is larger; counts exact"
                    + ("; node ids exact" if name == "route_hist" else ""))
         del got, want
         torch.cuda.empty_cache()
@@ -252,7 +289,6 @@ def kernel_rows(d: dict, shapes: list) -> list:
         ms = statistics.mean(turns[None])
         earlier_ms = statistics.mean(turns["rows"])
         plain_ms = HP.cuda_ms(lambda: HP.plain(name, args, kw), reps=3)
-        make_lib = library.get(label.split(":")[0].split(",")[0])
         library_ms = None
         if make_lib is not None:
             library_ms = HP.cuda_ms(make_lib(args), reps=5)
@@ -262,15 +298,19 @@ def kernel_rows(d: dict, shapes: list) -> list:
                    if name in ("route", "table_lookup") else None)
         b_ms, b_by = bound(n_bytes, n_ops)
         key_f = 1 if name == "table_lookup" else args[0].shape[0]
-        row = dict(phase="tree", name=name, shape=f"{label} N={args[1].shape[1]}",
+        row = dict(phase=phase, name=name,
+                   shape=f"{label} N={args[1].shape[1]}",
                    route="cuda", source=SOURCE, replaces=REPLACES[name],
                    launches=None, max_abs_err=err, tolerance=tol, ok=ok,
+                   rel_err=acc["rel_err"],
+                   plain_rel_err=acc["plain_rel_err"],
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms, path=path, earlier_ms=earlier_ms,
                    smem_floor_ms=n_adds and smem_floor_ms(n_adds),
                    copy_ms=copy_ms, moved_bytes=moved,
                    key=f"{name} F={key_f} S={S}")
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
+            f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
             f"ms={ms:.4f} earlier_ms={earlier_ms:.4f} ({path} vs rows) "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"smem_floor_ms={row['smem_floor_ms']} copy_ms={copy_ms} "
@@ -702,6 +742,496 @@ def glm_profile_phase(X, y) -> bool:
     return busy > 0
 
 
+def titanic_records(n: int, seed: int):
+    """Seeded titanic-shaped records (dicts, as a reader yields them):
+    Reals with None, Integrals, a Binary with None, two PickLists, one
+    MultiPickList and the survival label."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    female = rng.uniform(size=n) < 0.35
+    pclass = rng.choice([1, 2, 3], p=[0.24, 0.21, 0.55], size=n)
+    age = np.clip(rng.normal(29, 14, size=n), 0.4, 80)
+    age_missing = rng.uniform(size=n) < 0.2
+    sibsp, parch = rng.poisson(0.5, size=n), rng.poisson(0.4, size=n)
+    fare = np.clip(rng.lognormal(3.6 - 0.5 * (pclass - 1), 0.6), 4, 512)
+    embarked = rng.choice(["S", "C", "Q"], p=[0.72, 0.19, 0.09], size=n)
+    embarked_missing = rng.uniform(size=n) < 0.02
+    alone_missing = rng.uniform(size=n) < 0.05
+    deck = rng.uniform(size=(n, 5)) < 0.08
+    child = ~age_missing & (age < 12)
+    # the interactions (children, women outside third class, large
+    # families) give the trees a clear lead over the linear grid points
+    logit = (3.0 * female * (pclass < 3) + 0.8 * female * (pclass == 3)
+             + 2.5 * child - 0.9 * (pclass - 2) + 0.004 * fare
+             - 2.0 * (sibsp + parch > 3) - 1.0)
+    y = rng.uniform(size=n) < 1 / (1 + np.exp(-logit))
+    return [{"survived": float(y[i]),
+             "sex": "female" if female[i] else "male",
+             "pClass": int(pclass[i]),
+             "age": None if age_missing[i] else float(age[i]),
+             "sibSp": int(sibsp[i]), "parCh": int(parch[i]),
+             "fare": float(fare[i]),
+             "embarked": None if embarked_missing[i] else str(embarked[i]),
+             "alone": None if alone_missing[i]
+             else bool(sibsp[i] + parch[i] == 0),
+             "cabinDeck": {"ABCDE"[k] for k in np.flatnonzero(deck[i])}}
+            for i in range(n)]
+
+
+def workflow_small_phase(seed: int) -> bool:
+    """The user's flow on 100 000 titanic-shaped records through ListReader
+    (FeatureBuilder -> transmogrify -> SanityChecker -> 3-fold
+    BinaryClassificationModelSelector over OpLogisticRegression's default
+    grid and OpXGBoostClassifier at depth {3, 5} -> Workflow.train() ->
+    score()) on the CPU (plain versions) and twice on the card. They must
+    agree: the transmogrified matrix and its metadata identical, the same
+    columns kept for the same reasons, the same winner, every cell's mean
+    AuPR within 5e-3 and the AuPR of the scored probabilities within 1e-3;
+    the CPU-fitted workflow, carried onto the card (convert.stage_state ->
+    workflow_model_from_jax), scores every row within 1e-5 of the CPU. The
+    card's own fit must score every row within 1e-5 of the CPU's, unless
+    the refits split a node differently: then the first such node is the
+    witness, and the two candidate splits must tie within the f32 noise of
+    the two devices' histograms there (`split_witness`). The second card
+    run is compared with the first the same way (is the card's fit
+    reproducible from run to run?)."""
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch import convert
+    from transmogrifai_tpu_torch.automl.preparators import SanityChecker
+    from transmogrifai_tpu_torch.automl.selectors import (
+        BinaryClassificationModelSelector, default_grid_for)
+    from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder as FB
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+    from transmogrifai_tpu_torch.ops import metrics_ops as M
+    from transmogrifai_tpu_torch.readers import ListReader
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    rows = titanic_records(100_000, seed + 3)
+    new = titanic_records(20_000, seed + 4)
+
+    def score(model, pred):
+        return model.score(ListReader(new).generate_dataset(
+            model.raw_features())).data(pred.name)
+
+    out = {}
+    for run, dev in (("cpu", "cpu"), ("cuda", "cuda"), ("cuda2", "cuda")):
+        reset_uids()
+        survived = FB.RealNN("survived").as_response()
+        feats = [FB.Real("age").as_predictor(), FB.Real("fare").as_predictor(),
+                 FB.Integral("pClass").as_predictor(),
+                 FB.Integral("sibSp").as_predictor(),
+                 FB.Integral("parCh").as_predictor(),
+                 FB.Binary("alone").as_predictor(),
+                 FB.PickList("sex").as_predictor(),
+                 FB.PickList("embarked").as_predictor(),
+                 FB.MultiPickList("cabinDeck").as_predictor()]
+        vec = transmogrify(feats)
+        checked = SanityChecker(remove_bad_features=True).set_input(
+            survived, vec).get_output()
+        pred = BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=3, seed=42, models_and_parameters=[
+                (OpLogisticRegression(),
+                 default_grid_for("OpLogisticRegression")),
+                (OpXGBoostClassifier(), [
+                    dict(max_depth=d, eta=0.3, num_round=5, max_bins=32)
+                    for d in (3, 5)])]).set_input(survived, checked) \
+            .get_output()
+        t0 = time.perf_counter()
+        with record_refit_levels([]) as levels:
+            model = Workflow(device=dev).set_reader(ListReader(rows)) \
+                .set_result_features(pred).train()
+        train_s = time.perf_counter() - t0
+        out[run] = dict(model=model, pred=pred, vec=vec.name,
+                        checked=checked.name, scored=score(model, pred),
+                        levels=levels, train_s=train_s)
+    c, g, g2 = out["cpu"], out["cuda"], out["cuda2"]
+    cm, gm = c["model"], g["model"]
+    cx, gx = cm._train_data.column(c["vec"]), gm._train_data.column(g["vec"])
+    cs, gs = cm.sanity_checker_summary(), gm.sanity_checker_summary()
+    csel, gsel = cm.selector_summary(), gm.selector_summary()
+    cells = max(abs(a["mean_metric"] - b["mean_metric"]) for a, b in
+                zip(csel.validation_results, gsel.validation_results))
+    y_new = np.array([r["survived"] for r in new], np.float32)
+    aupr = [float(M.au_pr(torch.as_tensor(r["scored"][:, -1]),
+                          torch.as_tensor(y_new))) for r in (c, g)]
+    # the score path on the card, per row: the CPU's fitted stages scored
+    # on the card
+    carried = convert.workflow_model_from_jax(
+        [c["pred"]], [convert.stage_state(st) for st in cm.stages],
+        device="cuda")
+    carried_diff = float(np.abs(score(carried, c["pred"])[:, -1]
+                                - c["scored"][:, -1]).max())
+    names = cm._train_data.column(c["checked"]).metadata.column_names()
+    depth = csel.best_grid.get("max_depth", 0)
+
+    def compare(a, b):
+        """Largest probability difference, the share of rows within 1e-5
+        and, where the refits split a node differently, the witness."""
+        dprob = np.abs(a["scored"][:, -1] - b["scored"][:, -1])
+        first = first_divergence(a["levels"], b["levels"])
+        return dict(max_prob_diff=float(dprob.max()),
+                    share_prob_within_1e5=float((dprob <= 1e-5).mean()),
+                    refit_levels=[len(a["levels"]), len(b["levels"])],
+                    witness=None if first is None else split_witness(
+                        a["levels"], b["levels"], *first, depth, names))
+    cpu_card, card_card = compare(c, g), compare(g, g2)
+    res = dict(
+        rows=len(rows), width=int(gx.data.shape[1]),
+        kept=len(next(st for st in gm.stages if type(st).__name__
+                      == "SanityCheckerModel").indices_to_keep),
+        matrix_identical=cx.data.tobytes() == gx.data.tobytes(),
+        metadata_identical=cx.metadata.to_json() == gx.metadata.to_json(),
+        same_drops=(cs.dropped == gs.dropped
+                    and list(cs.drop_reasons) == list(gs.drop_reasons)),
+        winner_cpu=[csel.best_model_name, csel.best_grid],
+        winner_cuda=[gsel.best_model_name, gsel.best_grid],
+        max_cell_diff=cells, score_aupr_cpu=aupr[0], score_aupr_cuda=aupr[1],
+        carried_cpu_model_on_card_max_prob_diff=carried_diff,
+        cpu_vs_card=cpu_card, card_vs_card_rerun=card_card,
+        routes=sorted({v["route"] for v in gsel.validation_results}),
+        cells_cuda=[[v["model_name"], v["grid"], v["mean_metric"]]
+                    for v in gsel.validation_results],
+        train_s_cpu=c["train_s"], train_s_cuda=[g["train_s"], g2["train_s"]])
+    log("workflow-small: " + json.dumps(res))
+
+    def explained(cmp):   # every row within 1e-5, or a tie at the split
+        w = cmp["witness"]
+        return cmp["max_prob_diff"] <= 1e-5 or (w is not None and w["tie"])
+    return (res["matrix_identical"] and res["metadata_identical"]
+            and res["same_drops"] and res["winner_cpu"] == res["winner_cuda"]
+            and cells < 5e-3 and abs(aupr[0] - aupr[1]) < 1e-3
+            and carried_diff <= 1e-5
+            and explained(cpu_card) and explained(card_card))
+
+
+@contextlib.contextmanager
+def record_refit_levels(store: list):
+    """Inside the block, every one-lane call of the tree fit's level split
+    (the refit: the sweep fits its folds as lanes) leaves its histograms,
+    split arguments and the split it chose in `store`, in call order
+    (round by round, level by level)."""
+    from transmogrifai_tpu_torch.ops import trees as T
+    original = T._level_split
+
+    def run(full, B, split_kw, feature_mask, level_mask):
+        out = original(full, B, split_kw, feature_mask, level_mask)
+        if full.shape[0] == 1:
+            store.append(dict(full=full.clone(), split_kw=dict(split_kw),
+                              masks=(feature_mask, level_mask),
+                              split=[t[0].cpu() for t in out[:3]]))
+        return out
+    T._level_split = run
+    try:
+        yield store
+    finally:
+        T._level_split = original
+
+
+def first_divergence(a: list, b: list):
+    """(call, node) of the first node whose split (feature, threshold,
+    missing direction) differs between two recorded fits, else None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        differ = sum((p != q).int() for p, q in zip(x["split"], y["split"]))
+        nodes = differ.nonzero()
+        if len(nodes):
+            return i, int(nodes[0, 0])
+    return None
+
+
+def split_witness(a: list, b: list, i: int, node: int, depth: int,
+                  names: list) -> dict:
+    """Why two fits split node `node` of level call `i` differently: the two
+    chosen candidates' gains as each device computed them (f32, on its own
+    device) and in float64 from each device's histograms, the largest
+    difference of the node's cumulative g and h sums between the devices,
+    and the f32 noise bound: those differences carried to each candidate's
+    gain to first order, plus 4 ulps of its terms. `tie` holds when the
+    node's counts agree exactly and the float64 gains of the two candidates
+    differ by no more than that bound on either device's histograms."""
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch.ops import trees as T
+    eps = float(np.finfo(np.float32).eps)
+    gains, sums = [], []
+    for rec in (a[i], b[i]):
+        g32, _ = T._level_gains(rec["full"], rec["split_kw"], *rec["masks"])
+        g64, s64 = T._level_gains(
+            rec["full"].double().cpu(), rec["split_kw"],
+            *[m if m is None else m.cpu() for m in rec["masks"]])
+        gains.append((g32[0, node].double().cpu(), g64[0, node]))
+        sums.append([t[0, node] for t in s64])
+    cand = [tuple(int(t[node]) for t in rec["split"]) for rec in (a[i], b[i])]
+    (GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm), other = sums
+    dG = float(max((GL - other[0]).abs().max(), (Gt - other[3]).abs().max()))
+    dH = float(max((HL - other[1]).abs().max(), (Ht - other[4]).abs()))
+    lam = a[i]["split_kw"]["reg_lambda"]
+
+    def parts(c):   # left/right/parent sums of candidate c (CPU's sums)
+        f, t, m = c
+        gl = float(GL[f, t, 0] - m * Gm[f, 0])
+        hl = float(HL[f, t] - m * Hm[f])
+        cl = float(CL[f, t] - m * Cm[f])
+        return gl, hl, cl, float(Gt[0]), float(Ht)
+
+    def noise(c):
+        gl, hl, _, gt, ht = parts(c)
+        gr, hr = gt - gl, ht - hl
+        dl, dr, dp = hl + lam, hr + lam, ht + lam
+        d_gl = abs(2 * gl / dl - 2 * gr / dr)
+        d_hl = abs((gr / dr) ** 2 - (gl / dl) ** 2)
+        d_gt = abs(2 * gr / dr - 2 * gt / dp)
+        d_ht = abs((gt / dp) ** 2 - (gr / dr) ** 2)
+        terms = gl * gl / dl + gr * gr / dr + gt * gt / dp
+        return (d_gl + d_gt) * dG + (d_hl + d_ht) * dH + 4 * eps * terms
+
+    def gain(g, c):
+        return float(g[c[0], c[1], c[2]])
+    gaps = [gain(g64, cand[0]) - gain(g64, cand[1]) for _, g64 in gains]
+    bound = noise(cand[0]) + noise(cand[1])
+    counts_equal = bool(torch.equal(CL, other[2]))
+    return dict(
+        round=i // depth, level=i % depth, node=node,
+        split_a=[names[cand[0][0]], *cand[0]],
+        split_b=[names[cand[1][0]], *cand[1]],
+        left_rows=[parts(c)[2] for c in cand], node_rows=float(Ct),
+        gains_f32_own_device=[[gain(g32, c) for c in cand]
+                              for g32, _ in gains],
+        gains_f64=[[gain(g64, c) for c in cand] for _, g64 in gains],
+        gap_f64=gaps, noise_bound=bound,
+        max_dG=dG, max_dH=dH, node_G=float(Gt[0]), node_H=float(Ht),
+        counts_equal=counts_equal,
+        tie=counts_equal and all(abs(x) <= bound for x in gaps))
+
+
+def workflow_main_phase(rows: int, seed: int):
+    """The user's flow at full size: a Dataset of numpy columns (64 Reals
+    from the tree phases' generator, 5% missing in four columns and the
+    value-dependent missing column; PickLists of 50 and 12 categories as
+    bench.py's make_wide_rows draws plA and plB; the RealNN label) through
+    set_input_dataset -> transmogrify -> SanityChecker (defaults) ->
+    5-fold BinaryClassificationModelSelector (OpLogisticRegression's
+    default grid; OpXGBoostClassifier at depth {4, 6}, eta 0.3, 10 rounds,
+    32 bins; the default DataBalancer splitter) -> Workflow.train() ->
+    score(). Launch counters are reset just before train() and read just
+    after: every kernel must have launched. The inputs of the first launch
+    at each (kernel, F, S) key of train() are kept, and each kernel is held
+    against its plain version on them (`kernel_rows`). Then one statistics
+    pass over the whole transmogrified matrix, which the router streams (it
+    exceeds 4 GiB), held against the fused route on the card. Returns (ok,
+    launches by (kernel, F, S) key, kernel rows)."""
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch import device as D
+    from transmogrifai_tpu_torch.automl.preparators import SanityChecker
+    from transmogrifai_tpu_torch.automl.selectors import (
+        BinaryClassificationModelSelector, default_grid_for)
+    from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder as FB
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+    from transmogrifai_tpu_torch.ops import stats_engine as SE
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.types import ColumnKind
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    t0 = time.perf_counter()
+    X, y = make_data(rows, seed)
+    Xh, yh = X.cpu().numpy(), y.cpu().numpy().astype(np.float64)
+    del X, y
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 5)
+    cats_a = np.array([f"cat{i}" for i in range(50)], dtype=object)
+    cats_b = np.array([f"seg{i}" for i in range(12)], dtype=object)
+    cols = {f"x{j}": Column(ColumnKind.FLOAT,
+                            np.ascontiguousarray(Xh[:, j], np.float64))
+            for j in range(Xh.shape[1])}
+    del Xh
+    cols["plA"] = Column(ColumnKind.STRING, cats_a[rng.integers(0, 50, rows)])
+    cols["plB"] = Column(ColumnKind.STRING, cats_b[rng.integers(0, 12, rows)])
+    cols["label"] = Column(ColumnKind.FLOAT, yh)
+    ds = Dataset(cols)
+    raw_s = time.perf_counter() - t0
+
+    label = FB.RealNN("label").as_response()
+    feats = [FB.Real(f"x{j}").as_predictor() for j in range(64)] + \
+        [FB.PickList("plA").as_predictor(), FB.PickList("plB").as_predictor()]
+    vec = transmogrify(feats)
+    checker = SanityChecker()
+    checked = checker.set_input(label, vec).get_output()
+    selector = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=5, seed=42, models_and_parameters=[
+            (OpLogisticRegression(), default_grid_for("OpLogisticRegression")),
+            (OpXGBoostClassifier(), [dict(max_depth=d, eta=0.3, num_round=10,
+                                          max_bins=32) for d in (4, 6)])])
+    pred = selector.set_input(label, checked).get_output()
+    workflow = Workflow().set_input_dataset(ds).set_result_features(pred)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured = {}
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    with D.record_copies() as rec, capture_kernel_inputs(captured):
+        model = workflow.train()
+    train_s = time.perf_counter() - t0
+    launches = dict(TK.launches)
+    shape_launches = dict(TK.shape_launches)
+    stats_pass = dict(SE.last_pass)
+    train_copies = rec.copies
+    sel = model.selector_summary()
+    sc = model.sanity_checker_summary()
+    width = len(sc.names)
+    kept = len(next(st for st in model.stages if type(st).__name__
+                    == "SanityCheckerModel").indices_to_keep)
+    walls = {}
+    for w in model.runner.walls:
+        key = f"{w['op']} {w['stage'].split('_')[0]}"
+        walls[key] = walls.get(key, 0.0) + w["seconds"]
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    captured_gb = sum(t.numel() * t.element_size() for _, args, _ in
+                      captured.values() for t in args
+                      if isinstance(t, torch.Tensor)) / 1e9
+    # every (kernel, F, S) launch key of train(), on the inputs of its
+    # first launch there, against the kernel's plain version
+    wf_rows = kernel_rows([captured_shape(key, *captured[key])
+                           for key in sorted(captured)], phase="workflow")
+    del captured
+    torch.cuda.empty_cache()
+
+    def by_label(copies):
+        out = {}
+        for c in copies:
+            n, b, t = out.get(c["label"], (0, 0, 0.0))
+            out[c["label"]] = (n + 1, b + c["bytes"], t + c["seconds"])
+        return {k: dict(copies=n, gb=b / 1e9, seconds=t, gb_per_s=b / 1e9 / t)
+                for k, (n, b, t) in out.items()}
+
+    # the streamed statistics route over the whole transmogrified matrix;
+    # the train path's other columns stay on the model for evaluate(): they
+    # are freed first, to score the 10M rows again within the host's memory
+    full = model._train_data.data(vec.name)
+    model._train_data = None
+    t0 = time.perf_counter()
+    streamed = SE.run_stats(full, yh.astype(np.float32),
+                            distinct=np.array([0.0, 1.0]), corr_matrix=True)
+    stream_pass = dict(SE.last_pass, wall_s=time.perf_counter() - t0)
+    fused = SE.run_stats(full, yh.astype(np.float32), driver="fused",
+                         distinct=np.array([0.0, 1.0]), corr_matrix=True)
+    fused_pass = dict(SE.last_pass)
+    stats_err = max(float(np.nanmax(np.abs(getattr(streamed, k)
+                                            - getattr(fused, k))))
+                    for k in ("mean", "variance", "corr_label",
+                              "corr_matrix"))
+    stats_exact = (all(np.array_equal(getattr(streamed, k),
+                                      getattr(fused, k))
+                       for k in ("count", "min", "max"))
+                   and np.allclose(streamed.contingency, fused.contingency,
+                                   rtol=1e-9, atol=0))
+    del full, fused, streamed
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with D.record_copies() as rec:
+        scored = model.score(ds).data(pred.name)
+    score_s = time.perf_counter() - t0
+    score_copies = rec.copies
+
+    best = max(sel.validation_results, key=lambda v: v["mean_metric"])
+    prevalence = float(yh.mean())
+    res = dict(
+        rows=rows, raw_data_s=raw_s, train_s=train_s, score_s=score_s,
+        stage_walls_s=walls, selector_walls_s=selector.walls,
+        sanity_stats_pass=stats_pass, width_before=width, width_after=kept,
+        flagged=len(sc.dropped), sanity_sample_fraction=sc.sample_fraction,
+        data_prep=sel.data_prep_results,
+        winner=[sel.best_model_name, sel.best_grid],
+        winner_cv_aupr=best["mean_metric"],
+        holdout_aupr=sel.holdout_evaluation.get("au_pr"),
+        prevalence=prevalence,
+        cells={f"{v['model_name']} {json.dumps(v['grid'], sort_keys=True)}":
+               [v["mean_metric"], v["route"]]
+               for v in sel.validation_results},
+        train_copies=by_label(train_copies),
+        score_copies=by_label(score_copies),
+        peak_device_gb_train=train_peak_gb,
+        captured_kernel_inputs_gb=captured_gb,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, shape_launches=shape_launches,
+        stream_stats=stream_pass, fused_stats=fused_pass,
+        stream_vs_fused_max_diff=stats_err, stream_counts_exact=stats_exact)
+    log("workflow-main: " + json.dumps(res))
+    ok = (all(n > 0 for n in launches.values())
+          and {r["key"] for r in wf_rows} == set(shape_launches)
+          and scored.shape == (rows, 5)
+          and bool(np.isfinite(scored).all())
+          and best["mean_metric"] > prevalence + 0.1
+          and sel.holdout_evaluation["au_pr"] > prevalence + 0.1
+          and stream_pass["driver"] == "streamed" and stats_exact
+          and stats_err < 1e-4)
+    return ok, shape_launches, wf_rows
+
+
+@contextlib.contextmanager
+def capture_kernel_inputs(store: dict):
+    """Inside the block, the first launch of each (kernel, F, S) key of
+    `TK.shape_launches` leaves a copy of its inputs in `store`: {key:
+    (kernel, args, kwargs)} (tensors cloned once each, shared inputs such
+    as the bin matrix shared). The launch counts are the dispatchers' own."""
+    import torch
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    originals = {name: getattr(TK, name) for name in TK.KERNELS}
+    clones = {}   # the original is held too: its address stays its own
+
+    def keep(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        k = (t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
+        if k not in clones:
+            clones[k] = (t, t.clone())
+        return clones[k][1]
+
+    def capturing(name):
+        def run(*args, **kw):
+            before = dict(TK.shape_launches)
+            out = originals[name](*args, **kw)
+            for key, n in TK.shape_launches.items():
+                if n != before.get(key, 0) and key not in store:
+                    store[key] = (name, tuple(keep(a) for a in args),
+                                  dict(kw))
+            return out
+        return run
+    for name in originals:
+        setattr(TK, name, capturing(name))
+    try:
+        yield store
+    finally:
+        for name, fn in originals.items():
+            setattr(TK, name, fn)
+        clones.clear()
+
+
+def captured_shape(key: str, name: str, args: tuple, kw: dict) -> tuple:
+    """(label, kernel, S, args, kwargs) of one captured launch key."""
+    S = int(key.rsplit("S=", 1)[1])
+    if name == "table_lookup":
+        label = f"leaves: Fo={args[1].shape[0]} M={S}"
+    elif name == "route":
+        label = f"last level {S} nodes: F={args[0].shape[0]} " \
+                f"Fo={args[1].shape[0]}"
+    elif not kw.get("derive_count"):
+        label = f"rank metric: F=1 B={kw['n_bins']} S={S} lanes"
+    else:
+        F, Fo, B = args[0].shape[0], args[1].shape[0] // 2, kw["n_bins"]
+        label = (f"tree root: F={F} B={B} Fo={Fo} S=1" if name == "hist_folds"
+                 else f"level S={S}: F={F} B={B} Fo={Fo}")
+    return f"workflow-main {label}", name, S, args, kw
+
+
 def tf32_phase() -> bool:
     """Float32 products must stay in full f32 (no TF32)."""
     import torch
@@ -794,9 +1324,23 @@ def main() -> int:
     if not glm_profile_phase(X, y):
         failures.append("glm-profile: no device time")
     del X, y
-    counts = {"tree": shape_launches, "glm": glm_launches}
+    torch.cuda.empty_cache()
+    if not workflow_small_phase(SEED):
+        failures.append("workflow-small CPU/GPU disagreement")
+    wf_ok, wf_launches, wf_rows = workflow_main_phase(args.rows, SEED)
+    if not wf_ok:
+        failures.append("workflow-main")
+    failures += [f"kernel {r['name']} ({r['shape']})" for r in wf_rows
+                 if not r.pop("ok")]
+    rows += wf_rows
+    counts = {"tree": shape_launches, "glm": glm_launches,
+              "workflow": wf_launches}
     for r in rows:
-        r["launches"] = counts[r.pop("phase")].get(r.pop("key"), 0)
+        key = r.pop("key")
+        r["launches"] = counts[r["phase"]].get(key, 0)
+        # launches at this row's (kernel, F, S) key inside workflow-main's
+        # train()
+        r["workflow_launches"] = wf_launches.get(key, 0)
     failures += [f"kernel {r['name']} ({r['shape']}): no launch on its "
                  "main path" for r in rows if not r["launches"]]
     log(f"total: {time.perf_counter() - t_start:.1f}s")

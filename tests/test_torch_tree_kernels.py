@@ -310,12 +310,13 @@ def test_kernel_timing_inputs_cover_the_main_path_shapes(n_bins):
     for label, name, S, args, kw in (shapes[0], shapes[2], shapes[4],
                                      lanes[0], lanes[2], lanes[4]):
         got = getattr(TK, name)(*args, **kw)
-        assert HP.agrees(name, got, HP.plain(name, args, kw), args, kw)
+        assert HP.accuracy(name, got, HP.plain(name, args, kw), args,
+                           kw)["ok"]
         bad = tuple(t.clone() for t in (got if isinstance(got, tuple)
                                         else (got,)))
         bad[0][0] += 1.0
-        assert not HP.agrees(name, bad if name == "route_hist" else bad[0],
-                             got, args, kw)
+        assert not HP.accuracy(name, bad if name == "route_hist" else bad[0],
+                               got, args, kw)["ok"]
         if name == "route":
             n_read = HP.route_bins_read(args[1], args[2])
             assert d["N"] <= n_read <= d["Fo"] * d["N"]
@@ -427,3 +428,31 @@ def test_lane_plan_refuses_a_path_that_does_not_fit(name, F, S, itemsize,
                                                     path):
     with pytest.raises(ValueError, match="do not fit|unknown"):
         _lane_plan(name, F, S, 5, 10_000, itemsize, path)
+
+
+def test_histogram_accuracy_is_held_to_float64_sums():
+    """`hist_paths.accuracy` holds a kernel's g/h cells to the float64 sums:
+    f32 sums of many equal terms (a first tree's root, where every row has
+    the same hessian) drift, the plain version's too, so a cell may be off
+    by 1e-4 of its sum of |terms| or by the plain version's own drift,
+    whichever is larger; the derived counts stay exact."""
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
+    N, B = 300_000, 3
+    Xb = torch.ones((2, N), dtype=torch.int8)
+    Xb[1, ::3] = 2
+    sign = torch.where(torch.arange(N) % 2 == 0, 1.0, -1.0)
+    pay = torch.stack([0.3 * sign, torch.full((N,), 0.2345678)])
+    args, kw = (Xb, pay, torch.zeros((1, N))), dict(n_slots=1, n_bins=B,
+                                                     derive_count=True)
+    plain = HP.plain("hist_folds", args, kw)
+    acc = HP.accuracy("hist_folds", plain, plain, args, kw)
+    assert acc["ok"] and acc["plain_rel_err"] > 1e-4
+    rounded = HP.reference("hist_folds", args, kw).float()
+    acc = HP.accuracy("hist_folds", rounded, plain, args, kw)
+    assert acc["ok"] and acc["rel_err"] < 1e-7
+    off = rounded.clone()
+    off[1, 1] *= 1 + 2 * max(1e-4, acc["plain_rel_err"])
+    assert not HP.accuracy("hist_folds", off, plain, args, kw)["ok"]
+    miscounted = rounded.clone()
+    miscounted[2, 1] += 1.0
+    assert not HP.accuracy("hist_folds", miscounted, plain, args, kw)["ok"]

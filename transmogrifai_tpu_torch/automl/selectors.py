@@ -1,0 +1,158 @@
+"""Binary model-selector preset + default hyperparameter grids (counterpart
+of automl/selectors.py).
+
+Reference: core/.../impl/classification/BinaryClassificationModelSelector.scala
+(:59-61 default model types, :67-110 grids),
+selector/DefaultSelectorParams.scala:35-56.
+
+The port has OpLogisticRegression, OpLinearSVC and OpXGBoostClassifier.
+Asking for any other model type, or getting one from the defaults (the
+binary defaults include OpRandomForestClassifier and OpGBTClassifier),
+raises NotImplementedError naming it: a type is never dropped in silence,
+which would run a smaller sweep than the reference. The multiclass and
+regression selectors are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..device import DeviceLike
+from ..evaluators.evaluators import Evaluator, Evaluators
+from ..models.base import PredictorEstimator
+from ..stages.params import ParamMap, param_grid
+from .selector import ModelSelector
+from .tuning.splitters import DataBalancer, Splitter
+from .tuning.validators import CrossValidation, TrainValidationSplit, Validator
+
+
+class DefaultSelectorParams:
+    """Reference DefaultSelectorParams.scala:35-56."""
+
+    MAX_DEPTH = [3, 6, 12]
+    MAX_BIN = [32]
+    MIN_INSTANCES_PER_NODE = [10, 100]
+    MIN_INFO_GAIN = [0.001, 0.01, 0.1]
+    REGULARIZATION = [0.001, 0.01, 0.1, 0.2]
+    MAX_ITER_LIN = [50]
+    MAX_ITER_TREE = [20]
+    SUBSAMPLE_RATE = [1.0]
+    STEP_SIZE = [0.1]
+    ELASTIC_NET = [0.1, 0.5]
+    MAX_TREES = [50]
+    STANDARDIZED = [True]
+    TOL = [1e-6]
+    FIT_INTERCEPT = [True]
+    NB_SMOOTHING = [1.0]
+    DIST_FAMILY = ["gaussian", "poisson"]
+    NUM_ROUND_XGB = [100]
+    ETA_XGB = [0.1, 0.3]
+    MIN_CHILD_WEIGHT_XGB = [1.0, 5.0, 10.0]
+
+
+D = DefaultSelectorParams
+
+
+def _models_by_name() -> Dict[str, type]:
+    """The model types the port has, by the reference's names."""
+    from ..models import glm, trees
+    return {"OpLogisticRegression": glm.OpLogisticRegression,
+            "OpLinearSVC": glm.OpLinearSVC,
+            "OpXGBoostClassifier": trees.OpXGBoostClassifier}
+
+
+def default_grid_for(name: str) -> List[ParamMap]:
+    """Default sweep grid of a ported model type (reference grids
+    :67-110)."""
+    if name == "OpLogisticRegression":
+        return param_grid(reg_param=D.REGULARIZATION,
+                          elastic_net_param=D.ELASTIC_NET,
+                          max_iter=D.MAX_ITER_LIN)
+    if name == "OpLinearSVC":
+        return param_grid(reg_param=D.REGULARIZATION,
+                          max_iter=D.MAX_ITER_LIN)
+    if name == "OpXGBoostClassifier":
+        return param_grid(max_depth=D.MAX_DEPTH, eta=D.ETA_XGB,
+                          min_child_weight=D.MIN_CHILD_WEIGHT_XGB,
+                          num_round=D.NUM_ROUND_XGB)
+    return [dict()]
+
+
+def _resolve_models(model_types: Sequence[str], problem_type: str,
+                    models_and_params: Optional[Sequence[
+                        Tuple[PredictorEstimator, List[ParamMap]]]],
+                    seed: int, device: DeviceLike
+                    ) -> List[Tuple[PredictorEstimator, List[ParamMap]]]:
+    if models_and_params is not None:
+        return list(models_and_params)
+    registry = _models_by_name()
+    missing = [name for name in model_types if name not in registry]
+    if missing:
+        raise NotImplementedError(
+            f"model types {missing} are not ported yet (the port has "
+            f"{sorted(registry)}); pass model_types or "
+            "models_and_parameters restricted to those")
+    out: List[Tuple[PredictorEstimator, List[ParamMap]]] = []
+    for name in model_types:
+        est = registry[name](device=device)
+        if problem_type not in est.problem_types:
+            raise ValueError(f"{name} does not support {problem_type}")
+        if est.has_param("seed"):
+            est.set_param("seed", seed)
+        out.append((est, default_grid_for(name)))
+    if not out:
+        raise ValueError("No models to select among")
+    return out
+
+
+class BinaryClassificationModelSelector:
+    """Reference BinaryClassificationModelSelector.scala (defaults :59-61:
+    LR/RF/GBT/SVC on; NB/DT/XGB off). `device` (None = CUDA) is where the
+    selector's sweep, refit and evaluation run; a Workflow's device fills
+    it when it is None. The reference's `parallelism` (the thread count of
+    its sequential validation route, which the port does not have) is not
+    taken."""
+
+    problem_type = "binary"
+    default_model_types = ("OpLogisticRegression", "OpRandomForestClassifier",
+                           "OpGBTClassifier", "OpLinearSVC")
+
+    @classmethod
+    def with_cross_validation(cls, splitter: Optional[Splitter] = None,
+                              evaluator: Optional[Evaluator] = None,
+                              num_folds: int = 3, seed: int = 42,
+                              stratify: bool = False,
+                              model_types: Optional[Sequence[str]] = None,
+                              models_and_parameters=None,
+                              device: DeviceLike = None) -> ModelSelector:
+        ev = evaluator or Evaluators.BinaryClassification.au_pr()
+        validator = CrossValidation(ev, num_folds=num_folds, seed=seed,
+                                    stratify=stratify)
+        return cls._build(validator, splitter, seed, model_types,
+                          models_and_parameters, device)
+
+    @classmethod
+    def with_train_validation_split(cls, splitter: Optional[Splitter] = None,
+                                    evaluator: Optional[Evaluator] = None,
+                                    train_ratio: float = 0.75, seed: int = 42,
+                                    stratify: bool = False,
+                                    model_types: Optional[Sequence[str]] = None,
+                                    models_and_parameters=None,
+                                    device: DeviceLike = None
+                                    ) -> ModelSelector:
+        ev = evaluator or Evaluators.BinaryClassification.au_pr()
+        validator = TrainValidationSplit(ev, train_ratio=train_ratio,
+                                         seed=seed, stratify=stratify)
+        return cls._build(validator, splitter, seed, model_types,
+                          models_and_parameters, device)
+
+    @classmethod
+    def _build(cls, validator: Validator, splitter: Optional[Splitter],
+               seed: int, model_types, models_and_parameters,
+               device: DeviceLike) -> ModelSelector:
+        split = splitter if splitter is not None else DataBalancer(seed=seed)
+        models = _resolve_models(
+            model_types if model_types is not None else cls.default_model_types,
+            cls.problem_type, models_and_parameters, seed, device)
+        return ModelSelector(validator, split, models,
+                             operation_name=f"{cls.problem_type}ModelSelector",
+                             device=device)

@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...device import DeviceLike, resolve_device
+from ...device import DeviceLike, resolve_device, to_device
 from ...evaluators.evaluators import Evaluator
 from ...models.base import PredictorEstimator
 from ...ops import glm_sweep as GS
@@ -212,7 +212,7 @@ class Validator:
             ).hexdigest()[:12]
         metric = self.evaluator.default_metric
         larger = self.evaluator.is_larger_better()
-        Xd = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        Xd = to_device(X, dev, label="sweep")
         yd = torch.as_tensor(y_host, dtype=torch.float32, device=dev)
         wd = torch.ones_like(yd) if w is None else \
             torch.as_tensor(w, dtype=torch.float32, device=dev)
@@ -235,9 +235,8 @@ class Validator:
             else:
                 raise NotImplementedError(
                     f"{type(est).__name__} ({problem_type}) has no ported "
-                    "sweep route yet: the sequential route comes with the "
-                    "workflow slice, other tree families with the forest "
-                    "slice")
+                    "sweep route yet: the sequential route and the other "
+                    "tree families come in later slices")
 
         if not validated:
             raise ValueError("No models to validate")

@@ -1,18 +1,21 @@
 """Carry fitted parameters across from the JAX package.
 
-Each takes plain numpy arrays or lists — what the JAX package's
-`TreeEnsembleModel.save_args()`, `LinearBinaryModel.save_args()` and `Tree`
-fields hold — so this module imports nothing of the JAX package. With them
-both packages score the same fitted model.
+Each takes plain numpy arrays, lists and dicts — what the JAX package's
+`TreeEnsembleModel.save_args()`, `LinearBinaryModel.save_args()`, `Tree`
+fields and fitted workflow stages hold — so this module imports nothing of
+the JAX package. With them both packages score the same fitted model or
+the same fitted workflow (`workflow_model_from_jax`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
+from .data.vector import VectorMetadata
 from .device import DeviceLike, resolve_device
+from .features.feature import Feature
 from .models.glm import LinearBinaryModel
 from .models.trees import TreeEnsembleModel
 from .ops.trees import Tree
@@ -52,3 +55,87 @@ def tree_from_jax(feat, thresh, leaf, miss, device: DeviceLike = None) -> Tree:
 
     return Tree(t(feat, torch.int32), t(thresh, torch.int32),
                 t(leaf, torch.float32), t(miss, torch.int32))
+
+
+def stage_state(stage) -> Dict[str, Any]:
+    """The plain state of one fitted workflow stage of either package: its
+    class name, `save_args()` and, for a vector-producing stage, its output
+    metadata as JSON."""
+    md = stage.output_metadata() if hasattr(stage, "output_metadata") \
+        else None
+    return {"class": type(stage).__name__, "args": stage.save_args(),
+            "metadata": None if md is None else md.to_json()}
+
+
+def _fitted_stage(state: Dict[str, Any], device: DeviceLike):
+    from .automl.selector import ModelSelectorSummary, SelectedModel
+    from .stages.registry import build_stage
+    args = dict(state["args"])
+    if state["class"] == "SelectedModel":
+        best = args["best_model_args"]
+        make = {"LinearBinaryModel": linear_model_from_jax,
+                "TreeEnsembleModel": tree_model_from_jax}.get(
+                    args["best_model_class"])
+        if make is None:
+            raise NotImplementedError(
+                f"{args['best_model_class']} is not ported yet")
+        return SelectedModel(
+            make(best, device=device),
+            ModelSelectorSummary.from_json(args["summary"]),
+            label_map={int(k): int(v) for k, v in
+                       (args.get("label_map") or {}).items()} or None,
+            operation_name=args.get("operation_name", "modelSelector"),
+            device=device)
+    stage = build_stage(state["class"], args)
+    if state.get("metadata") is not None and hasattr(stage, "set_metadata"):
+        stage.set_metadata(VectorMetadata.from_json(state["metadata"]))
+    return stage
+
+
+def workflow_model_from_jax(result_features: Sequence[Feature],
+                            stage_states: List[Dict[str, Any]],
+                            device: DeviceLike = None):
+    """A fitted port WorkflowModel from the fitted JAX workflow's stage
+    state.
+
+    `result_features` are the port's result features of the same workflow
+    (built the same way in the port, unfitted); `stage_states` holds
+    `stage_state(st)` of every stage of the JAX WorkflowModel, in the order
+    of its `stages`. The two DAGs are matched stage by stage in layer order
+    (the class names must agree): each port estimator is replaced by the
+    port's fitted counterpart of the JAX stage — vectorizer fills and
+    vocabularies with their metadata, the SanityChecker's kept indices, the
+    selector's best model through `linear_model_from_jax` /
+    `tree_model_from_jax` — wired to the port's features."""
+    from .stages.base import Estimator
+    from .workflow.dag import StagesDAG, compute_dag
+    from .workflow.fitting import LayerRunner
+    from .workflow.workflow import WorkflowModel
+
+    dag = compute_dag(tuple(result_features))
+    if len(dag.stages) != len(stage_states):
+        raise ValueError(f"the port's workflow has {len(dag.stages)} stages, "
+                         f"the fitted one {len(stage_states)}")
+    states = iter(stage_states)
+    layers = []
+    for layer in dag.layers:
+        row = []
+        for st in layer:
+            state = next(states)
+            if not isinstance(st, Estimator):
+                if type(st).__name__ != state["class"]:
+                    raise ValueError(f"stage {st.stage_name} does not match "
+                                     f"the fitted {state['class']}")
+                row.append(st)
+                continue
+            model = _fitted_stage(state, device)
+            model.input_types = tuple(st.input_types)
+            model.is_sequence = st.is_sequence
+            model.fixed_arity = st.fixed_arity
+            model.set_input(*st.input_features)
+            model.set_output_name(st.output_name())
+            model.uid = st.uid
+            row.append(model)
+        layers.append(row)
+    return WorkflowModel(tuple(result_features), StagesDAG(layers),
+                         LayerRunner(device))

@@ -1,58 +1,155 @@
-"""Binary rank-metric evaluators (counterpart of evaluators/evaluators.py).
+"""Binary-classification evaluator (counterpart of evaluators/evaluators.py).
 
 Reference: core/.../evaluators/{OpBinaryClassificationEvaluator.scala:56,
-Evaluators.scala:40}. This slice ports AuPR and AuROC, evaluated on arrays:
-`evaluate(labels, scores, w)` with `scores` the positive-class probability
-(or any score monotone in it). The prediction-column evaluators and the
-thresholded metrics arrive with the workflow slice.
+Evaluators.scala:40}. `evaluate_all(labels, pred_col, w)` computes the
+metric bundle of a Prediction column (models/prediction.py): AuROC, AuPR,
+and precision / recall / F1 / error / confusion counts at the threshold
+(probability `threshold` for probabilistic models, margin 0 for margin
+models such as the linear SVC), plus the threshold curves. `evaluate`
+returns the default metric of a Prediction column or of a score array;
+validators rank models by it. A Prediction column's metrics run on the
+evaluator's `device` (None = CUDA; the model selector and the workflow
+fill it with theirs); a score array's where it lies.
+The multiclass, regression and bin-score evaluators are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
+from ..data.dataset import Column
+from ..device import DeviceLike, resolve_device
+from ..models.prediction import positive_score_of, probability_of
 from ..ops import metrics_ops as M
 
-_METRICS = {"au_pr": M.au_pr, "au_roc": M.au_roc}
+_SMALLER_BETTER = {"error", "rmse", "mse", "mae", "log_loss", "brier_score"}
 
 
 class Evaluator:
-    """Base: a default metric and a larger-is-better flag."""
+    """Base: named, with a default metric and a larger-is-better flag."""
 
+    name: str = "evaluator"
     default_metric: str = ""
 
-    def __init__(self, metric: Optional[str] = None):
+    def __init__(self, metric: Optional[str] = None,
+                 device: DeviceLike = None):
         if metric is not None:
             self.default_metric = metric
+        self.device = device
+
+    def evaluate_all(self, labels, pred_col: Column, w=None
+                     ) -> Dict[str, Any]:
+        raise NotImplementedError
 
     def is_larger_better(self, metric: Optional[str] = None) -> bool:
-        return True
+        return (metric or self.default_metric) not in _SMALLER_BETTER
+
+    @staticmethod
+    def larger_better_metric(metric: str) -> bool:
+        """Direction of a metric by name (single source of truth)."""
+        return metric not in _SMALLER_BETTER
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(metric={self.default_metric})"
 
 
 class BinaryClassificationEvaluator(Evaluator):
-    """AuPR / AuROC of binary scores."""
+    """AuROC/AuPR/Precision/Recall/F1/Error/confusion counts."""
 
+    name = "binEval"
     default_metric = "au_pr"
 
-    def __init__(self, metric: Optional[str] = None):
-        super().__init__(metric)
-        if self.default_metric not in _METRICS:
+    def __init__(self, metric: Optional[str] = None, threshold: float = 0.5,
+                 device: DeviceLike = None):
+        super().__init__(metric, device)
+        self.threshold = threshold
+        if self.default_metric not in M.BinaryMetrics._fields:
             raise NotImplementedError(
-                f"binary metric {self.default_metric!r} is not ported yet; "
-                f"this slice has {sorted(_METRICS)}")
+                f"binary metric {self.default_metric!r} is not ported; the "
+                f"port has {list(M.BinaryMetrics._fields)}")
 
-    def evaluate(self, labels, scores, w=None) -> float:
-        """The default metric of `scores` against 0/1 `labels` (arrays or
-        tensors; computed on the scores' device)."""
-        s = torch.as_tensor(scores, dtype=torch.float32)
+    @staticmethod
+    def _tensors(labels, scores, w, dev=None):
+        """(scores, labels, weights) as float32 tensors on `dev` (None:
+        the scores' device; host arrays stay on the host)."""
+        s = torch.as_tensor(scores, dtype=torch.float32, device=dev)
         y = torch.as_tensor(labels, dtype=torch.float32, device=s.device)
         wt = None if w is None else \
             torch.as_tensor(w, dtype=torch.float32, device=s.device)
-        return float(_METRICS[self.default_metric](s, y, wt))
+        return s, y, wt
+
+    def _scalar_metrics(self, labels, pred_col: Column,
+                        w=None) -> Dict[str, float]:
+        # non-probabilistic models (SVC) score by margin: the decision
+        # boundary is 0, not probability 0.5
+        thr = self.threshold if probability_of(pred_col) is not None else 0.0
+        m = M.binary_metrics(
+            *self._tensors(labels, positive_score_of(pred_col), w,
+                           resolve_device(self.device)), thr)
+        return {k: float(v) for k, v in m._asdict().items()}
+
+    def evaluate(self, labels, scores, w=None) -> float:
+        """The default metric of a Prediction column (computed on the
+        evaluator's device), or of `scores` — the positive-class
+        probability or any score monotone in it, for the rank metrics —
+        computed where the scores lie (a tensor's device; host arrays on
+        the host)."""
+        if isinstance(scores, Column):
+            return self._scalar_metrics(labels, scores, w)[
+                self.default_metric]
+        if self.default_metric not in ("au_pr", "au_roc"):
+            raise ValueError(f"{self.default_metric} needs a Prediction "
+                             "column: its threshold depends on the model")
+        fn = M.au_pr if self.default_metric == "au_pr" else M.au_roc
+        return float(fn(*self._tensors(labels, scores, w)))
+
+    def evaluate_all(self, labels, pred_col: Column, w=None
+                     ) -> Dict[str, Any]:
+        """Scalar metrics + threshold curves (the summary path; curve
+        values are lists, which summary builders filter on)."""
+        out: Dict[str, Any] = self._scalar_metrics(labels, pred_col, w)
+        out.update(self.threshold_curves(labels, pred_col, w))
+        return out
+
+    def threshold_curves(self, labels, pred_col: Column, w=None,
+                         num_bins: int = 100) -> Dict[str, list]:
+        """Per-threshold P/R/F1 + ROC points at num_bins score cutoffs
+        (reference OpBinaryClassificationEvaluator.scala:68, numBins 100) —
+        one sort + cumsums on the host, as in the JAX package."""
+        score = np.asarray(positive_score_of(pred_col), np.float64)
+        y = np.asarray(labels, np.float64)
+        if len(y) == 0:
+            return {k: [] for k in
+                    ("thresholds", "precision_by_threshold",
+                     "recall_by_threshold", "f1_by_threshold",
+                     "false_positive_rate_by_threshold")}
+        wv = np.ones_like(y) if w is None else np.asarray(w, np.float64)
+        order = np.argsort(-score, kind="stable")
+        ys, ws, ss = y[order], wv[order], score[order]
+        tp_cum = np.cumsum(ws * ys)
+        fp_cum = np.cumsum(ws * (1.0 - ys))
+        P = max(tp_cum[-1], 1e-12)
+        N = max(fp_cum[-1], 1e-12)
+        lo, hi = float(ss.min()), float(ss.max())
+        thresholds = np.linspace(hi, lo, num_bins)
+        # rows with score >= t are predicted positive: index of the last
+        # such row in descending order
+        idx = np.searchsorted(-ss, -thresholds, side="right") - 1
+        valid = idx >= 0
+        tp = np.where(valid, tp_cum[np.maximum(idx, 0)], 0.0)
+        fp = np.where(valid, fp_cum[np.maximum(idx, 0)], 0.0)
+        precision = tp / np.maximum(tp + fp, 1e-12)
+        recall = tp / P
+        f1 = 2 * precision * recall / np.maximum(precision + recall, 1e-12)
+        return {
+            "thresholds": [float(t) for t in thresholds],
+            "precision_by_threshold": [float(v) for v in precision],
+            "recall_by_threshold": [float(v) for v in recall],
+            "f1_by_threshold": [float(v) for v in f1],
+            "false_positive_rate_by_threshold": [float(v) for v in fp / N],
+        }
 
 
 class Evaluators:

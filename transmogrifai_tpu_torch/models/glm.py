@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_device
 from ..ops import glm as G
 from ..stages.params import Param
 from .base import PredictionModel, PredictorEstimator, stable_sigmoid
@@ -38,7 +38,7 @@ class LinearBinaryModel(PredictionModel):
 
     def predict_arrays(self, X):
         dev = resolve_device(self.device)
-        Xd = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        Xd = to_device(X, dev, label="predict")
         margin = (Xd @ torch.as_tensor(self.beta, device=dev)
                   + self.intercept).cpu().numpy()
         raw = np.stack([-margin, margin], axis=1)
@@ -119,7 +119,7 @@ class OpLogisticRegression(PredictorEstimator):
         yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
         _binary_only(yd, "logistic regression (softmax)")
         beta, b0 = G.fit_logistic(
-            torch.as_tensor(X, dtype=torch.float32, device=dev), yd,
+            to_device(X, dev, label="fit"), yd,
             _weights(yd, w), float(self.get_param("reg_param")),
             float(self.get_param("elastic_net_param")),
             max_iter=int(self.get_param("max_iter")),
@@ -178,7 +178,7 @@ class OpLinearSVC(PredictorEstimator):
         yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
         _binary_only(yd, "linear SVC")
         beta, b0 = G.fit_linear_svc(
-            torch.as_tensor(X, dtype=torch.float32, device=dev), yd,
+            to_device(X, dev, label="fit"), yd,
             _weights(yd, w), float(self.get_param("reg_param")),
             max_iter=int(self.get_param("max_iter")),
             tol=float(self.get_param("tol")),

@@ -16,7 +16,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_device
 from ..ops import trees as T
 from ..stages.params import Param
 from .base import PredictionModel, PredictorEstimator, stable_sigmoid
@@ -55,7 +55,7 @@ class TreeEnsembleModel(PredictionModel):
                 f"tree ensemble mode {self.mode!r} is not ported yet: the "
                 "random-forest/decision-tree slice brings the other modes")
         dev = resolve_device(self.device)
-        Xd = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        Xd = to_device(X, dev, label="predict")
         agg = T.predict_ensemble(
             torch.as_tensor(self.feat, device=dev),
             torch.as_tensor(self.thresh_val, device=dev),
@@ -200,7 +200,7 @@ class OpXGBoostClassifier(_XGBBase):
             torch.as_tensor(w, dtype=torch.float32, device=dev)
         wd = self._apply_spw(yd, wd)
         Xb, edges, n_bins = self._bin(
-            torch.as_tensor(X, dtype=torch.float32, device=dev))
+            to_device(X, dev, label="fit"))
         kw = self._common()
         trees, base, _ = T.fit_gbt_folds(
             Xb, yd, wd[None, :], n_bins=n_bins, loss="logistic",

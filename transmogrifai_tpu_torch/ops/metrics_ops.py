@@ -5,11 +5,12 @@ threshold boundaries only), matching Spark MLlib's
 BinaryClassificationMetrics. The lane-batched binned forms score every CV
 fold of a sweep cell at once from a score histogram: one `hist_folds`
 launch over all lanes (the lane is the slot axis), no sort. Every function
-takes row weights, so fold masks cost nothing.
+takes row weights, so fold masks cost nothing. `binary_metrics` adds the thresholded metrics
+(precision, recall, F1, error, confusion counts) the evaluators report.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -110,3 +111,38 @@ def au_roc_binned_lanes(scores, labels, w_lanes, n_bins: int) -> torch.Tensor:
     """[L] AuROC from per-lane binned counts."""
     return _au_roc_from_counts(
         *binned_cum_counts_lanes(scores, labels, w_lanes, n_bins))
+
+
+class BinaryMetrics(NamedTuple):
+    au_roc: torch.Tensor
+    au_pr: torch.Tensor
+    precision: torch.Tensor
+    recall: torch.Tensor
+    f1: torch.Tensor
+    error: torch.Tensor
+    tp: torch.Tensor
+    tn: torch.Tensor
+    fp: torch.Tensor
+    fn: torch.Tensor
+
+
+def binary_metrics(scores: torch.Tensor, labels: torch.Tensor,
+                   w: Optional[torch.Tensor] = None,
+                   threshold: float = 0.5) -> BinaryMetrics:
+    """The rank metrics and the confusion counts at `threshold` (rows with
+    score >= threshold predicted positive), weighted."""
+    if w is None:
+        w = torch.ones_like(scores)
+    pred = (scores >= threshold).to(scores.dtype)
+    tp = (w * pred * labels).sum()
+    fp = (w * pred * (1 - labels)).sum()
+    tn = (w * (1 - pred) * (1 - labels)).sum()
+    fn = (w * (1 - pred) * labels).sum()
+    precision = tp / torch.clamp(tp + fp, min=EPS)
+    recall = tp / torch.clamp(tp + fn, min=EPS)
+    f1 = 2 * precision * recall / torch.clamp(precision + recall, min=EPS)
+    error = (fp + fn) / torch.clamp(tp + tn + fp + fn, min=EPS)
+    return BinaryMetrics(
+        au_roc=au_roc(scores, labels, w), au_pr=au_pr(scores, labels, w),
+        precision=precision, recall=recall, f1=f1, error=error,
+        tp=tp, tn=tn, fp=fp, fn=fn)

@@ -398,7 +398,8 @@ def hist_folds_plain(Xb_t, pay_t, slot_t, *, n_slots: int, n_bins: int,
     """Plain version of hist_folds: one scatter-add per (lane, channel) over
     (slot, feature, bin) ids, with a spill segment for dropped rows (slot
     outside [0, n_slots), bin outside [0, n_bins)) — the JAX package's
-    `_hist_segment_jnp`."""
+    `_hist_segment_jnp`. It sums in the payload's dtype (float64 payloads
+    give the float64 sums the kernels' cells are checked against)."""
     F, N = Xb_t.shape
     Fo = slot_t.shape[0]
     C = pay_t.shape[0] // Fo
@@ -411,14 +412,14 @@ def hist_folds_plain(Xb_t, pay_t, slot_t, *, n_slots: int, n_bins: int,
     for k in range(Fo):
         pay_k = pay_t[k * C:(k + 1) * C]
         if derive_count:
-            pay_k = torch.cat([pay_k, (pay_k[C - 1:C] > 0).float()])
+            pay_k = torch.cat([pay_k, (pay_k[C - 1:C] > 0).to(pay_k.dtype)])
         slot_k = slot_t[k]
         slot_i = slot_k.long()
         drop = (slot_k < 0) | (slot_i >= n_slots)
         ids = torch.where(drop[None, :] | bad_bin, seg,
                           slot_i[None, :] * (F * B) + fb).reshape(-1)
         hist = torch.stack([
-            torch.zeros(seg + 1, dtype=torch.float32, device=Xb_t.device)
+            torch.zeros(seg + 1, dtype=pay_t.dtype, device=Xb_t.device)
             .index_add_(0, ids, pay_c.expand(F, N).reshape(-1))[:seg]
             for pay_c in pay_k])                                     # [Co, seg]
         out.append(hist.reshape(-1, n_slots, F * B).transpose(0, 1)

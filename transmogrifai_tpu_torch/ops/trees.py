@@ -202,11 +202,11 @@ def _level_feature_mask(gen: torch.Generator, n_feat: int, frac: float,
     return (scores >= kth)[0] & torch.isfinite(scores[0])
 
 
-def _level_split(full, B, split_kw, feature_mask, level_mask):
-    """Split tables of one level from its full histograms [Fo, n, 3, F, B]
-    (g, h, count channels): cumulative sums over the shifted bin axis,
-    gains, first-maximum argmax. Nodes without a valid split get the dead
-    all-left encoding (feat 0, thresh B - 1, miss 0)."""
+def _level_gains(full, split_kw, feature_mask, level_mask):
+    """(gain [Fo, n, F, B, 2], sums) of one level's split candidates from
+    its full histograms [Fo, n, 3, F, B] (g, h, count channels): cumulative
+    sums over the shifted bin axis, then the gains, -inf outside the
+    feature masks. `sums` = (GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm)."""
     hg = full[:, :, 0][..., None]                         # [Fo, n, F, B, 1]
     hh = full[:, :, 1]
     hc = full[:, :, 2]
@@ -215,12 +215,20 @@ def _level_split(full, B, split_kw, feature_mask, level_mask):
     CL = torch.cumsum(hc, dim=3)
     Gt, Ht, Ct = GL[:, :, 0, -1, :], HL[:, :, 0, -1], CL[:, :, 0, -1]
     Gm, Hm, Cm = hg[:, :, :, 0, :], hh[:, :, :, 0], hc[:, :, :, 0]
-    gain = _split_scores(GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm,
-                         normalize_gain=False, **split_kw)
+    sums = (GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm)
+    gain = _split_scores(*sums, normalize_gain=False, **split_kw)
     for mask in (feature_mask, level_mask):
         if mask is not None:
             gain = torch.where(mask[None, None, :, None, None], gain,
                                -math.inf)
+    return gain, sums
+
+
+def _level_split(full, B, split_kw, feature_mask, level_mask):
+    """Split tables of one level from its full histograms [Fo, n, 3, F, B]
+    (`_level_gains`), first-maximum argmax. Nodes without a valid split get
+    the dead all-left encoding (feat 0, thresh B - 1, miss 0)."""
+    gain, sums = _level_gains(full, split_kw, feature_mask, level_mask)
     Fo, n = gain.shape[:2]
     flat = gain.reshape(Fo, n, -1)
     best = torch.argmax(flat, dim=2)                      # first maximum
@@ -228,7 +236,7 @@ def _level_split(full, B, split_kw, feature_mask, level_mask):
     f_lvl = torch.where(ok, best // (B * 2), 0).to(torch.int32)
     t_lvl = torch.where(ok, (best // 2) % B, B - 1).to(torch.int32)
     m_lvl = torch.where(ok, best % 2, 0).to(torch.int32)
-    last = (GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm, f_lvl, t_lvl, m_lvl)
+    last = (*sums, f_lvl, t_lvl, m_lvl)
     return f_lvl, t_lvl, m_lvl, last
 
 
