@@ -17,7 +17,10 @@ Phases, each of which fails the run on error:
              the GLM sweep, 8 lanes; route_hist at S = 1..16; route at 8
              and 32 nodes, and at 32 with one split table shared by the
              lanes; table_lookup at 16 and 64 leaves; route and
-             table_lookup at 2M and 10M rows) against its plain PyTorch
+             table_lookup at 2M and 10M rows; and a depth-12 forest
+             tree's shapes at 1M rows, F = 164, 3 payload channels + the
+             count: the root, route_hist at S = 32, 256, 1024, route at
+             2048 nodes, table_lookup over 4096 leaves) against its plain PyTorch
              version on the same inputs (stated tolerance; the g/h
              histograms, like the plain version's, against the float64
              sums: `hist_paths.accuracy`), with its time
@@ -76,13 +79,16 @@ Phases, each of which fails the run on error:
              of the two histograms (the witness is printed); the second
              card run is held to the first the same way;
 12. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
-             5 folds, the LR default grid and XGBoost depth {4, 6}): the
-             wall of each stage, each host-to-device copy, peak device
-             memory, widths, winner and AuPRs; launch counters reset just
-             before train() and read just after, every kernel must have
-             launched; each kernel at every (kernel, F, S) launch key of
-             train(), on the inputs of its first launch there, against its
-             plain version (rows of the kernels line, phase "workflow");
+             5 folds, the selector's default model types and grids: LR,
+             RF, GBT and SVC, max_depth up to 12): the wall of each stage
+             and of each family's sweep, each host-to-device copy, peak
+             device memory, widths, winner and AuPRs; launch counters
+             reset just before train() and read just after, every kernel
+             must have launched, at the depth-12 keys too; each kernel at
+             every (kernel, F, S, channels C, lanes Fo) key of train()
+             (a forest's, a boosted sweep's and a refit's launches apart),
+             on the inputs of its first launch there, against its plain
+             version (rows of the kernels line, phase "workflow");
              then one statistics pass over the whole matrix, streamed,
              against the fused route.
 
@@ -91,8 +97,9 @@ Float32 products stay in full f32: the run fails unless TF32 is off
 "highest").
 
 The last three lines of standard output are {"kernels": [...]} (each
-row's `launches` at its (kernel, F, S) key in the phase it names, and
-`workflow_launches` at that key inside workflow-main's train()), the
+row's `launches` at its (kernel, F, S) key in the phase it names, a
+workflow row's at its (kernel, F, S, C, Fo) key, and `workflow_launches`
+at that key inside workflow-main's train()), the
 card's name and power limit, and
 {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is unavailable or the package is
@@ -101,6 +108,7 @@ not beside this script.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -116,6 +124,7 @@ SOURCE = "transmogrifai_tpu_torch/csrc/tree_kernels.cu"
 KERNEL_ROWS = 2_000_000       # rows of the per-kernel checks and timings
 LANE_ROWS = 10_000_000        # route and table_lookup also at the main
 #                               path's rows
+DEEP_ROWS = 1_000_000         # the forest rows: the DataBalancer's sweep
 SEED = 0
 REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
     "hist_folds": "transmogrifai_tpu/ops/pallas_hist.py:395",
@@ -184,6 +193,12 @@ def kernel_phase(seed: int):
     out += kernel_rows(HP.lane_shapes(d))
     del d
     torch.cuda.empty_cache()
+    # a depth-12 forest tree of the default grids at workflow-main's sweep
+    # shapes (its launches are read from workflow-main's train())
+    d = HP.deep_inputs(DEEP_ROWS, seed)
+    out += kernel_rows(HP.deep_shapes(d), phase="workflow")
+    del d
+    torch.cuda.empty_cache()
     # the GLM streamed eval's rank-metric counts: a grid chunk of 8 lanes
     # over the 10M rows of a fold's scores
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
@@ -219,14 +234,17 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
         if name in ("hist_folds", "route_hist") and not rank:
             Xb, pay = args[0], args[1]
             F, N = Xb.shape
-            Fo, B = pay.shape[0] // 2, kw["n_bins"]
-            g, h = pay[0::2], pay[1::2]
+            Fo, B = args[2].shape[0], kw["n_bins"]
+            C = pay.shape[0] // Fo          # payload channels; h the last
+            chans = [pay[c::C] for c in range(C)]
+            Co = C + 1                      # + the derived count
         if name == "route_hist":    # rows a level histograms: left rows
             left = (HP.plain("route", (Xb, *args[2:]), {})
                     == 2 * args[2]).float()
-            n_bytes = TK.kernel_bytes("route_hist", F, N, Fo,
-                                      out_cells=Fo * S * 3 * F * B)
-            n_adds = F * (nz(g * left) + 2 * nz(h * left))
+            n_bytes = TK.kernel_bytes("route_hist", F, N, Fo, channels=C,
+                                      out_cells=Fo * S * Co * F * B)
+            n_adds = F * (sum(nz(ch * left) for ch in chans)
+                          + nz(chans[-1] * left))
             n_ops = n_adds + 4 * Fo * N
             del left
         elif rank:                  # lanes in the slot axis, 0/1 weights
@@ -237,9 +255,10 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
             make_lib = lambda a: _bincount_hist(a[0], a[1], 1, RB, 1, L,
                                                 slot=a[2])
         elif name == "hist_folds":
-            n_bytes = TK.kernel_bytes("hist_folds", F, N, Fo,
-                                      out_cells=Fo * 3 * F * B)
-            n_ops = n_adds = F * (nz(g) + 2 * nz(h))
+            n_bytes = TK.kernel_bytes("hist_folds", F, N, Fo, channels=C,
+                                      out_cells=Fo * Co * F * B)
+            n_ops = n_adds = F * (sum(nz(ch) for ch in chans)
+                                  + nz(chans[-1]))
             make_lib = lambda a: _bincount_hist(a[0], a[1], F, B, Fo, 1,
                                                 derive_count=True)
         elif name == "route":       # compares, select, multiply-add a lane
@@ -265,7 +284,12 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
         dispatch = getattr(TK, name)
         got = dispatch(*args, **kw)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = HP.plain(name, args, kw)
+        torch.cuda.synchronize()
+        # a plain version slower than 0.2 s is timed once, warmed by the
+        # call above
+        slow_plain = time.perf_counter() - t0 > 0.2
         acc = HP.accuracy(name, got, want, args, kw)
         err, ok = acc["max_abs_err"], acc["ok"]
         if name in ("route", "table_lookup"):
@@ -288,7 +312,9 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
                 lambda: dispatch(*args, **kw, path=p), reps=7))
         ms = statistics.mean(turns[None])
         earlier_ms = statistics.mean(turns["rows"])
-        plain_ms = HP.cuda_ms(lambda: HP.plain(name, args, kw), reps=3)
+        plain_ms = HP.cuda_ms(lambda: HP.plain(name, args, kw),
+                              reps=1 if slow_plain else 3,
+                              warm=0 if slow_plain else 1)
         library_ms = None
         if make_lib is not None:
             library_ms = HP.cuda_ms(make_lib(args), reps=5)
@@ -298,6 +324,7 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
                    if name in ("route", "table_lookup") else None)
         b_ms, b_by = bound(n_bytes, n_ops)
         key_f = 1 if name == "table_lookup" else args[0].shape[0]
+        key = f"{name} F={key_f} S={S}"
         row = dict(phase=phase, name=name,
                    shape=f"{label} N={args[1].shape[1]}",
                    route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -308,7 +335,8 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
                    library_ms=library_ms, path=path, earlier_ms=earlier_ms,
                    smem_floor_ms=n_adds and smem_floor_ms(n_adds),
                    copy_ms=copy_ms, moved_bytes=moved,
-                   key=f"{name} F={key_f} S={S}")
+                   key=capture_key(key, name, args, kw)
+                   if phase == "workflow" else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
             f"ms={ms:.4f} earlier_ms={earlier_ms:.4f} ({path} vs rows) "
@@ -782,8 +810,9 @@ def workflow_small_phase(seed: int) -> bool:
     """The user's flow on 100 000 titanic-shaped records through ListReader
     (FeatureBuilder -> transmogrify -> SanityChecker -> 3-fold
     BinaryClassificationModelSelector over OpLogisticRegression's default
-    grid and OpXGBoostClassifier at depth {3, 5} -> Workflow.train() ->
-    score()) on the CPU (plain versions) and twice on the card. They must
+    grid, and OpXGBoostClassifier, OpRandomForestClassifier (10 trees) and
+    OpGBTClassifier at depth {3, 5} -> Workflow.train() -> score()) on
+    the CPU (plain versions) and twice on the card. They must
     agree: the transmogrified matrix and its metadata identical, the same
     columns kept for the same reasons, the same winner, every cell's mean
     AuPR within 5e-3 and the AuPR of the scored probabilities within 1e-3;
@@ -804,7 +833,8 @@ def workflow_small_phase(seed: int) -> bool:
     from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify
     from transmogrifai_tpu_torch.features.builder import FeatureBuilder as FB
     from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
-    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+    from transmogrifai_tpu_torch.models.trees import (
+        OpGBTClassifier, OpRandomForestClassifier, OpXGBoostClassifier)
     from transmogrifai_tpu_torch.ops import metrics_ops as M
     from transmogrifai_tpu_torch.readers import ListReader
     from transmogrifai_tpu_torch.utils.uid import reset_uids
@@ -838,6 +868,12 @@ def workflow_small_phase(seed: int) -> bool:
                  default_grid_for("OpLogisticRegression")),
                 (OpXGBoostClassifier(), [
                     dict(max_depth=d, eta=0.3, num_round=5, max_bins=32)
+                    for d in (3, 5)]),
+                (OpRandomForestClassifier(), [
+                    dict(max_depth=d, num_trees=10, min_instances_per_node=10)
+                    for d in (3, 5)]),
+                (OpGBTClassifier(), [
+                    dict(max_depth=d, max_iter=5, step_size=0.3)
                     for d in (3, 5)])]).set_input(survived, checked) \
             .get_output()
         t0 = time.perf_counter()
@@ -951,7 +987,12 @@ def split_witness(a: list, b: list, i: int, node: int, depth: int,
     and the f32 noise bound: those differences carried to each candidate's
     gain to first order, plus 4 ulps of its terms. `tie` holds when the
     node's counts agree exactly and the float64 gains of the two candidates
-    differ by no more than that bound on either device's histograms."""
+    differ by no more than that bound on either device's histograms. A
+    node left unsplit counts as gaining the validity threshold
+    (min_info_gain, gamma), and a split below that threshold in float64
+    (a zero-gain split of a pure node) keeps its raw gain, so a split
+    within f32 noise of worthless ties with none. The gains sum over the K
+    gradient channels (K = 2: a binary forest's class sums)."""
     import numpy as np
     import torch
     from transmogrifai_tpu_torch.ops import trees as T
@@ -970,29 +1011,54 @@ def split_witness(a: list, b: list, i: int, node: int, depth: int,
     dH = float(max((HL - other[1]).abs().max(), (Ht - other[4]).abs()))
     lam = a[i]["split_kw"]["reg_lambda"]
 
-    def parts(c):   # left/right/parent sums of candidate c (CPU's sums)
-        f, t, m = c
-        gl = float(GL[f, t, 0] - m * Gm[f, 0])
+    def parts(c):   # left/right/parent sums of candidate c (CPU's sums);
+        f, t, m = c  # the G sums over the K gradient channels
+        gl = (GL[f, t] - m * Gm[f]).numpy()
         hl = float(HL[f, t] - m * Hm[f])
         cl = float(CL[f, t] - m * Cm[f])
-        return gl, hl, cl, float(Gt[0]), float(Ht)
+        return gl, hl, cl, Gt.numpy(), float(Ht)
 
     def noise(c):
         gl, hl, _, gt, ht = parts(c)
         gr, hr = gt - gl, ht - hl
-        dl, dr, dp = hl + lam, hr + lam, ht + lam
-        d_gl = abs(2 * gl / dl - 2 * gr / dr)
-        d_hl = abs((gr / dr) ** 2 - (gl / dl) ** 2)
-        d_gt = abs(2 * gr / dr - 2 * gt / dp)
-        d_ht = abs((gt / dp) ** 2 - (gr / dr) ** 2)
-        terms = gl * gl / dl + gr * gr / dr + gt * gt / dp
-        return (d_gl + d_gt) * dG + (d_hl + d_ht) * dH + 4 * eps * terms
+        dl, dr, dp = (max(v + lam, 1e-300) for v in (hl, hr, ht))
+        d_gl = np.abs(2 * gl / dl - 2 * gr / dr).sum()
+        d_hl = abs((gr @ gr) / dr ** 2 - (gl @ gl) / dl ** 2)
+        d_gt = np.abs(2 * gr / dr - 2 * gt / dp).sum()
+        d_ht = abs((gt @ gt) / dp ** 2 - (gr @ gr) / dr ** 2)
+        terms = gl @ gl / dl + gr @ gr / dr + gt @ gt / dp
+        return float((d_gl + d_gt) * dG + (d_hl + d_ht) * dH
+                     + 4 * eps * terms)
 
     def gain(g, c):
         return float(g[c[0], c[1], c[2]])
-    gaps = [gain(g64, cand[0]) - gain(g64, cand[1]) for _, g64 in gains]
-    bound = noise(cand[0]) + noise(cand[1])
+
+    def raw_gain(s, c):   # candidate c's gain before the validity rules
+        f, t, m = c
+        gl, hl = s[0][f, t] - m * s[6][f], s[1][f, t] - m * s[7][f]
+
+        def score(g, h):
+            return float((g * g).sum() / (h + lam + 1e-12))
+        return score(gl, hl) + score(s[3] - gl, s[4] - hl) - score(s[3], s[4])
+
     counts_equal = bool(torch.equal(CL, other[2]))
+    kw = a[i]["split_kw"]
+    norm = max(float(Ht), 1.0) if kw.get("normalize_gain") else 1.0
+    thr = max(kw["min_info_gain"] * norm, 2.0 * kw["gamma"], 0.0)
+    dead = (0, GL.shape[1] - 1, 0)
+
+    def effective(k, c):   # (gain, noise) of candidate c on device k's sums
+        if c == dead:      # no split: worth the validity threshold
+            return thr, 0.0
+        v = gain(gains[k][1], c)
+        # a split below the validity threshold in float64 (a zero-gain
+        # split of a pure node, say) keeps its raw gain
+        return (v if np.isfinite(v) else raw_gain(sums[k], c)), noise(c)
+
+    eff = [[effective(k, c) for c in cand] for k in range(2)]
+    gaps = [e[0][0] - e[1][0] for e in eff]
+    bound = eff[0][0][1] + eff[0][1][1]
+    tie = counts_equal and all(abs(x) <= bound for x in gaps)
     return dict(
         round=i // depth, level=i % depth, node=node,
         split_a=[names[cand[0][0]], *cand[0]],
@@ -1002,9 +1068,10 @@ def split_witness(a: list, b: list, i: int, node: int, depth: int,
                               for g32, _ in gains],
         gains_f64=[[gain(g64, c) for c in cand] for _, g64 in gains],
         gap_f64=gaps, noise_bound=bound,
-        max_dG=dG, max_dH=dH, node_G=float(Gt[0]), node_H=float(Ht),
-        counts_equal=counts_equal,
-        tie=counts_equal and all(abs(x) <= bound for x in gaps))
+        max_dG=dG, max_dH=dH,
+        node_G=float(Gt[0]) if len(Gt) == 1 else [float(v) for v in Gt],
+        node_H=float(Ht),
+        counts_equal=counts_equal, tie=tie)
 
 
 def workflow_main_phase(rows: int, seed: int):
@@ -1013,27 +1080,30 @@ def workflow_main_phase(rows: int, seed: int):
     value-dependent missing column; PickLists of 50 and 12 categories as
     bench.py's make_wide_rows draws plA and plB; the RealNN label) through
     set_input_dataset -> transmogrify -> SanityChecker (defaults) ->
-    5-fold BinaryClassificationModelSelector (OpLogisticRegression's
-    default grid; OpXGBoostClassifier at depth {4, 6}, eta 0.3, 10 rounds,
-    32 bins; the default DataBalancer splitter) -> Workflow.train() ->
-    score(). Launch counters are reset just before train() and read just
-    after: every kernel must have launched. The inputs of the first launch
-    at each (kernel, F, S) key of train() are kept, and each kernel is held
-    against its plain version on them (`kernel_rows`). Then one statistics
-    pass over the whole transmogrified matrix, which the router streams (it
-    exceeds 4 GiB), held against the fused route on the card. Returns (ok,
-    launches by (kernel, F, S) key, kernel rows)."""
+    5-fold BinaryClassificationModelSelector with its default model types
+    and grids (LR 8, RF 18 x 50 trees, GBT 18 x 20 rounds, SVC 4 grid
+    points; max_depth up to 12; the default DataBalancer splitter) ->
+    Workflow.train() -> score(); each family's sweep wall and best CV
+    AuPR. Launch counters are reset just before train() and read just
+    after: every kernel must have launched, at the depth-12 keys too
+    (route_hist at 1024 slots, route at 2048 nodes, the lookup over 4096
+    leaves). The inputs of the first launch at each capture key of train()
+    (`capture_key`: kernel, F, S, channels and lanes) are kept, and each
+    kernel is held against its plain version on them (`kernel_rows`); the
+    capture keys' launches must add up to the dispatchers' own counts.
+    Then one statistics pass over the whole transmogrified matrix, which
+    the router streams (it exceeds 4 GiB), held against the fused route on
+    the card. Returns (ok, launches by (kernel, F, S) key, launches by
+    capture key, kernel rows)."""
     import numpy as np
     import torch
     from transmogrifai_tpu_torch import device as D
     from transmogrifai_tpu_torch.automl.preparators import SanityChecker
-    from transmogrifai_tpu_torch.automl.selectors import (
-        BinaryClassificationModelSelector, default_grid_for)
+    from transmogrifai_tpu_torch.automl.selectors import \
+        BinaryClassificationModelSelector
     from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify
     from transmogrifai_tpu_torch.data.dataset import Column, Dataset
     from transmogrifai_tpu_torch.features.builder import FeatureBuilder as FB
-    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
-    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
     from transmogrifai_tpu_torch.ops import stats_engine as SE
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
     from transmogrifai_tpu_torch.types import ColumnKind
@@ -1063,24 +1133,25 @@ def workflow_main_phase(rows: int, seed: int):
     vec = transmogrify(feats)
     checker = SanityChecker()
     checked = checker.set_input(label, vec).get_output()
+    # the selector's default model types and grids: LR 8, RF 18, GBT 18,
+    # SVC 4 grid points
     selector = BinaryClassificationModelSelector.with_cross_validation(
-        num_folds=5, seed=42, models_and_parameters=[
-            (OpLogisticRegression(), default_grid_for("OpLogisticRegression")),
-            (OpXGBoostClassifier(), [dict(max_depth=d, eta=0.3, num_round=10,
-                                          max_bins=32) for d in (4, 6)])])
+        num_folds=5, seed=42)
     pred = selector.set_input(label, checked).get_output()
     workflow = Workflow().set_input_dataset(ds).set_result_features(pred)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    captured = {}
+    captured, capture_launches = {}, collections.Counter()
     TK.reset_launches()
     t0 = time.perf_counter()
-    with D.record_copies() as rec, capture_kernel_inputs(captured):
+    with D.record_copies() as rec, \
+            capture_kernel_inputs(captured, capture_launches):
         model = workflow.train()
     train_s = time.perf_counter() - t0
     launches = dict(TK.launches)
     shape_launches = dict(TK.shape_launches)
+    capture_launches = dict(capture_launches)
     stats_pass = dict(SE.last_pass)
     train_copies = rec.copies
     sel = model.selector_summary()
@@ -1096,8 +1167,8 @@ def workflow_main_phase(rows: int, seed: int):
     captured_gb = sum(t.numel() * t.element_size() for _, args, _ in
                       captured.values() for t in args
                       if isinstance(t, torch.Tensor)) / 1e9
-    # every (kernel, F, S) launch key of train(), on the inputs of its
-    # first launch there, against the kernel's plain version
+    # every (kernel, F, S, C, Fo) capture key of train(), on the inputs of
+    # its first launch there, against the kernel's plain version
     wf_rows = kernel_rows([captured_shape(key, *captured[key])
                            for key in sorted(captured)], phase="workflow")
     del captured
@@ -1143,6 +1214,14 @@ def workflow_main_phase(rows: int, seed: int):
 
     best = max(sel.validation_results, key=lambda v: v["mean_metric"])
     prevalence = float(yh.mean())
+    families = {}
+    for v in sel.validation_results:
+        fam = families.setdefault(v["model_name"], dict(
+            sweep_s=selector.validator.family_walls.get(v["model_name"]),
+            cells=0, best_cv_aupr=-1.0, best_grid=None))
+        fam["cells"] += 1
+        if v["mean_metric"] > fam["best_cv_aupr"]:
+            fam.update(best_cv_aupr=v["mean_metric"], best_grid=v["grid"])
     res = dict(
         rows=rows, raw_data_s=raw_s, train_s=train_s, score_s=score_s,
         stage_walls_s=walls, selector_walls_s=selector.walls,
@@ -1152,7 +1231,7 @@ def workflow_main_phase(rows: int, seed: int):
         winner=[sel.best_model_name, sel.best_grid],
         winner_cv_aupr=best["mean_metric"],
         holdout_aupr=sel.holdout_evaluation.get("au_pr"),
-        prevalence=prevalence,
+        prevalence=prevalence, families=families,
         cells={f"{v['model_name']} {json.dumps(v['grid'], sort_keys=True)}":
                [v["mean_metric"], v["route"]]
                for v in sel.validation_results},
@@ -1162,26 +1241,56 @@ def workflow_main_phase(rows: int, seed: int):
         captured_kernel_inputs_gb=captured_gb,
         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches, shape_launches=shape_launches,
-        stream_stats=stream_pass, fused_stats=fused_pass,
+        capture_launches=capture_launches, stream_stats=stream_pass, fused_stats=fused_pass,
         stream_vs_fused_max_diff=stats_err, stream_counts_exact=stats_exact)
     log("workflow-main: " + json.dumps(res))
+    # the depth-12 grid points' deepest levels: route_hist at 1024 slots,
+    # route at 2048 nodes, the lookup over 4096 leaves
+    deep = ("route_hist F=164 S=1024", "route F=164 S=2048",
+            "table_lookup F=1 S=4096")
+    by_shape = collections.Counter()
+    for key, n in capture_launches.items():
+        by_shape[launch_key(key)] += n
     ok = (all(n > 0 for n in launches.values())
-          and {r["key"] for r in wf_rows} == set(shape_launches)
+          and all(shape_launches.get(k, 0) > 0 for k in deep)
+          and set(families) == set(selector.validator.family_walls)
+          and len(families) == 4
+          and {r["key"] for r in wf_rows} == set(capture_launches)
+          and dict(by_shape) == shape_launches
           and scored.shape == (rows, 5)
           and bool(np.isfinite(scored).all())
           and best["mean_metric"] > prevalence + 0.1
           and sel.holdout_evaluation["au_pr"] > prevalence + 0.1
           and stream_pass["driver"] == "streamed" and stats_exact
           and stats_err < 1e-4)
-    return ok, shape_launches, wf_rows
+    return ok, shape_launches, capture_launches, wf_rows
+
+
+def capture_key(key: str, name: str, args: tuple, kw: dict) -> str:
+    """The capture key of one launch: its (kernel, F, S) key of
+    `TK.shape_launches`, the lane count Fo and, for the histograms, the
+    channels C a cell (payload + derived count), which set the planner's
+    tiles: a forest's and a boosted fit's launches at one (kernel, F, S)
+    differ in both."""
+    if name in ("route", "table_lookup"):
+        return f"{key} Fo={args[1].shape[0]}"
+    Fo = args[2].shape[0]
+    C = args[1].shape[0] // Fo + int(bool(kw.get("derive_count")))
+    return f"{key} C={C} Fo={Fo}"
+
+
+def launch_key(capture: str) -> str:
+    """The (kernel, F, S) launch key of a capture key."""
+    return " ".join(capture.split()[:3])
 
 
 @contextlib.contextmanager
-def capture_kernel_inputs(store: dict):
-    """Inside the block, the first launch of each (kernel, F, S) key of
-    `TK.shape_launches` leaves a copy of its inputs in `store`: {key:
-    (kernel, args, kwargs)} (tensors cloned once each, shared inputs such
-    as the bin matrix shared). The launch counts are the dispatchers' own."""
+def capture_kernel_inputs(store: dict, counts: collections.Counter):
+    """Inside the block, the first launch of each capture key (`capture_key`:
+    the (kernel, F, S) key of `TK.shape_launches`, Fo and C) leaves a copy
+    of its inputs in `store`: {key: (kernel, args, kwargs)} (tensors cloned
+    once each, shared inputs such as the bin matrix shared), and `counts`
+    adds one a capture key wherever a dispatcher's own count rose."""
     import torch
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
     originals = {name: getattr(TK, name) for name in TK.KERNELS}
@@ -1200,9 +1309,13 @@ def capture_kernel_inputs(store: dict):
             before = dict(TK.shape_launches)
             out = originals[name](*args, **kw)
             for key, n in TK.shape_launches.items():
-                if n != before.get(key, 0) and key not in store:
-                    store[key] = (name, tuple(keep(a) for a in args),
-                                  dict(kw))
+                if n == before.get(key, 0):
+                    continue
+                full = capture_key(key, name, args, kw)
+                counts[full] += n - before.get(key, 0)
+                if full not in store:
+                    store[full] = (name, tuple(keep(a) for a in args),
+                                   dict(kw))
             return out
         return run
     for name in originals:
@@ -1216,8 +1329,8 @@ def capture_kernel_inputs(store: dict):
 
 
 def captured_shape(key: str, name: str, args: tuple, kw: dict) -> tuple:
-    """(label, kernel, S, args, kwargs) of one captured launch key."""
-    S = int(key.rsplit("S=", 1)[1])
+    """(label, kernel, S, args, kwargs) of one capture key."""
+    S = int(key.split("S=")[1].split()[0])
     if name == "table_lookup":
         label = f"leaves: Fo={args[1].shape[0]} M={S}"
     elif name == "route":
@@ -1226,9 +1339,12 @@ def captured_shape(key: str, name: str, args: tuple, kw: dict) -> tuple:
     elif not kw.get("derive_count"):
         label = f"rank metric: F=1 B={kw['n_bins']} S={S} lanes"
     else:
-        F, Fo, B = args[0].shape[0], args[1].shape[0] // 2, kw["n_bins"]
-        label = (f"tree root: F={F} B={B} Fo={Fo} S=1" if name == "hist_folds"
-                 else f"level S={S}: F={F} B={B} Fo={Fo}")
+        F, Fo, B = args[0].shape[0], args[2].shape[0], kw["n_bins"]
+        C = args[1].shape[0] // Fo
+        chans = "" if C == 2 else f" C={C}+1"
+        label = (f"tree root: F={F} B={B} Fo={Fo}{chans} S=1"
+                 if name == "hist_folds"
+                 else f"level S={S}: F={F} B={B} Fo={Fo}{chans}")
     return f"workflow-main {label}", name, S, args, kw
 
 
@@ -1327,20 +1443,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     if not workflow_small_phase(SEED):
         failures.append("workflow-small CPU/GPU disagreement")
-    wf_ok, wf_launches, wf_rows = workflow_main_phase(args.rows, SEED)
+    wf_ok, wf_launches, wf_captures, wf_rows = workflow_main_phase(
+        args.rows, SEED)
     if not wf_ok:
         failures.append("workflow-main")
     failures += [f"kernel {r['name']} ({r['shape']})" for r in wf_rows
                  if not r.pop("ok")]
     rows += wf_rows
     counts = {"tree": shape_launches, "glm": glm_launches,
-              "workflow": wf_launches}
+              "workflow": wf_captures}
     for r in rows:
         key = r.pop("key")
         r["launches"] = counts[r["phase"]].get(key, 0)
-        # launches at this row's (kernel, F, S) key inside workflow-main's
-        # train()
-        r["workflow_launches"] = wf_launches.get(key, 0)
+        # launches at this row's key inside workflow-main's train(): its
+        # (kernel, F, S) key, a workflow row's own capture key
+        r["workflow_launches"] = (wf_captures if r["phase"] == "workflow"
+                                  else wf_launches).get(key, 0)
     failures += [f"kernel {r['name']} ({r['shape']}): no launch on its "
                  "main path" for r in rows if not r["launches"]]
     log(f"total: {time.perf_counter() - t_start:.1f}s")

@@ -239,6 +239,11 @@ def _tile_cover(tl, F, S, lanes):
     (64, 8, 3, 33, 5, 10_000_000, 1, True, "owned"),
     (64, 16, 3, 33, 5, 10_000_000, 1, True, "owned"),   # deepest level
     (64, 16, 3, 33, 1, 10_000_000, 1, True, "owned"),
+    # one slot, more feature tiles on the private path than on the owned
+    (164, 1, 4, 33, 5, 1_000_000, 1, False, "private"),  # a forest root
+    (164, 1, 3, 65, 5, 1_000_000, 1, True, "private"),
+    (512, 1, 4, 33, 5, 1_000_000, 1, False, "owned"),   # private: 80 blocks
+    (512, 1, 3, 65, 5, 1_000_000, 1, True, "owned"),
     (1, 5, 2, 4096, 1, 50_000_000, 4, False, "rows"),    # rank-metric counts
     (65, 16, 3, 257, 5, 1_000, 4, True, "rows"),        # 256 bins, int32
     (64, 2, 3, 257, 5, 10_000_000, 4, True, "rows"),

@@ -5,12 +5,13 @@ Reference: core/.../impl/classification/BinaryClassificationModelSelector.scala
 (:59-61 default model types, :67-110 grids),
 selector/DefaultSelectorParams.scala:35-56.
 
-The port has OpLogisticRegression, OpLinearSVC and OpXGBoostClassifier.
-Asking for any other model type, or getting one from the defaults (the
-binary defaults include OpRandomForestClassifier and OpGBTClassifier),
-raises NotImplementedError naming it: a type is never dropped in silence,
-which would run a smaller sweep than the reference. The multiclass and
-regression selectors are not ported yet.
+The port has OpLogisticRegression, OpLinearSVC and the eight tree
+families (random forest, decision tree, Spark GBT and XGBoost, each a
+classifier and a regressor), so the binary defaults (LR, RF, GBT, SVC) all
+resolve. Asking for any other model type raises NotImplementedError naming
+it: a type is never dropped in silence, which would run a smaller sweep
+than the reference. The multiclass and regression selectors are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -57,7 +58,14 @@ def _models_by_name() -> Dict[str, type]:
     from ..models import glm, trees
     return {"OpLogisticRegression": glm.OpLogisticRegression,
             "OpLinearSVC": glm.OpLinearSVC,
-            "OpXGBoostClassifier": trees.OpXGBoostClassifier}
+            "OpRandomForestClassifier": trees.OpRandomForestClassifier,
+            "OpRandomForestRegressor": trees.OpRandomForestRegressor,
+            "OpGBTClassifier": trees.OpGBTClassifier,
+            "OpGBTRegressor": trees.OpGBTRegressor,
+            "OpDecisionTreeClassifier": trees.OpDecisionTreeClassifier,
+            "OpDecisionTreeRegressor": trees.OpDecisionTreeRegressor,
+            "OpXGBoostClassifier": trees.OpXGBoostClassifier,
+            "OpXGBoostRegressor": trees.OpXGBoostRegressor}
 
 
 def default_grid_for(name: str) -> List[ParamMap]:
@@ -70,7 +78,21 @@ def default_grid_for(name: str) -> List[ParamMap]:
     if name == "OpLinearSVC":
         return param_grid(reg_param=D.REGULARIZATION,
                           max_iter=D.MAX_ITER_LIN)
-    if name == "OpXGBoostClassifier":
+    if name in ("OpRandomForestClassifier", "OpRandomForestRegressor"):
+        return param_grid(max_depth=D.MAX_DEPTH,
+                          min_instances_per_node=D.MIN_INSTANCES_PER_NODE,
+                          min_info_gain=D.MIN_INFO_GAIN,
+                          num_trees=D.MAX_TREES)
+    if name in ("OpGBTClassifier", "OpGBTRegressor"):
+        return param_grid(max_depth=D.MAX_DEPTH,
+                          min_instances_per_node=D.MIN_INSTANCES_PER_NODE,
+                          min_info_gain=D.MIN_INFO_GAIN,
+                          max_iter=D.MAX_ITER_TREE, step_size=D.STEP_SIZE)
+    if name in ("OpDecisionTreeClassifier", "OpDecisionTreeRegressor"):
+        return param_grid(max_depth=D.MAX_DEPTH,
+                          min_instances_per_node=D.MIN_INSTANCES_PER_NODE,
+                          min_info_gain=D.MIN_INFO_GAIN)
+    if name in ("OpXGBoostClassifier", "OpXGBoostRegressor"):
         return param_grid(max_depth=D.MAX_DEPTH, eta=D.ETA_XGB,
                           min_child_weight=D.MIN_CHILD_WEIGHT_XGB,
                           num_round=D.NUM_ROUND_XGB)

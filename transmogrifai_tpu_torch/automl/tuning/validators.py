@@ -30,6 +30,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -167,6 +168,9 @@ class Validator:
         self.checkpoint_path: Optional[str] = None
         # round/pass telemetry of the LAST streamed GLM sweep
         self.last_streamed_telemetry: Optional[Dict[str, Any]] = None
+        # host wall (s) of each model type's sweep in the LAST validate();
+        # each ends in reading its fold metrics, a device synchronise
+        self.family_walls: Dict[str, float] = {}
         self._external_mask_tag = ""  # set per validate() call
 
     # -- folds -------------------------------------------------------------
@@ -219,7 +223,9 @@ class Validator:
         md = torch.as_tensor(masks, dtype=torch.float32, device=dev)
 
         validated: List[ValidatedModel] = []
+        self.family_walls = {}
         for est, grids in models:
+            t0 = time.perf_counter()
             if not grids:
                 grids = [dict()]
             if self._streamable(est, grids, problem_type, Xd, md.shape[0]):
@@ -235,8 +241,11 @@ class Validator:
             else:
                 raise NotImplementedError(
                     f"{type(est).__name__} ({problem_type}) has no ported "
-                    "sweep route yet: the sequential route and the other "
-                    "tree families come in later slices")
+                    "sweep route yet: the sequential route comes in a "
+                    "later slice")
+            name = type(est).__name__
+            self.family_walls[name] = (self.family_walls.get(name, 0.0)
+                                       + time.perf_counter() - t0)
 
         if not validated:
             raise ValueError("No models to validate")

@@ -1,13 +1,17 @@
-"""XGBoost-class boosted-tree predictor (counterpart of models/trees.py).
+"""Tree-family predictors: decision tree, random forest, Spark GBT and
+XGBoost (counterpart of models/trees.py).
 
-Reference wrapper: core/.../impl/classification/OpXGBoostClassifier.scala;
-param names mirror the XGBoost params the reference grids over. This slice
-ports the binary classifier on the fold-fused fit (ops/trees.py): the
-model selector's sweep fits every CV fold of a grid point in one
-`fit_gbt_folds` call over one binned matrix, and the refit is the same fit
-with one lane. Multiclass softprob boosting, the random-forest and
-decision-tree families and the config-fused grid route come in later
-slices.
+Reference wrappers: core/.../impl/classification/{OpDecisionTreeClassifier,
+OpRandomForestClassifier, OpGBTClassifier, OpXGBoostClassifier}.scala and
+core/.../impl/regression/{OpDecisionTreeRegressor, OpRandomForestRegressor,
+OpGBTRegressor, OpXGBoostRegressor}.scala; param names mirror the Spark and
+XGBoost params the reference grids over. Every fit runs through the
+level-wise grower of ops/trees.py on the four tree kernels: the model
+selector's sweep fits every CV fold of a grid point as a lane of one fit
+over one binned matrix (`mask_fit_scores`), and the refit is the same fit
+with one lane. Softmax (multiclass) boosting and multiclass forests, whose
+histograms need more channels than the kernels take, come with the
+multiclass slice; the config-fused grid route comes later.
 """
 from __future__ import annotations
 
@@ -21,12 +25,22 @@ from ..ops import trees as T
 from ..stages.params import Param
 from .base import PredictionModel, PredictorEstimator, stable_sigmoid
 
+_MULTICLASS = ("multiclass {what} is not ported yet: it comes with the "
+               "multiclass slice")
+
 
 class TreeEnsembleModel(PredictionModel):
     """Fitted tree ensemble scored on raw feature values. `feat` /
     `thresh_val` / `miss` [n_trees, 2^depth - 1], `leaf` [n_trees, 2^depth,
-    1]. This slice scores mode 'margin': logistic margins summed over the
-    trees plus `base`."""
+    K]. The traversal runs on the model's device.
+
+    mode: 'classify_mean' — payload K = n_classes distributions, averaged
+          'margin'        — payload K = 1 logistic margins, summed + base
+          'regress_mean'  — payload K = 1 values, averaged
+          'regress_sum'   — payload K = 1 boosting steps, summed + base
+    """
+
+    MODES = ("classify_mean", "margin", "regress_mean", "regress_sum")
 
     def __init__(self, feat: np.ndarray, thresh_val: np.ndarray,
                  leaf: np.ndarray, depth: int, mode: str,
@@ -35,6 +49,10 @@ class TreeEnsembleModel(PredictionModel):
                  operation_name: str = "treeEnsemble",
                  uid: Optional[str] = None, device: DeviceLike = None):
         super().__init__(operation_name, uid=uid, device=device)
+        if mode not in self.MODES:
+            raise NotImplementedError(
+                f"tree ensemble mode {mode!r} is not ported yet (the port "
+                f"has {self.MODES})")
         # owned, writable copies: the arrays may come from another
         # package's read-only buffers (convert.tree_model_from_jax)
         self.feat = np.array(feat, np.int32)
@@ -48,24 +66,29 @@ class TreeEnsembleModel(PredictionModel):
         self.n_classes = int(n_classes)
 
     def predict_arrays(self, X):
-        """X [n, d] -> (prediction [n], raw [n, 2], probability [n, 2]) as
-        numpy arrays; the traversal runs on the model's device."""
-        if self.mode != "margin":
-            raise NotImplementedError(
-                f"tree ensemble mode {self.mode!r} is not ported yet: the "
-                "random-forest/decision-tree slice brings the other modes")
+        """X [n, d] -> (prediction [n], raw [n, c] or None, probability
+        [n, c] or None) as numpy arrays."""
         dev = resolve_device(self.device)
         Xd = to_device(X, dev, label="predict")
         agg = T.predict_ensemble(
             torch.as_tensor(self.feat, device=dev),
             torch.as_tensor(self.thresh_val, device=dev),
             torch.as_tensor(self.leaf, device=dev), Xd, self.depth,
-            miss=torch.as_tensor(self.miss, device=dev))
-        margin = agg[:, 0].cpu().numpy() + self.base
-        p1 = stable_sigmoid(margin)
-        prob = np.stack([1.0 - p1, p1], axis=1)
-        raw = np.stack([-margin, margin], axis=1)
-        return (p1 >= 0.5).astype(np.float32), raw, prob
+            miss=torch.as_tensor(self.miss, device=dev)).cpu().numpy()
+        n_trees = self.feat.shape[0]
+        if self.mode == "classify_mean":
+            prob = np.clip(agg / n_trees, 0.0, None)
+            prob = prob / np.maximum(prob.sum(axis=1, keepdims=True), 1e-12)
+            return prob.argmax(axis=1).astype(np.float32), agg, prob
+        if self.mode == "margin":
+            margin = agg[:, 0] + self.base
+            p1 = stable_sigmoid(margin)
+            prob = np.stack([1.0 - p1, p1], axis=1)
+            raw = np.stack([-margin, margin], axis=1)
+            return (p1 >= 0.5).astype(np.float32), raw, prob
+        if self.mode == "regress_mean":
+            return (agg[:, 0] / n_trees).astype(np.float32), None, None
+        return (agg[:, 0] + self.base).astype(np.float32), None, None
 
     def save_args(self) -> Dict[str, Any]:
         d = super().save_args()
@@ -91,8 +114,10 @@ class _TreeEstimator(PredictorEstimator):
         return T.bin_matrix(X, edges), edges, n_bins
 
     def mask_sweep_context(self, X: torch.Tensor):
-        """Binned context shared by every (grid point, fold) fit."""
-        return self._bin(X)
+        """Context shared by every (grid point, fold) fit of a group: the
+        binned matrix, its edges, n_bins, and a store for the forests'
+        random draws (the group's grid points share them)."""
+        return (*self._bin(X), {})
 
     def _freeze(self, trees: T.Tree, edges: torch.Tensor) -> Dict[str, np.ndarray]:
         tv = T.thresholds_to_values(trees.feat, trees.thresh, edges)
@@ -110,9 +135,295 @@ class _TreeEstimator(PredictorEstimator):
         gen.manual_seed(int(self.get_param("seed")))
         return gen
 
+    def _device_arrays(self, X, y, w):
+        """(X, y, w) as float32 tensors on the estimator's device (w of
+        ones when None)."""
+        dev = resolve_device(self.device)
+        yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        wd = torch.ones_like(yd) if w is None else \
+            torch.as_tensor(w, dtype=torch.float32, device=dev)
+        return to_device(X, dev, label="fit"), yd, wd
+
+    def _fit_boosted(self, Xd, yd, wd, mode: str, loss: str,
+                     kw: Dict[str, Any]) -> TreeEnsembleModel:
+        """The boosted refit (Spark GBT, XGBoost): bin, one-lane fit_gbt
+        with `kw`, frozen trees behind the base score."""
+        Xb, edges, n_bins = self._bin(Xd)
+        trees, base = T.fit_gbt(Xb, yd, wd, n_bins=n_bins, loss=loss,
+                                generator=self._key(Xb.device), **kw)
+        return TreeEnsembleModel(depth=kw["depth"], mode=mode,
+                                 base=float(base),
+                                 operation_name=self.operation_name,
+                                 device=self.device,
+                                 **self._freeze(trees, edges))
+
+
+def _feature_frac(strategy: str, n_feat: int, classification: bool) -> float:
+    """Spark featureSubsetStrategy -> fraction (RandomForest.scala
+    defaults)."""
+    if strategy == "all":
+        return 1.0
+    if strategy == "auto":
+        return (np.sqrt(n_feat) / n_feat) if classification else (1.0 / 3.0)
+    if strategy == "sqrt":
+        return np.sqrt(n_feat) / n_feat
+    if strategy == "log2":
+        return max(np.log2(max(n_feat, 2)) / n_feat, 1.0 / n_feat)
+    if strategy == "onethird":
+        return 1.0 / 3.0
+    try:
+        return float(strategy)
+    except ValueError:
+        return 1.0
+
+
+def _class_payload(y: torch.Tensor, W: torch.Tensor,
+                   n_classes: int) -> torch.Tensor:
+    """[Fo, n_classes, n] one-hot labels times each lane's weights."""
+    onehot = torch.nn.functional.one_hot(y.long(), n_classes).T
+    return onehot.to(torch.float32)[None] * W[:, None, :]
+
+
+class _ForestBase(_TreeEstimator):
+    classification = True
+
+    @classmethod
+    def _declare_params(cls):
+        return [
+            Param("num_trees", "ensemble size", 50),
+            Param("max_depth", "tree depth", 5),
+            Param("max_bins", "histogram bins", 32),
+            Param("min_instances_per_node", "min rows per child", 1),
+            Param("min_info_gain", "min impurity decrease", 0.0),
+            Param("subsampling_rate", "bootstrap rate", 1.0),
+            Param("feature_subset_strategy", "auto|all|sqrt|log2|onethird",
+                  "auto"),
+            Param("impurity", "gini|entropy|variance (variance-equivalent "
+                  "gain used)", "gini"),
+            Param("seed", "rng seed", 42),
+        ]
+
+    def _forest_cfg(self, n_feat: int) -> Dict[str, Any]:
+        return dict(
+            n_trees=int(self.get_param("num_trees")),
+            subsample=float(self.get_param("subsampling_rate")),
+            feature_frac=float(_feature_frac(
+                str(self.get_param("feature_subset_strategy")), n_feat,
+                self.classification)),
+            bootstrap=True)
+
+    def _forest_kw(self, n_feat: int) -> Dict[str, Any]:
+        return dict(self._forest_cfg(n_feat),
+                    depth=int(self.get_param("max_depth")),
+                    min_instances=float(
+                        self.get_param("min_instances_per_node")),
+                    min_info_gain=float(self.get_param("min_info_gain")),
+                    seed=int(self.get_param("seed")), leaf_mode="mean")
+
+    def _draws(self, Xb: torch.Tensor, kw: Dict[str, Any],
+               store: dict) -> T.ForestDraws:
+        """The sweep group's draws for this grid point's seed and rates
+        (`store`: the mask_sweep_context's), drawn once for the group."""
+        draws = T.ForestDraws(kw["seed"], Xb.shape[0], Xb.shape[1],
+                              subsample=kw["subsample"],
+                              feature_frac=kw["feature_frac"],
+                              bootstrap=kw["bootstrap"], device=Xb.device)
+        return store.setdefault(draws.key, draws)
+
+    def mask_fit_scores(self, ctx, y, w, masks, n_classes: int = 2,
+                        multiclass: bool = False) -> torch.Tensor:
+        """[F, n] scores: every fold of this grid point as a lane of one
+        forest fit against the shared binned matrix (masks [F, n], 1 =
+        train); the folds share the bootstrap and the feature subsets.
+        Classifiers return the margin log(p1 / (1 - p1)) of the averaged
+        class distribution (p1 clipped to [1e-7, 1 - 1e-7]), regressors the
+        averaged value, as the reference's sweep scores them."""
+        if multiclass or n_classes > 2:
+            raise NotImplementedError(_MULTICLASS.format(what="forests"))
+        Xb, _, n_bins, store = ctx
+        kw = self._forest_kw(Xb.shape[1])
+        W = masks * w[None, :]
+        G = _class_payload(y, W, n_classes) if self.classification \
+            else (y[None, :] * W)[:, None, :]
+        _, agg = T.fit_forest_folds(Xb, G, W, n_bins=n_bins,
+                                    draws=self._draws(Xb, kw, store), **kw)
+        if not self.classification:
+            return agg[:, 0] / kw["n_trees"]
+        prob = torch.clamp(agg / kw["n_trees"], min=0.0)
+        prob = prob / torch.clamp(prob.sum(dim=1, keepdim=True), min=1e-12)
+        p1 = torch.clamp(prob[:, 1], 1e-7, 1.0 - 1e-7)
+        return torch.log(p1 / (1.0 - p1))
+
+    def _fit_forest(self, X, y, w, n_classes: Optional[int]):
+        """Frozen trees of the refit (classes one-hot when `n_classes`)."""
+        Xd, yd, wd = self._device_arrays(X, y, w)
+        Xb, edges, n_bins = self._bin(Xd)
+        G = _class_payload(yd, wd[None, :], n_classes)[0].T \
+            if n_classes is not None else (yd * wd)[:, None]
+        trees = T.fit_forest(Xb, G, wd, n_bins=n_bins,
+                             **self._forest_kw(Xb.shape[1]))
+        return self._freeze(trees, edges)
+
+
+class OpRandomForestClassifier(_ForestBase):
+    """Reference OpRandomForestClassifier (impl/classification/): binary
+    here; multiclass forests come with the multiclass slice."""
+
+    problem_types = ("binary", "multiclass")
+    classification = True
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("randomForestClassifier", uid=uid, device=device,
+                         **params)
+
+    def fit_arrays(self, X, y, w=None) -> TreeEnsembleModel:
+        y = np.asarray(y)
+        n_classes = max(int(np.max(y)) + 1 if y.size else 2, 2)
+        if n_classes > 2:
+            raise NotImplementedError(_MULTICLASS.format(what="forests"))
+        frozen = self._fit_forest(X, y, w, n_classes)
+        return TreeEnsembleModel(depth=int(self.get_param("max_depth")),
+                                 mode="classify_mean", n_classes=n_classes,
+                                 operation_name=self.operation_name,
+                                 device=self.device, **frozen)
+
+
+class OpRandomForestRegressor(_ForestBase):
+    """Reference OpRandomForestRegressor (impl/regression/)."""
+
+    problem_types = ("regression",)
+    classification = False
+    produces_probabilities = False
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("randomForestRegressor", uid=uid, device=device,
+                         **params)
+
+    def fit_arrays(self, X, y, w=None) -> TreeEnsembleModel:
+        frozen = self._fit_forest(X, y, w, None)
+        return TreeEnsembleModel(depth=int(self.get_param("max_depth")),
+                                 mode="regress_mean",
+                                 operation_name=self.operation_name,
+                                 device=self.device, **frozen)
+
+
+def _single_tree_params():
+    return [p for p in _ForestBase._declare_params()
+            if p.name not in ("num_trees", "subsampling_rate",
+                              "feature_subset_strategy")]
+
+
+class OpDecisionTreeClassifier(OpRandomForestClassifier):
+    """Reference OpDecisionTreeClassifier: one tree, every feature, no
+    bagging."""
+
+    def _forest_cfg(self, n_feat: int) -> Dict[str, Any]:
+        return dict(n_trees=1, subsample=1.0, feature_frac=1.0,
+                    bootstrap=False)
+
+    @classmethod
+    def _declare_params(cls):
+        return _single_tree_params()
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        PredictorEstimator.__init__(self, "decisionTreeClassifier", uid=uid,
+                                    device=device, **params)
+
+
+class OpDecisionTreeRegressor(OpRandomForestRegressor):
+    """Reference OpDecisionTreeRegressor."""
+
+    _forest_cfg = OpDecisionTreeClassifier._forest_cfg
+
+    @classmethod
+    def _declare_params(cls):
+        return _single_tree_params()
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        PredictorEstimator.__init__(self, "decisionTreeRegressor", uid=uid,
+                                    device=device, **params)
+
+
+class _GBTBase(_TreeEstimator):
+    """Spark's GBT: Newton leaves, reg_lambda 1, no minimum child weight,
+    `min_instances_per_node` and `min_info_gain` on the splits."""
+
+    _loss = "logistic"
+
+    @classmethod
+    def _declare_params(cls):
+        return [
+            Param("max_iter", "boosting rounds", 20),
+            Param("max_depth", "tree depth", 5),
+            Param("max_bins", "histogram bins", 32),
+            Param("step_size", "learning rate", 0.1),
+            Param("min_instances_per_node", "min rows per child", 1),
+            Param("min_info_gain", "min gain to split", 0.0),
+            Param("subsampling_rate", "row subsample per round", 1.0),
+            Param("seed", "rng seed", 42),
+        ]
+
+    def _gbt_kw(self):
+        return dict(
+            n_rounds=int(self.get_param("max_iter")),
+            depth=int(self.get_param("max_depth")),
+            learning_rate=float(self.get_param("step_size")),
+            min_instances=float(self.get_param("min_instances_per_node")),
+            min_info_gain=float(self.get_param("min_info_gain")),
+            subsample=float(self.get_param("subsampling_rate")))
+
+    def mask_fit_scores(self, ctx, y, w, masks, n_classes: int = 2,
+                        multiclass: bool = False) -> torch.Tensor:
+        """[F, n] margins (classifier) or values (regressor): every fold of
+        this grid point as a lane of one boosted fit."""
+        if multiclass:
+            raise NotImplementedError(_MULTICLASS.format(what="boosting"))
+        Xb, _, n_bins, _ = ctx
+        _, _, margins = T.fit_gbt_folds(
+            Xb, y, masks * w[None, :], n_bins=n_bins, loss=self._loss,
+            generator=self._key(Xb.device), **self._gbt_kw())
+        return margins
+
+    def _fit(self, X, y, w, mode: str) -> TreeEnsembleModel:
+        return self._fit_boosted(*self._device_arrays(X, y, w), mode,
+                                 self._loss, self._gbt_kw())
+
+
+class OpGBTClassifier(_GBTBase):
+    """Reference OpGBTClassifier: binary only, as Spark's GBTClassifier."""
+
+    problem_types = ("binary",)
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("gbtClassifier", uid=uid, device=device, **params)
+
+    def fit_arrays(self, X, y, w=None) -> TreeEnsembleModel:
+        return self._fit(X, y, w, "margin")
+
+
+class OpGBTRegressor(_GBTBase):
+    """Reference OpGBTRegressor."""
+
+    problem_types = ("regression",)
+    produces_probabilities = False
+    _loss = "squared"
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("gbtRegressor", uid=uid, device=device, **params)
+
+    def fit_arrays(self, X, y, w=None) -> TreeEnsembleModel:
+        return self._fit(X, y, w, "regress_sum")
+
 
 class _XGBBase(_TreeEstimator):
     _regression = False
+    _loss = "logistic"
 
     @classmethod
     def _declare_params(cls):
@@ -164,24 +475,29 @@ class _XGBBase(_TreeEstimator):
 
     def mask_fit_scores(self, ctx, y, w, masks, n_classes: int = 2,
                         multiclass: bool = False) -> torch.Tensor:
-        """[F, n] margins: every fold of this grid point in one fold-fused
-        fit against the shared binned matrix (masks [F, n] 1 = train)."""
-        if multiclass:
-            raise NotImplementedError(
-                "multiclass boosting is not ported yet: softprob boosting "
-                "comes with the grow_tree/forest slice")
-        Xb, _, n_bins = ctx
+        """[F, n] margins (classifier) or values (regressor): every fold of
+        this grid point in one fold-fused fit against the shared binned
+        matrix (masks [F, n] 1 = train)."""
+        if multiclass and not self._regression:
+            raise NotImplementedError(_MULTICLASS.format(what="boosting"))
+        Xb, _, n_bins, _ = ctx
         w = self._apply_spw(y, w)
         _, _, margins = T.fit_gbt_folds(
-            Xb, y, masks * w[None, :], n_bins=n_bins,
-            loss="squared" if self._regression else "logistic",
+            Xb, y, masks * w[None, :], n_bins=n_bins, loss=self._loss,
             generator=self._key(Xb.device), **self._common())
         return margins
+
+    def _fit(self, X, y, w, mode: str) -> TreeEnsembleModel:
+        Xd, yd, wd = self._device_arrays(X, y, w)
+        if not self._regression and yd.numel() and int(yd.max()) > 1:
+            raise NotImplementedError(_MULTICLASS.format(what="boosting"))
+        return self._fit_boosted(Xd, yd, self._apply_spw(yd, wd), mode,
+                                 self._loss, self._common())
 
 
 class OpXGBoostClassifier(_XGBBase):
     """Reference OpXGBoostClassifier (JNI -> libxgboost): binary logistic,
-    histogram algorithm."""
+    histogram algorithm; softprob comes with the multiclass slice."""
 
     problem_types = ("binary",)
 
@@ -190,23 +506,20 @@ class OpXGBoostClassifier(_XGBBase):
         super().__init__("xgbClassifier", uid=uid, device=device, **params)
 
     def fit_arrays(self, X, y, w=None) -> TreeEnsembleModel:
-        dev = resolve_device(self.device)
-        yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
-        if yd.numel() and int(yd.max()) > 1:
-            raise NotImplementedError(
-                "multiclass boosting is not ported yet: softprob boosting "
-                "comes with the grow_tree/forest slice")
-        wd = torch.ones_like(yd) if w is None else \
-            torch.as_tensor(w, dtype=torch.float32, device=dev)
-        wd = self._apply_spw(yd, wd)
-        Xb, edges, n_bins = self._bin(
-            to_device(X, dev, label="fit"))
-        kw = self._common()
-        trees, base, _ = T.fit_gbt_folds(
-            Xb, yd, wd[None, :], n_bins=n_bins, loss="logistic",
-            generator=self._key(dev), **kw)
-        frozen = self._freeze(trees, edges)
-        return TreeEnsembleModel(depth=kw["depth"], mode="margin",
-                                 base=float(base[0]),
-                                 operation_name=self.operation_name,
-                                 device=self.device, **frozen)
+        return self._fit(X, y, w, "margin")
+
+
+class OpXGBoostRegressor(_XGBBase):
+    """Reference OpXGBoostRegressor: squared-error objective."""
+
+    problem_types = ("regression",)
+    produces_probabilities = False
+    _regression = True
+    _loss = "squared"
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("xgbRegressor", uid=uid, device=device, **params)
+
+    def fit_arrays(self, X, y, w=None) -> TreeEnsembleModel:
+        return self._fit(X, y, w, "regress_sum")

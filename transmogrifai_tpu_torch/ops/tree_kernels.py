@@ -62,6 +62,10 @@ _FM_TILE_BYTES = 256
 _FM_XS_STRIDE = _FM_TILE_BYTES // 4 + 1
 _FM_MAX_FTILE = 64
 _FM_MIN_FEATURES = 8         # narrower F takes the rows path
+# one-slot histograms at equal SM fill: the private path's time over the
+# owned path's (hist_folds at F = 64 and 164, B = 33, 3 payload channels +
+# count, 5 lanes: 0.87-0.88 on an H100, `tools/hist_paths --kernels roots`)
+_PRIVATE_GAIN = 0.88
 PATHS = ("rows", "private", "owned")
 _PATH_CODES = {p: i for i, p in enumerate(PATHS)}
 # route's staged path: kStagedThreads, kStagedRows, the blocks an SM its
@@ -215,12 +219,19 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
 
     Without `path`, from _FM_MIN_FEATURES features: "private" when eight
     warp copies fit with the tiles the owned path needs (the root of a tree
-    at F = 64, B = 33); else "owned" when one (slot tile, feature tile)
-    pair covers the histogram, or two do and every warp owns a slot
-    (copies x s_tile >= _FM_WARPS); otherwise "rows" (narrow F, or wide
-    histograms split into slot tiles: at B = 257 each slot tile re-reads
-    every row while most of its warps own no slot). A given `path` is
-    forced (measurement and tests), and raises where it does not fit."""
+    at F = 64, B = 33). At one slot where they fit with more feature
+    tiles, "private" unless its grid fills the SMs' waves so much worse
+    than the owned path's that its copies' gain (_PRIVATE_GAIN) is lost (a
+    forest root at F = 164 with 4 channels: private, under half the rows
+    path's time; at F = 512 its 16 feature tiles x 5 lanes leave 52 of 132
+    SMs idle: owned). Otherwise "owned"
+    when one (slot tile, feature tile) pair covers the histogram, or two
+    do and every warp owns
+    a slot (copies x s_tile >= _FM_WARPS); otherwise "rows" (narrow F, or
+    wide histograms split into slot tiles: at B = 257 each slot tile
+    re-reads every row while most of its warps own no slot). A given
+    `path` is forced (measurement and tests), and raises where it does not
+    fit."""
     n_tables = n_slots if route else 0
     fit = {p: _fm_tiles(n_feat, n_slots, channels, n_bins, itemsize,
                         p == "private", n_tables) for p in PATHS[1:]}
@@ -228,8 +239,17 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
         path, owned, private = "rows", fit["owned"], fit["private"]
         if n_feat >= _FM_MIN_FEATURES and owned is not None:
             n_st, n_ft, copies = owned
+            def fill(p):   # blocks over the SM slots of their waves
+                b = plan_hist(n_feat, n_slots, channels, n_bins, lanes,
+                              n_rows, n_sm, itemsize=itemsize, route=route,
+                              path=p).blocks
+                return b / (n_sm * -(-b // n_sm))
             if private is not None and private[:2] == owned[:2]:
                 path = "private"
+            elif private is not None and n_slots == 1:
+                path = "private" if (fill("private")
+                                     >= _PRIVATE_GAIN * fill("owned")) \
+                    else "owned"
             elif n_st * n_ft == 1 or (
                     n_st * n_ft == 2
                     and copies * -(-n_slots // n_st) >= _FM_WARPS):

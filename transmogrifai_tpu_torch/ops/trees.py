@@ -1,13 +1,16 @@
-"""Histogram gradient-boosted trees in PyTorch (counterpart of ops/trees.py).
+"""Histogram trees in PyTorch (counterpart of ops/trees.py).
 
-The subset the model selector's tree sweep runs: quantile binning with a
-dedicated missing bin, and the fold-fused boosted fit `fit_gbt_folds`, which
-grows one tree per lane (CV fold) per round over ONE binned matrix. Each
-level is one pass of a kernel in ops/tree_kernels.py: the root histogram
-(`hist_folds`), a fused route + next-level histogram (`route_hist`) for
-every mid level, the final `route` and the leaf `table_lookup`. The split
-algebra between passes (cumulative sums over the bin axis, sparsity-aware
-gains, argmax, Newton leaves) is tensor code on [Fo, nodes, F, B] sums.
+Quantile binning with a dedicated missing bin, and one level-wise grower,
+`_grow_tree_folds`, which grows one tree per lane over ONE binned matrix;
+every tree family is a caller of it: the fold-fused boosted fit
+`fit_gbt_folds` (XGBoost, Spark GBT; `fit_gbt` is its one-lane form), the
+random forest `fit_forest_folds` (`fit_forest`, decision trees), and the
+single tree `grow_tree`. Each level is one pass of a kernel in
+ops/tree_kernels.py: the root histogram (`hist_folds`), a fused route +
+next-level histogram (`route_hist`) for every mid level, the final `route`
+and the leaf `table_lookup`. The split algebra between passes (cumulative
+sums over the bin axis, sparsity-aware gains, argmax, Newton or mean
+leaves) is tensor code on [Fo, nodes, K + 2, F, B] sums.
 
 Trees are complete binary trees of static depth in heap layout (`Tree`).
 Bins are shifted: 0 is the missing bin, present values occupy [1, n_bins],
@@ -16,16 +19,18 @@ does not split is encoded as (feat 0, thresh n_bins, miss 0): every row
 goes left.
 
 Node ids are f32 [Fo, N], as in the JAX package, so the kernels and the
-reference exchange like with like. Random draws (row subsample, column
-samples) come from an explicit torch.Generator; they are not the JAX
-package's threefry bits. The refit of a single model is this fit with one
-lane: per-lane quantities follow the reference's fit_gbt.
+reference exchange like with like. Random draws come from explicit torch
+Generators: a forest's from a draws object (`ForestDraws`: row_weights(t),
+node_masks(t)); they are not the JAX package's threefry bits, so the tests
+feed the reference's draws in through a stand-in of that object.
+The refit of a single model is the same fit with one lane.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import tree_kernels as TK
@@ -128,7 +133,7 @@ def thresholds_to_values(feat: torch.Tensor, thresh: torch.Tensor,
     return torch.where(thresh >= n_bins, math.inf, tv)
 
 
-# -- split algebra ---------------------------------------------------------------
+# -- split algebra ------------------------------------------------------------
 
 def _soft_l1(G, alpha: float):
     """XGBoost's L1 soft-threshold on leaf gradient sums (alpha 0: identity)."""
@@ -139,7 +144,7 @@ def _soft_l1(G, alpha: float):
 
 def _split_scores(GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm, reg_lambda,
                   min_child_weight, min_instances, min_info_gain, gamma,
-                  alpha, normalize_gain):
+                  alpha, normalize_gain=False):
     """Gain + validity for every (node, feature, bin, missing-direction)
     split candidate — XGBoost's sparsity-aware split search, batched over
     any leading axes (the lane axis of the fold-fused fit).
@@ -202,32 +207,49 @@ def _level_feature_mask(gen: torch.Generator, n_feat: int, frac: float,
     return (scores >= kth)[0] & torch.isfinite(scores[0])
 
 
+def _mask_gain(gain, mask):
+    """`gain` [Fo, n, F, B, 2], -inf where a feature mask is False: `mask`
+    [F] holds for every node of every lane (colsample_bytree, the level's
+    colsample_bylevel), [n, F] per node for every lane (Spark's per-node
+    featureSubsetStrategy) and [Fo, n, F] per lane and node."""
+    if mask.dim() == 1:
+        m = mask[None, None, :, None, None]
+    elif mask.dim() == 2:
+        m = mask[None, :, :, None, None]
+    else:
+        m = mask[:, :, :, None, None]
+    return torch.where(m, gain, -math.inf)
+
+
 def _level_gains(full, split_kw, feature_mask, level_mask):
     """(gain [Fo, n, F, B, 2], sums) of one level's split candidates from
-    its full histograms [Fo, n, 3, F, B] (g, h, count channels): cumulative
-    sums over the shifted bin axis, then the gains, -inf outside the
-    feature masks. `sums` = (GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm)."""
-    hg = full[:, :, 0][..., None]                         # [Fo, n, F, B, 1]
-    hh = full[:, :, 1]
-    hc = full[:, :, 2]
+    its full histograms [Fo, n, K + 2, F, B] (K gradient channels, the
+    hessian or weight, the count): cumulative sums over the shifted bin
+    axis, then the gains (`split_kw`: _split_scores' scalars and
+    normalize_gain), -inf outside the feature masks (`_mask_gain`).
+    `sums` = (GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm); the G sums carry a
+    trailing K axis."""
+    K = full.shape[2] - 2
+    hg = full[:, :, :K].permute(0, 1, 3, 4, 2)            # [Fo, n, F, B, K]
+    hh = full[:, :, K]
+    hc = full[:, :, K + 1]
     GL = torch.cumsum(hg, dim=3)
     HL = torch.cumsum(hh, dim=3)
     CL = torch.cumsum(hc, dim=3)
     Gt, Ht, Ct = GL[:, :, 0, -1, :], HL[:, :, 0, -1], CL[:, :, 0, -1]
     Gm, Hm, Cm = hg[:, :, :, 0, :], hh[:, :, :, 0], hc[:, :, :, 0]
     sums = (GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm)
-    gain = _split_scores(*sums, normalize_gain=False, **split_kw)
+    gain = _split_scores(*sums, **split_kw)
     for mask in (feature_mask, level_mask):
         if mask is not None:
-            gain = torch.where(mask[None, None, :, None, None], gain,
-                               -math.inf)
+            gain = _mask_gain(gain, mask)
     return gain, sums
 
 
 def _level_split(full, B, split_kw, feature_mask, level_mask):
-    """Split tables of one level from its full histograms [Fo, n, 3, F, B]
-    (`_level_gains`), first-maximum argmax. Nodes without a valid split get
-    the dead all-left encoding (feat 0, thresh B - 1, miss 0)."""
+    """Split tables of one level from its full histograms [Fo, n, K + 2, F,
+    B] (`_level_gains`), first-maximum argmax. Nodes without a valid split
+    get the dead all-left encoding (feat 0, thresh B - 1, miss 0)."""
     gain, sums = _level_gains(full, split_kw, feature_mask, level_mask)
     Fo, n = gain.shape[:2]
     flat = gain.reshape(Fo, n, -1)
@@ -241,17 +263,24 @@ def _level_split(full, B, split_kw, feature_mask, level_mask):
 
 
 def _leaf_payload(Gl, Hl, Cl, reg_lambda, alpha, max_delta_step,
-                  learning_rate):
-    """Newton leaves from leaf sufficient statistics [Fo, L(, K)]."""
-    leaf = -_soft_l1(Gl, alpha) / (Hl + reg_lambda + EPS)[..., None]
-    if max_delta_step > 0.0:   # cap the raw newton step
-        leaf = torch.clamp(leaf, -max_delta_step, max_delta_step)
+                  learning_rate, leaf_mode="newton"):
+    """Leaves from leaf sufficient statistics [Fo, L(, K)]: Newton steps, or
+    the weighted mean payload (`leaf_mode` "mean": class distributions,
+    regression values). A leaf no training row reached predicts 0."""
+    if leaf_mode == "newton":
+        leaf = -_soft_l1(Gl, alpha) / (Hl + reg_lambda + EPS)[..., None]
+        if max_delta_step > 0.0:   # cap the raw newton step
+            leaf = torch.clamp(leaf, -max_delta_step, max_delta_step)
+    elif leaf_mode == "mean":
+        leaf = Gl / (Hl + EPS)[..., None]
+    else:
+        raise ValueError(f"unknown leaf_mode {leaf_mode!r}")
     leaf = torch.where(Cl[..., None] >= 0.5, leaf, 0.0)
     return learning_rate * leaf
 
 
 def _fold_leaves(last, *, n_leaves, reg_lambda, alpha, max_delta_step,
-                 learning_rate):
+                 learning_rate, leaf_mode="newton"):
     """Leaf payloads [Fo, n_leaves, K] read off the LAST level's cumulative
     histograms: each node's chosen split gives its left child's sums, the
     right child is total minus left."""
@@ -268,50 +297,74 @@ def _fold_leaves(last, *, n_leaves, reg_lambda, alpha, max_delta_step,
     Hl = torch.stack([Hleft, Ht - Hleft], dim=2).reshape(Fo, n_leaves)
     Cl = torch.stack([Cleft, Ct - Cleft], dim=2).reshape(Fo, n_leaves)
     return _leaf_payload(Gl, Hl, Cl, reg_lambda, alpha, max_delta_step,
-                         learning_rate)
+                         learning_rate, leaf_mode)
 
 
-# -- fold-fused growth and boosting --------------------------------------------
+# -- level-wise growth, one tree per lane -------------------------------------
 
 def _grow_tree_folds(Xb_t, G, H, *, depth, n_bins, reg_lambda,
                      min_child_weight, min_instances, min_info_gain, gamma,
                      learning_rate, feature_mask, alpha=0.0,
                      max_delta_step=0.0, level_feature_frac=1.0,
-                     generator=None, feature_mask_count=None):
-    """Grow one tree PER LANE, level by level, in shared kernel passes.
+                     generator=None, feature_mask_count=None,
+                     leaf_mode="newton", normalize_gain=False,
+                     node_masks=None, leaf_rows=True):
+    """Grow one tree PER LANE, level by level, in shared kernel passes: the
+    grower of every tree family (boosted rounds, forest trees, single
+    trees), the counterpart of the reference's grow_tree vmapped over lanes.
 
-    Xb_t [F, N] bins; G/H [Fo, N] per-lane payloads (rows outside a lane's
-    fit enter with G = 0; the count channel is derived in the kernels as
-    H > 0). Level 0 is one `hist_folds` pass; each later level's LEFT-child
-    histograms come from the previous level's `route_hist` pass and the
-    right children by subtraction from the parent; the last level routes
-    with `route`, and `table_lookup` reads each row's leaf. Returns (Tree
-    with a leading [Fo] axis, leaf_rows [Fo, N]): leaf_rows are the
-    learning-rate-scaled leaf payloads of each row.
+    Xb_t [F, N] bins; G [Fo, N] (one gradient channel) or [Fo, K, N]
+    per-lane payloads, H [Fo, N] hessians or weights (a row outside a
+    lane's fit enters with H = 0 and G = 0; the count channel is derived
+    in the kernels as H > 0). Level 0 is one `hist_folds` pass; each later
+    level's LEFT-child histograms come from the previous level's
+    `route_hist` pass and the right children by subtraction from the
+    parent; the last level routes with `route`, and `table_lookup` reads
+    each row's leaf. The split algebra runs on [Fo, nodes, K + 2, F, B]
+    sums: gains normalized by the node weight or not (`normalize_gain`),
+    Newton or mean leaves (`leaf_mode`).
+
+    Feature masks: `feature_mask` [F] for the whole tree (colsample_bytree);
+    a colsample_bylevel subset per level drawn from `generator`; and per
+    node `node_masks`, a callable level d -> mask [2^d, F] or [Fo, 2^d, F]
+    (Spark's featureSubsetStrategy; `ForestDraws.node_masks`).
+
+    Returns (Tree with a leading [Fo] axis, leaf_rows): the learning-rate-
+    scaled leaf payloads of every row, [Fo, N] for a 2-D G and [Fo, K, N]
+    otherwise; with `leaf_rows` False the last level is not routed and
+    leaf_rows is None.
     """
     F, N = Xb_t.shape
-    Fo = G.shape[0]
+    one_channel = G.dim() == 2
+    G3 = G[:, None] if one_channel else G
+    Fo, K = G3.shape[:2]
+    C = K + 2                                             # + hessian, count
     B = n_bins + 1
     split_kw = dict(reg_lambda=reg_lambda, min_child_weight=min_child_weight,
                     min_instances=min_instances, min_info_gain=min_info_gain,
-                    gamma=gamma, alpha=alpha)
+                    gamma=gamma, alpha=alpha, normalize_gain=normalize_gain)
     node = torch.zeros((Fo, N), dtype=torch.float32, device=Xb_t.device)
-    pay = torch.stack([G, H], dim=1).reshape(2 * Fo, N)      # lane-major
+    pay = torch.cat([G3, H[:, None]], dim=1).reshape((K + 1) * Fo, N)
     feats, threshs, misses = [], [], []
     hist = TK.hist_folds(Xb_t, pay, node, n_slots=1, n_bins=B,
                          derive_count=True)
     prev = None
     for d in range(depth):
         n_nodes = 1 << d
-        hist = hist.reshape(Fo, max(n_nodes // 2, 1), 3, F, B)
+        hist = hist.reshape(Fo, max(n_nodes // 2, 1), C, F, B)
         # sibling subtraction: slot 2p = left child, 2p + 1 = parent - left
         full = hist if d == 0 else torch.stack(
-            [hist, prev - hist], dim=2).reshape(Fo, n_nodes, 3, F, B)
+            [hist, prev - hist], dim=2).reshape(Fo, n_nodes, C, F, B)
         prev = full
         level_mask = None
         if level_feature_frac < 1.0 and generator is not None:
             level_mask = _level_feature_mask(generator, F, level_feature_frac,
                                              feature_mask, feature_mask_count)
+        node_mask = node_masks(d) if node_masks is not None else None
+        if node_mask is not None:
+            node_mask = node_mask.to(Xb_t.device)
+            level_mask = node_mask if level_mask is None \
+                else node_mask & level_mask
         f_lvl, t_lvl, m_lvl, last = _level_split(full, B, split_kw,
                                                  feature_mask, level_mask)
         feats.append(f_lvl)
@@ -321,16 +374,217 @@ def _grow_tree_folds(Xb_t, G, H, *, depth, n_bins, reg_lambda,
             hist, node = TK.route_hist(Xb_t, pay, node, f_lvl, t_lvl, m_lvl,
                                        n_nodes=n_nodes, n_bins=B,
                                        derive_count=True)
-        else:
+        elif leaf_rows:
             node = TK.route(Xb_t, node, f_lvl, t_lvl, m_lvl, n_nodes=n_nodes)
-    leaf = _fold_leaves(last, n_leaves=1 << depth, reg_lambda=reg_lambda,
+    del prev, full, hist
+    n_leaves = 1 << depth
+    leaf = _fold_leaves(last, n_leaves=n_leaves, reg_lambda=reg_lambda,
                         alpha=alpha, max_delta_step=max_delta_step,
-                        learning_rate=learning_rate)
-    leaf_rows = TK.table_lookup(leaf[:, :, 0].contiguous(), node)
+                        learning_rate=learning_rate, leaf_mode=leaf_mode)
     tree = Tree(torch.cat(feats, dim=1), torch.cat(threshs, dim=1), leaf,
                 torch.cat(misses, dim=1))
-    return tree, leaf_rows
+    if not leaf_rows:
+        return tree, None
+    if one_channel:
+        return tree, TK.table_lookup(leaf[:, :, 0].contiguous(), node)
+    # the K channels of a lane as K lanes of one lookup
+    tbl = leaf.permute(0, 2, 1).reshape(Fo * K, n_leaves).contiguous()
+    rows = TK.table_lookup(tbl, node.repeat_interleave(K, dim=0))
+    return tree, rows.reshape(Fo, K, N)
 
+
+def grow_tree(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor, *,
+              depth: int, n_bins: int, reg_lambda: float = 0.0,
+              min_child_weight: float = 0.0, min_instances: float = 1.0,
+              min_info_gain: float = 0.0, gamma: float = 0.0,
+              leaf_mode: str = "newton",
+              learning_rate: float = 1.0, normalize_gain: bool = True,
+              feature_mask: Optional[torch.Tensor] = None,
+              alpha: float = 0.0, max_delta_step: float = 0.0,
+              level_feature_frac: float = 1.0,
+              feature_mask_count: Optional[int] = None,
+              node_masks=None,
+              generator: Optional[torch.Generator] = None) -> Tree:
+    """Grow one depth-`depth` tree level-wise on binned features (the
+    reference's grow_tree): one lane of `_grow_tree_folds`.
+
+    Xb [N, F] bins (bin_matrix); G [N, K] per-row gradient payload
+    (weights folded in); H [N] per-row hessian or weight, 0 = row excluded
+    (how bootstrap and fold masks enter). The reference's `feature_frac`
+    and key come in as `node_masks`, a callable level d -> [2^d, F] mask of
+    each node's feature subset (`ForestDraws.node_masks`); `feature_mask`
+    [F] fixes one subset for the whole tree; a colsample_bylevel subset
+    (`level_feature_frac` < 1) is drawn from `generator`. Tree fields carry
+    no lane axis: leaf [2^depth, K]."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    if generator is None and level_feature_frac < 1.0:
+        raise ValueError("level feature sampling needs a torch.Generator")
+    tree, _ = _grow_tree_folds(
+        Xb.T.contiguous(), G.T.contiguous()[None], H[None].contiguous(),
+        depth=depth, n_bins=n_bins, reg_lambda=reg_lambda,
+        min_child_weight=min_child_weight, min_instances=min_instances,
+        min_info_gain=min_info_gain, gamma=gamma,
+        learning_rate=learning_rate, feature_mask=feature_mask, alpha=alpha,
+        max_delta_step=max_delta_step, level_feature_frac=level_feature_frac,
+        generator=generator, feature_mask_count=feature_mask_count,
+        leaf_mode=leaf_mode, normalize_gain=normalize_gain,
+        node_masks=node_masks, leaf_rows=False)
+    return Tree(*(t[0] for t in tree))
+
+
+# -- traversal on binned rows -------------------------------------------------
+
+def predict_bins(tree: Tree, Xb: torch.Tensor, depth: int) -> torch.Tensor:
+    """Traverse one tree on binned rows: Xb [N, F] -> leaf payload [N, K]."""
+    N = Xb.shape[0]
+    rows = torch.arange(N, device=Xb.device)
+    rel = torch.zeros(N, dtype=torch.long, device=Xb.device)
+    for d in range(depth):
+        idx = (1 << d) - 1 + rel
+        xb = Xb[rows, tree.feat[idx].long()].int()
+        right = (xb > tree.thresh[idx]) | ((xb == 0) & (tree.miss[idx] > 0))
+        rel = 2 * rel + right.long()
+    return tree.leaf[rel]
+
+
+def predict_forest_bins(trees: Tree, Xb: torch.Tensor,
+                        depth: int) -> torch.Tensor:
+    """Sum of payloads over a stacked batch of trees [T, ...]: [N, K],
+    added tree by tree in order."""
+    out = torch.zeros((Xb.shape[0], trees.leaf.shape[-1]),
+                      dtype=trees.leaf.dtype, device=Xb.device)
+    for t in range(trees.feat.shape[0]):
+        out = out + predict_bins(Tree(*(f[t] for f in trees)), Xb, depth)
+    return out
+
+
+# -- random forest ------------------------------------------------------------
+
+class ForestDraws:
+    """A forest's random draws, tree by tree: tree t's bootstrap row
+    weights [N] (Poisson(`subsample`) with `bootstrap`, else Bernoulli) and
+    its level-d node feature masks [2^d, F] (`_feature_mask` at
+    `feature_frac`; None when every feature is kept).
+
+    Each tree draws from CPU torch.Generators seeded from (seed, tree), so
+    the draws are the same whatever device the forest grows on, and level
+    d's masks do not depend on the depth grown (as the reference's
+    per-level key splits do not). They are drawn once and kept on
+    `device`: the grid points of a sweep that share a seed share the draws,
+    as the reference's share one key."""
+
+    def __init__(self, seed: int, n_rows: int, n_feat: int, *,
+                 subsample: float, feature_frac: float, bootstrap: bool,
+                 device):
+        self.key = (int(seed), int(n_rows), int(n_feat), float(subsample),
+                    float(feature_frac), bool(bootstrap))
+        self.device = torch.device(device)
+        self._rows: dict = {}
+        self._masks: dict = {}
+
+    def _generator(self, tree: int, stream: int) -> torch.Generator:
+        seq = np.random.SeedSequence([self.key[0] & 0xFFFFFFFF, tree, stream])
+        return torch.Generator().manual_seed(
+            int(seq.generate_state(1, np.uint64)[0]) >> 1)
+
+    def row_weights(self, tree: int) -> torch.Tensor:
+        if tree not in self._rows:
+            _, N, _, rate, _, bootstrap = self.key
+            if bootstrap:
+                rw = torch.poisson(torch.full((N,), rate),
+                                   generator=self._generator(tree, 0))
+            elif rate < 1.0:
+                rw = (torch.rand((N,), generator=self._generator(tree, 0))
+                      < rate).to(torch.float32)
+            else:
+                rw = torch.ones((N,))
+            self._rows[tree] = rw.to(self.device)
+        return self._rows[tree]
+
+    def node_masks(self, tree: int):
+        """Level d -> tree's [2^d, F] mask (None: every feature kept)."""
+        _, _, F, _, frac, _ = self.key
+        if max(1, int(round(frac * F))) >= F:
+            return None
+        gen, masks = self._masks.setdefault(
+            tree, (self._generator(tree, 1), []))
+
+        def level(d: int) -> torch.Tensor:
+            while len(masks) <= d:
+                masks.append(_feature_mask(gen, 1 << len(masks), F, frac)
+                             .to(self.device))
+            return masks[d]
+        return level
+
+
+def fit_forest_folds(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor, *,
+                     n_trees: int, depth: int, n_bins: int,
+                     subsample: float = 1.0, feature_frac: float = 1.0,
+                     reg_lambda: float = 0.0, min_instances: float = 1.0,
+                     min_info_gain: float = 0.0, leaf_mode: str = "mean",
+                     bootstrap: bool = True, seed: int = 0,
+                     draws: Optional[ForestDraws] = None,
+                     predict: bool = True):
+    """Random forest for every lane (CV fold) over one binned matrix: each
+    tree with bootstrap row weights and per-node feature subsets, gains
+    normalized by the node weight, `leaf_mode` leaves (the reference's
+    fit_forest, its trees in sequence).
+
+    Xb [N, F] bins; G [Fo, K, N] per-lane payload (row weights folded in),
+    H [Fo, N] per-lane weights, 0 = row outside the lane's fit. The lanes
+    share every draw, as the reference's folds share one key: tree t's row
+    weights multiply every lane's G and H, its node masks restrict every
+    lane, and each level of the tree is one kernel pass for all lanes.
+    Draws: `draws` (any object with ForestDraws' row_weights(t) and
+    node_masks(t)), else a new ForestDraws from `seed`. Returns (trees [n_trees, Fo, ...], agg [Fo,
+    K, N]): agg sums every tree's leaf payload of every row, None without
+    `predict`."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    N, F = Xb.shape
+    if draws is None:
+        draws = ForestDraws(seed, N, F, subsample=subsample,
+                            feature_frac=feature_frac, bootstrap=bootstrap,
+                            device=Xb.device)
+    Xb_t = Xb.T.contiguous()
+    trees, agg = [], None
+    for t in range(n_trees):
+        rw = draws.row_weights(t).to(Xb.device)
+        tree, rows = _grow_tree_folds(
+            Xb_t, (G * rw).contiguous(), (H * rw).contiguous(), depth=depth,
+            n_bins=n_bins, reg_lambda=reg_lambda, min_child_weight=0.0,
+            min_instances=min_instances, min_info_gain=min_info_gain,
+            gamma=0.0, learning_rate=1.0, feature_mask=None,
+            leaf_mode=leaf_mode, normalize_gain=True,
+            node_masks=draws.node_masks(t), leaf_rows=predict)
+        trees.append(tree)
+        if predict:
+            agg = rows if agg is None else agg + rows
+    return Tree(*(torch.stack(parts) for parts in zip(*trees))), agg
+
+
+def fit_forest(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor, *,
+               n_trees: int, depth: int, n_bins: int, subsample: float = 1.0,
+               feature_frac: float = 1.0, reg_lambda: float = 0.0,
+               min_instances: float = 1.0, min_info_gain: float = 0.0,
+               leaf_mode: str = "mean", bootstrap: bool = True,
+               seed: int = 0, draws: Optional[ForestDraws] = None) -> Tree:
+    """Random forest of `n_trees` trees on one fit (the reference's
+    fit_forest): Xb [N, F], G [N, K], H [N]; one lane of
+    `fit_forest_folds`. Returns stacked trees [n_trees, ...]; the ensemble
+    prediction is the payload mean."""
+    trees, _ = fit_forest_folds(
+        Xb, G.T.contiguous()[None], H[None].contiguous(), n_trees=n_trees,
+        depth=depth, n_bins=n_bins, subsample=subsample,
+        feature_frac=feature_frac, reg_lambda=reg_lambda,
+        min_instances=min_instances, min_info_gain=min_info_gain,
+        leaf_mode=leaf_mode, bootstrap=bootstrap, seed=seed,
+        draws=draws, predict=False)
+    return Tree(*(t[:, 0] for t in trees))
+
+
+# -- boosting -----------------------------------------------------------------
 
 def _logistic_grad(margin, y, w):
     p = torch.sigmoid(margin)
@@ -416,6 +670,20 @@ def fit_gbt_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor, *,
         rounds.append(tree)
     trees = Tree(*(torch.stack(parts) for parts in zip(*rounds)))
     return trees, base, margin
+
+
+def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
+            n_rounds: int, depth: int, n_bins: int,
+            generator: Optional[torch.Generator] = None,
+            **kw) -> Tuple[Tree, torch.Tensor]:
+    """Second-order boosted trees on one fit (the reference's fit_gbt: the
+    Spark GBT and XGBoost estimators' refit): one lane of `fit_gbt_folds`,
+    which takes the same keywords. Returns (trees [rounds, ...], base
+    score); the prediction is base + the sum of the trees' payloads."""
+    trees, base, _ = fit_gbt_folds(Xb, y, w[None, :], n_rounds=n_rounds,
+                                   depth=depth, n_bins=n_bins,
+                                   generator=generator, **kw)
+    return Tree(*(t[:, 0] for t in trees)), base[0]
 
 
 # -- traversal on raw feature values -----------------------------------------

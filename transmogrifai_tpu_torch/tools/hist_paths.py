@@ -1,7 +1,7 @@
 """Time every path of the tree kernels at the sweep's shapes.
 
     python -m transmogrifai_tpu_torch.tools.hist_paths [--rows 2000000]
-        [--bins 33] [--kernels all|hist|lanes]
+        [--bins 33] [--kernels all|hist|lanes|deep|roots]
 
 On one CUDA device, at N rows, F = 64 features, B = 33 bins (32 + missing),
 5 fold lanes and int8 bins (the main path's shapes; --bins 257 gives the
@@ -9,7 +9,12 @@ estimator's default of 256 bins, int32): `hist_folds` at the
 tree root (uniform and skewed bins) and at the rank-metric shape (F = 1,
 4096 buckets, 5 lanes in the slot axis), `route_hist` at S = 1, 2, 4, 8,
 16, `route` at 8 and 32 nodes (and 32 with one split table shared by the
-lanes), `table_lookup` at 16 and 64 leaves. Each path that fits the shape
+lanes), `table_lookup` at 16 and 64 leaves; `--kernels deep` takes the
+shapes of a depth-12 tree instead (`deep_shapes`, a forest's and a boosted
+fit's), `--kernels roots` the one-slot histograms (`root_shapes`: both
+kernels at S = 1 over F = 64, 164, 512, B = 33, 65 and 2 or 3 payload
+channels + the count). Each path that
+fits the shape
 (`TK.PATHS`, `TK.ROUTE_PATHS` or `TK.LOOKUP_PATHS`) is checked once
 against the plain version (`accuracy`) and timed in turns, forward
 then backward (CUDA events, median of 5 after a warm-up, each turn).
@@ -123,6 +128,118 @@ def rank_inputs(gen, rows: int, lanes: int, dev: str = "cuda") -> dict:
         .repeat_interleave(N)[None, :].contiguous())
 
 
+DEEP_FEATURES = 164      # the Workflow entry's vector in the workflow phase
+DEEP_NODES = (32, 256, 1024)
+ROOT_FEATURES = (64, 164, 512)
+ROOT_BINS = (33, 65)
+
+
+def root_shapes(rows: int, seed: int, dev: str = "cuda") -> list:
+    """(label, kernel, S, args, kwargs) of the one-slot histograms: the
+    root (`hist_folds`) and the first route_hist (S = 1) of a tree at
+    every F of ROOT_FEATURES and B of ROOT_BINS, with a forest's payload
+    (3 channels a lane) and a boosted fit's (2), on `deep_inputs`-style
+    seeded inputs: 5 lanes, int8 bins with 5% missing."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N, Fo, F_max = rows, 5, max(ROOT_FEATURES)
+    y = (torch.rand((N,), generator=gen, device=dev) < 0.3).float()
+    w = torch.poisson(torch.ones((Fo, N), device=dev), generator=gen)
+    p = torch.rand((Fo, N), generator=gen, device=dev)
+    pays = {3: torch.stack([w * (1 - y), w * y, w], 1),
+            2: torch.stack([p - y, p * (1 - p)], 1)}
+    pays = {C: t.reshape(C * Fo, N).contiguous() for C, t in pays.items()}
+    node = torch.zeros((Fo, N), device=dev)
+    shapes = []
+    for B in ROOT_BINS:
+        Xb = torch.randint(1, B, (F_max, N), generator=gen, device=dev,
+                           dtype=torch.int8)
+        Xb[torch.rand((F_max, N), generator=gen, device=dev) < 0.05] = 0
+        for F in ROOT_FEATURES:
+            tables = [torch.randint(0, hi, (Fo, 1), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                      for hi in (F, B, 2)]
+            for C, pay in pays.items():
+                hkw = dict(n_bins=B, derive_count=True)
+                tag = f"F={F} B={B} Fo={Fo} C={C}+1"
+                shapes.append((f"root: {tag} S=1", "hist_folds", 1,
+                               (Xb[:F], pay, node), dict(hkw, n_slots=1)))
+                shapes.append((f"level S=1: {tag}", "route_hist", 1,
+                               (Xb[:F], pay, node, *tables),
+                               dict(hkw, n_nodes=1)))
+    return shapes
+
+
+def deep_inputs(rows: int, seed: int, dev: str = "cuda") -> dict:
+    """Seeded inputs at the shapes of a depth-12 forest tree of the
+    selector's default grids (F = 164, B = 33, 5 fold lanes, int8 bins with
+    5% missing): a binary forest's payload of 3 channels a lane (the two
+    class sums and the weight: Poisson(1) bootstrap weights times the fold
+    mask, 20% held out), a boosted fit's of 2 (`gpay`: the logistic
+    gradient and hessian at random margins, the hessian of held-out rows
+    clamped to 1e-12 as fit_gbt_folds clamps it) and, for route_hist at S = 32, 256 and 1024 slots,
+    route at 2048 nodes and table_lookup over 4096 leaves, node planes
+    drawn uniformly over the level's nodes with each lane's split tables
+    drawn apart."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N, F, B, Fo = rows, DEEP_FEATURES, 33, 5
+
+    def tables(S):
+        return [torch.randint(0, hi, (Fo, S), generator=gen, device=dev,
+                              dtype=torch.int32) for hi in (F, B, 2)]
+
+    Xb = torch.randint(1, B, (F, N), generator=gen, device=dev,
+                       dtype=torch.int8)
+    Xb[torch.rand((F, N), generator=gen, device=dev) < 0.05] = 0
+    y = (torch.rand((N,), generator=gen, device=dev) < 0.3).float()
+    w = torch.poisson(torch.ones((Fo, N), device=dev), generator=gen) * (
+        torch.rand((Fo, N), generator=gen, device=dev) >= 0.2).float()
+    pay = torch.stack([w * (1 - y), w * y, w], 1).reshape(3 * Fo, N)
+    mask = (w > 0).float()
+    p = torch.rand((Fo, N), generator=gen, device=dev)
+    gpay = torch.stack([mask * (p - y), torch.clamp(mask * p * (1 - p),
+                                                    min=1e-12)], 1)
+    out = dict(N=N, F=F, B=B, Fo=Fo, Xb=Xb, pay=pay.contiguous(),
+               gpay=gpay.reshape(2 * Fo, N).contiguous(),
+               slot0=torch.zeros((Fo, N), device=dev))
+    for S in (*DEEP_NODES, 2048):
+        out[f"node{S}"] = torch.randint(0, S, (Fo, N), generator=gen,
+                                        device=dev).float()
+        out[f"tables{S}"] = tables(S)
+    out["leaf4096"] = torch.rand((Fo, 4096), generator=gen, device=dev)
+    out["leaf_idx4096"] = torch.randint(0, 4096, (Fo, N), generator=gen,
+                                        device=dev).float()
+    return out
+
+
+def deep_shapes(d: dict, boosted: bool = False) -> list:
+    """(label, kernel, S, args, kwargs) of the depth-12 forest shapes on the
+    inputs of `deep_inputs`: the root histogram, route_hist at each of
+    DEEP_NODES, the last level's route and the leaf lookup. With `boosted`,
+    the histograms of a boosted fit instead (2 payload channels + the
+    count: the root and route_hist at DEEP_NODES)."""
+    F, B, Fo = d["F"], d["B"], d["Fo"]
+    hkw = dict(n_bins=B, derive_count=True)
+    fit, pay, C = ("boosted", d["gpay"], 2) if boosted \
+        else ("forest", d["pay"], 3)
+    shapes = [(f"{fit} root: F={F} B={B} Fo={Fo} C={C}+1 S=1", "hist_folds",
+               1, (d["Xb"], pay, d["slot0"]), dict(hkw, n_slots=1))]
+    for S in DEEP_NODES:
+        shapes.append((f"{fit} level S={S}: F={F} B={B} Fo={Fo} C={C}+1",
+                       "route_hist", S,
+                       (d["Xb"], pay, d[f"node{S}"], *d[f"tables{S}"]),
+                       dict(hkw, n_nodes=S)))
+    if boosted:
+        return shapes
+    shapes.append((f"forest last level 2048 nodes: F={F} Fo={Fo}", "route",
+                   2048, (d["Xb"], d["node2048"], *d["tables2048"]),
+                   dict(n_nodes=2048)))
+    shapes.append((f"forest leaves: Fo={Fo} M=4096", "table_lookup", 4096,
+                   (d["leaf4096"], d["leaf_idx4096"]), {}))
+    return shapes
+
+
 def hist_shapes(d: dict) -> list:
     """(label, kernel, S, args, kwargs) of each histogram shape of the
     main path, on the inputs of `kernel_inputs`."""
@@ -186,10 +303,18 @@ def planner(name: str, S: int, args, kw, n_sm: int):
                                  args[1].shape[1], n_sm), TK.LOOKUP_PATHS
     F, N = args[0].shape
     return functools.partial(
-        TK.plan_hist, F, S, 2 + int(kw.get("derive_count", False)),
+        TK.plan_hist, F, S, hist_channels(args, kw),
         kw["n_bins"], args[2].shape[0], N, n_sm,
         itemsize=args[0].element_size(),
         route=name == "route_hist"), TK.PATHS
+
+
+def hist_channels(args, kw) -> int:
+    """Channels Co of a histogram launch's cells: the payload channels a
+    lane (pay_t rows over the lanes of the slot or node plane) plus the
+    derived count."""
+    return args[1].shape[0] // args[2].shape[0] + int(
+        kw.get("derive_count", False))
 
 
 def plain(name: str, args, kw):
@@ -248,7 +373,9 @@ def accuracy(name: str, got, want, args, kw) -> dict:
                         torch.where(err > 0, float("inf"), 0.0))
         return float(r.max())
     out.update(rel_err=rel(got_t[0]), plain_rel_err=rel(want_t[0]))
-    cnt = [t.reshape(-1, 3, t.shape[-1])[:, 2] for t in (got_t[0], want_t[0])]
+    Co = hist_channels(args, kw)
+    cnt = [t.reshape(-1, Co, t.shape[-1])[:, Co - 1]
+           for t in (got_t[0], want_t[0])]
     ok = (out["rel_err"] <= max(1e-4, out["plain_rel_err"])
           and torch_equal(*cnt))
     if name == "route_hist":
@@ -277,9 +404,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bins", type=int, default=33,
                     help="histogram bins B (max_bins + 1)")
-    ap.add_argument("--kernels", choices=("all", "hist", "lanes"),
+    ap.add_argument("--kernels",
+                    choices=("all", "hist", "lanes", "deep", "roots"),
                     default="all", help="the histogram kernels, route and "
-                    "table_lookup (lanes), or both")
+                    "table_lookup (lanes), both, the depth-12 shapes (deep: "
+                    "F = 164, 3 or 4 channels, S up to 1024), or the "
+                    "one-slot histograms (roots)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -291,10 +421,16 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    d = kernel_inputs(args.rows, args.seed, n_bins=args.bins,
-                      hist=args.kernels != "lanes")
-    shapes = ((hist_shapes(d) if args.kernels != "lanes" else [])
-              + (lane_shapes(d) if args.kernels != "hist" else []))
+    if args.kernels == "deep":
+        d = deep_inputs(args.rows, args.seed)
+        shapes = deep_shapes(d) + deep_shapes(d, boosted=True)
+    elif args.kernels == "roots":
+        shapes = root_shapes(args.rows, args.seed)
+    else:
+        d = kernel_inputs(args.rows, args.seed, n_bins=args.bins,
+                          hist=args.kernels != "lanes")
+        shapes = ((hist_shapes(d) if args.kernels != "lanes" else [])
+                  + (lane_shapes(d) if args.kernels != "hist" else []))
     lines, ok_all = [], True
     for label, name, S, a, kw in shapes:
         fn = getattr(TK, name)
