@@ -26,7 +26,9 @@ Phases, each of which fails the run on error:
              sums: `hist_paths.accuracy`), with its time
              (CUDA events, warm, median), the kernel's rows path (the
              row-mapped kernels) timed in turns beside the chosen path
-             (old, new, new, old), the plain version's time, one library
+             (old, new, new, old; where the planner chose the rows path,
+             it alone, twice, and `earlier_ms` null), the plain version's
+             time (one warm call where it takes over 0.2 s), one library
              call's time where one computes the same function, its bound
              on this card and, for the histograms, the shared-memory floor
              (one read and one write per add, 32 lanes a clock per SM), for
@@ -78,7 +80,21 @@ Phases, each of which fails the run on error:
              where the first such node must be a tie within the f32 noise
              of the two histograms (the witness is printed); the second
              card run is held to the first the same way;
-12. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
+12. workflow-titanic — the port's example flow
+             (examples/op_titanic_simple.py: a Text name hashed into 512
+             bins, DSL arithmetic, pivot, fill + z-normalize, a lambda
+             map) on `titanic_named_records`: CPU against card at 20 000
+             records (LR's default grid, RF 10 trees at depth {3, 5}: the
+             matrix and metadata identical, the same drops and winner,
+             scores within 1e-5 a row or a tie witness; where the CPU's
+             train() goes), then 100 000 records through
+             `reference_selector()` (LR and RF default grids, RF to depth
+             12, 3 folds) on the card: stage walls,
+             peak device memory, winner, CV and holdout AuPR and AuROC
+             against the prevalence; every kernel at each (kernel, F, S,
+             C, Fo) key of train() (F ~ 590) against its plain version
+             (rows of the kernels line, phase "titanic");
+13. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
              5 folds, the selector's default model types and grids: LR,
              RF, GBT and SVC, max_depth up to 12): the wall of each stage
              and of each family's sweep, each host-to-device copy, peak
@@ -98,8 +114,9 @@ Float32 products stay in full f32: the run fails unless TF32 is off
 
 The last three lines of standard output are {"kernels": [...]} (each
 row's `launches` at its (kernel, F, S) key in the phase it names, a
-workflow row's at its (kernel, F, S, C, Fo) key, and `workflow_launches`
-at that key inside workflow-main's train()), the
+workflow or titanic row's at its (kernel, F, S, C, Fo) key inside its
+phase's train(), and, but for titanic rows, `workflow_launches` at that
+key inside workflow-main's train()), the
 card's name and power limit, and
 {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is unavailable or the package is
@@ -133,6 +150,7 @@ REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
     "table_lookup": "transmogrifai_tpu/ops/pallas_hist.py:866",
 }
 GLM_EVAL_LANES = 8            # the streamed eval's grid chunk
+TITANIC_ROWS = 100_000        # workflow-titanic's main path (PERF.md §4)
 XGB_GRID = [dict(num_round=10, max_depth=d, eta=e, reg_lambda=lam,
                  max_bins=32)
             for d in (4, 6) for e in (0.05, 0.1, 0.2, 0.3) for lam in (1.0, 5.0)]
@@ -214,7 +232,8 @@ def kernel_phase(seed: int):
 def kernel_rows(shapes: list, phase: str = "tree") -> list:
     """One result row per (label, kernel, S, args, kwargs) of `shapes`: the
     kernel against its plain version on those inputs, timed in turns
-    against its rows path, with its bound, plain and library times. Every
+    against its rows path (where the planner takes another), with its
+    bound, plain and library times. Every
     count of the work (bytes, adds, data-dependent nonzeros) is taken from
     the inputs themselves. `phase` names the main-path phase whose launch
     counts the row reads."""
@@ -307,11 +326,14 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
         torch.cuda.empty_cache()
         path = HP.planner(name, S, args, kw, n_sm)[0]().path
         turns = {}
-        for p in ("rows", None, None, "rows"):
+        # where the planner takes the rows path itself, the two are one
+        for p in (("rows", None, None, "rows") if path != "rows"
+                  else (None, None)):
             turns.setdefault(p, []).append(HP.cuda_ms(
                 lambda: dispatch(*args, **kw, path=p), reps=7))
         ms = statistics.mean(turns[None])
-        earlier_ms = statistics.mean(turns["rows"])
+        earlier_ms = (statistics.mean(turns["rows"]) if "rows" in turns
+                      else None)
         plain_ms = HP.cuda_ms(lambda: HP.plain(name, args, kw),
                               reps=1 if slow_plain else 3,
                               warm=0 if slow_plain else 1)
@@ -336,10 +358,10 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
                    smem_floor_ms=n_adds and smem_floor_ms(n_adds),
                    copy_ms=copy_ms, moved_bytes=moved,
                    key=capture_key(key, name, args, kw)
-                   if phase == "workflow" else key)
+                   if phase in ("workflow", "titanic") else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
-            f"ms={ms:.4f} earlier_ms={earlier_ms:.4f} ({path} vs rows) "
+            f"ms={ms:.4f} earlier_ms={earlier_ms} ({path} vs rows) "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"smem_floor_ms={row['smem_floor_ms']} copy_ms={copy_ms} "
             f"library_ms={library_ms}")
@@ -806,6 +828,91 @@ def titanic_records(n: int, seed: int):
             for i in range(n)]
 
 
+_SYLLABLES = ["an", "ber", "cal", "dor", "el", "fin", "gar", "hol", "is",
+              "jor", "kel", "lin", "mar", "nor", "ol", "per", "quin", "ros",
+              "son", "tar", "ul", "ven", "wick", "yng", "zel"]
+_NON_ASCII_SURNAMES = ["Müller", "Nørgaard", "Šimić", "Ødegård", "Çelik",
+                       "Ångström", "Ñúñez", "Dvořák", "Łukasz", "Öztürk"]
+_GIVEN = {True: ["Mary", "Anna", "Elizabeth", "Margaret", "Helen", "Alice",
+                 "Ellen", "Edith", "Bertha", "Laina", "Jane", "Ida", "Emily",
+                 "Agnes", "Marie", "Hélène", "Zoë"],
+          False: ["John", "William", "James", "Charles", "George", "Thomas",
+                  "Owen", "Henry", "Edward", "Arthur", "Karl", "Johan",
+                  "Frank", "Ernst", "Patrick", "José", "Jörgen"]}
+_TITLES = {True: (["Miss", "Mrs", "Ms", "Mme", "Lady"],
+                  [0.45, 0.5, 0.02, 0.02, 0.01]),
+           False: (["Mr", "Master", "Dr", "Rev", "Col"],
+                   [0.88, 0.08, 0.02, 0.01, 0.01])}
+
+
+def titanic_named_records(n: int, seed: int):
+    """Seeded records in the Kaggle Titanic shapes (the fields of
+    PASSENGER_COLUMNS in the port's example): `name` as "Surname, Title.
+    Given Names" from seeded word lists (4 000 surnames, and 3% of rows
+    non-ASCII ones), so its cardinality is far above 30 and its tokens
+    fill the 512 hash bins; `ticket`
+    of high cardinality (30% share 300 family tickets, the rest are
+    unique) in the Kaggle forms ("347082", "PC 17599", "A/5 21171"); `cabin`
+    empty for 77% of rows, else deck and number; `embarked` with 0.2%
+    empty; 20% of ages missing. Survival depends on sex (through the
+    title), class, childhood, fare and family size."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    surnames = [(a + b + c).capitalize() for a in _SYLLABLES
+                 for b in _SYLLABLES for c in ("",) + tuple(_SYLLABLES)]
+    surnames = [surnames[i] for i in rng.permutation(len(surnames))[:4000]]
+    female = rng.uniform(size=n) < 0.35
+    pclass = rng.choice([1, 2, 3], p=[0.24, 0.21, 0.55], size=n)
+    age = np.clip(rng.normal(29, 14, size=n), 0.4, 80)
+    age_missing = rng.uniform(size=n) < 0.2
+    sibsp, parch = rng.poisson(0.5, size=n), rng.poisson(0.4, size=n)
+    fare = np.round(np.clip(rng.lognormal(3.6 - 0.5 * (pclass - 1), 0.6),
+                            4, 512), 4)
+    embarked = rng.choice(["S", "C", "Q"], p=[0.72, 0.19, 0.09], size=n)
+    embarked_missing = rng.uniform(size=n) < 0.002
+    sur = rng.integers(0, len(surnames), size=n)
+    foreign = rng.uniform(size=n) < 0.03
+    foreign_name = rng.integers(0, len(_NON_ASCII_SURNAMES), size=n)
+    g1, g2 = rng.integers(0, 17, size=n), rng.integers(0, 17, size=n)
+    two_given = rng.uniform(size=n) < 0.5
+    title_no = {f: rng.choice(len(t), p=p, size=n)
+                for f, (t, p) in _TITLES.items()}
+    family_ticket = rng.uniform(size=n) < 0.3
+    ticket_no = np.where(family_ticket, rng.integers(0, 300, size=n),
+                         rng.integers(300, 4_000_000, size=n))
+    prefix = rng.choice(["", "PC ", "A/5 ", "STON/O2. ", "CA. ", "SC/Paris "],
+                        p=[0.7, 0.1, 0.06, 0.05, 0.05, 0.04], size=n)
+    has_cabin = rng.uniform(size=n) < 0.23
+    deck = rng.choice(list("ABCDEFG"), size=n)
+    cabin_no = rng.integers(1, 150, size=n)
+    child = ~age_missing & (age < 12)
+    logit = (3.0 * female * (pclass < 3) + 0.8 * female * (pclass == 3)
+             + 2.5 * child - 0.9 * (pclass - 2) + 0.004 * fare
+             - 2.0 * (sibsp + parch > 3) + 0.4 * has_cabin - 1.0)
+    y = rng.uniform(size=n) < 1 / (1 + np.exp(-logit))
+    out = []
+    for i in range(n):
+        f = bool(female[i])
+        title = "Master" if child[i] and not f \
+            else _TITLES[f][0][title_no[f][i]]
+        given = _GIVEN[f][g1[i]] + (" " + _GIVEN[f][g2[i]]
+                                    if two_given[i] else "")
+        last = (_NON_ASCII_SURNAMES[foreign_name[i]] if foreign[i]
+                else surnames[sur[i]])
+        out.append({
+            "id": i + 1, "survived": float(y[i]), "pClass": int(pclass[i]),
+            "name": f"{last}, {title}. {given}",
+            "sex": "female" if f else "male",
+            "age": None if age_missing[i] else float(round(age[i], 1)),
+            "sibSp": int(sibsp[i]), "parCh": int(parch[i]),
+            "ticket": f"{prefix[i]}{int(ticket_no[i])}",
+            "fare": float(fare[i]),
+            "cabin": f"{deck[i]}{int(cabin_no[i])}" if has_cabin[i]
+            else None,
+            "embarked": None if embarked_missing[i] else str(embarked[i])})
+    return out
+
+
 def workflow_small_phase(seed: int) -> bool:
     """The user's flow on 100 000 titanic-shaped records through ListReader
     (FeatureBuilder -> transmogrify -> SanityChecker -> 3-fold
@@ -944,6 +1051,205 @@ def workflow_small_phase(seed: int) -> bool:
             and explained(cpu_card) and explained(card_card))
 
 
+def titanic_cut_selector():
+    """The README sweep shape of the port's example (reference_selector:
+    3-fold CV, 10% holdout) cut as workflow-small cuts it: logistic
+    regression's default grid and random forests of 10 trees at depth
+    {3, 5}."""
+    from transmogrifai_tpu_torch.automl.selectors import default_grid_for
+    from transmogrifai_tpu_torch.examples import op_titanic_simple as EX
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+    return EX.reference_selector(models_and_parameters=[
+        (OpLogisticRegression(), default_grid_for("OpLogisticRegression")),
+        (OpRandomForestClassifier(), [
+            dict(max_depth=d, num_trees=10, min_instances_per_node=10)
+            for d in (3, 5)])])
+
+
+def titanic_vector_names(model) -> tuple:
+    """(transmogrified vector, checked vector) column names of a trained
+    titanic workflow: the SanityChecker's input and output."""
+    sc = next(st for st in model.stages
+              if type(st).__name__ == "SanityCheckerModel")
+    return sc.input_names()[1], sc.output_name()
+
+
+def workflow_titanic_phase(rows: int, seed: int):
+    """The port's example flow (transmogrifai_tpu_torch/examples/
+    op_titanic_simple.py: a hashed Text name, DSL arithmetic, pivot,
+    fill_missing_with_mean + z_normalize, a lambda map, transmogrify,
+    SanityChecker, the model selector) on `titanic_named_records`.
+
+    First, CPU against card at 20 000 records with `titanic_cut_selector`:
+    the transmogrified matrix and its metadata bit-identical, the same
+    columns kept for the same reasons, the same winner, scores of 20 000
+    new records within 1e-5 a row or, where the refits split a node
+    differently, the first such node a tie (`split_witness`); the
+    CPU-fitted workflow carried onto the card scores within 1e-5; where
+    the CPU's train() goes (stage walls, sweep / refit, each family's
+    sweep, each plain kernel's calls and seconds).
+
+    Then the main path: `rows` records through `build_workflow(
+    reference_selector())` (LR and RF with their default grids, RF to
+    depth 12, 3 folds, 10% holdout) in `Workflow()` on the card. Launch
+    counters are reset just before train() and read just after; every
+    kernel must have launched. Stage walls (the text vectorizer's fit and
+    transform apart), peak device memory, width, winner, its CV AuPR and
+    holdout AuPR and AuROC against the prevalence; each kernel at every
+    (kernel, F, S, C, Fo) key of train() on the inputs of its first
+    launch there against its plain version (rows of the kernels line,
+    phase "titanic"). Returns (ok, launches by capture key, kernel
+    rows)."""
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch import convert
+    from transmogrifai_tpu_torch.examples import op_titanic_simple as EX
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.readers import ListReader
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+
+    t_phase = t0 = time.perf_counter()
+    small = titanic_named_records(20_000, seed + 11)
+    new = titanic_named_records(20_000, seed + 12)
+    log(f"workflow-titanic: records made in "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    def score(model, pred):
+        return model.score(ListReader(new).generate_dataset(
+            model.raw_features())).data(pred.name)
+
+    out, cpu_kernels = {}, {}
+    for run, dev in (("cpu", "cpu"), ("cuda", None)):
+        reset_uids()
+        wf, pred = EX.build_workflow(titanic_cut_selector(), device=dev)
+        t0 = time.perf_counter()
+        with record_refit_levels([]) as levels, \
+                time_dispatch(cpu_kernels if run == "cpu" else {}):
+            model = wf.set_reader(ListReader(small)).train()
+        out[run] = dict(model=model, pred=pred, levels=levels,
+                        train_s=time.perf_counter() - t0,
+                        scored=score(model, pred))
+    c, g = out["cpu"], out["cuda"]
+    cm, gm = c["model"], g["model"]
+    vec, checked = titanic_vector_names(cm)
+    cx, gx = cm._train_data.column(vec), gm._train_data.column(vec)
+    cs, gs = cm.sanity_checker_summary(), gm.sanity_checker_summary()
+    csel, gsel = cm.selector_summary(), gm.selector_summary()
+    carried = convert.workflow_model_from_jax(
+        [c["pred"]], [convert.stage_state(st) for st in cm.stages],
+        device="cuda")
+    carried_diff = float(np.abs(score(carried, c["pred"])[:, -1]
+                                - c["scored"][:, -1]).max())
+    dprob = np.abs(c["scored"][:, -1] - g["scored"][:, -1])
+    first = first_divergence(c["levels"], g["levels"])
+    names = cm._train_data.column(checked).metadata.column_names()
+    witness = None if first is None else split_witness(
+        c["levels"], g["levels"], *first,
+        csel.best_grid.get("max_depth", 0), names)
+    cmp = dict(
+        rows=len(small), width=int(gx.data.shape[1]),
+        matrix_identical=cx.data.tobytes() == gx.data.tobytes(),
+        metadata_identical=cx.metadata.to_json() == gx.metadata.to_json(),
+        same_drops=(cs.dropped == gs.dropped
+                    and list(cs.drop_reasons) == list(gs.drop_reasons)),
+        winner_cpu=[csel.best_model_name, csel.best_grid],
+        winner_cuda=[gsel.best_model_name, gsel.best_grid],
+        max_cell_diff=max(abs(a["mean_metric"] - b["mean_metric"]) for a, b
+                          in zip(csel.validation_results,
+                                 gsel.validation_results)),
+        max_prob_diff=float(dprob.max()),
+        share_prob_within_1e5=float((dprob <= 1e-5).mean()),
+        witness=witness, carried_cpu_model_on_card_max_prob_diff=carried_diff,
+        train_s_cpu=c["train_s"], train_s_cuda=g["train_s"],
+        cpu_stage_walls_s=stage_walls(cm),
+        cpu_selector_walls_s=c["pred"].origin_stage.walls,
+        cpu_family_sweep_s=c["pred"].origin_stage.validator.family_walls,
+        cpu_plain_kernels=cpu_kernels)
+    log("workflow-titanic cpu-vs-card: " + json.dumps(cmp))
+    small_ok = (cmp["matrix_identical"] and cmp["metadata_identical"]
+                and cmp["same_drops"]
+                and cmp["winner_cpu"] == cmp["winner_cuda"]
+                and (cmp["max_prob_diff"] <= 1e-5
+                     or (witness is not None and witness["tie"]))
+                and carried_diff <= 1e-5)
+    del out, c, g, cm, gm, carried, cx, gx
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    recs = titanic_named_records(rows, seed + 13)
+    raw_s = time.perf_counter() - t0
+    reset_uids()
+    wf, pred = EX.build_workflow(EX.reference_selector())
+    wf.set_reader(ListReader(recs))
+    selector = pred.origin_stage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, capture_launches = {}, collections.Counter()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    with capture_kernel_inputs(captured, capture_launches):
+        model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = dict(TK.launches)
+    shape_launches = dict(TK.shape_launches)
+    capture_launches = dict(capture_launches)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    walls = stage_walls(model)
+    sel = model.selector_summary()
+    sc = model.sanity_checker_summary()
+    vec, checked = titanic_vector_names(model)
+    width = int(model._train_data.data(vec).shape[1])
+    smart = next(st for st in model.stages
+                 if type(st).__name__ == "SmartTextModel")
+    kept = len(next(st for st in model.stages if type(st).__name__
+                    == "SanityCheckerModel").indices_to_keep)
+    y = np.array([r["survived"] for r in recs], np.float64)
+    prevalence = float(y.mean())
+    best = max(sel.validation_results, key=lambda v: v["mean_metric"])
+    families = family_results(sel, selector)
+    model._train_data = None
+    t0 = time.perf_counter()
+    scored = score(model, pred)
+    score_s = time.perf_counter() - t0
+    ti_rows = kernel_rows([captured_shape(key, *captured[key],
+                                          prefix="workflow-titanic")
+                           for key in sorted(captured)], phase="titanic")
+    del captured
+    torch.cuda.empty_cache()
+    res = dict(
+        rows=rows, phase_s=time.perf_counter() - t_phase, raw_data_s=raw_s,
+        train_s=train_s, score_s=score_s,
+        score_rows=len(new), stage_walls_s=walls,
+        selector_walls_s=selector.walls, width_before=width,
+        width_after=kept, flagged=len(sc.dropped),
+        text_plans=[p["mode"] for p in smart.plans],
+        winner=[sel.best_model_name, sel.best_grid],
+        winner_cv_aupr=best["mean_metric"],
+        holdout_aupr=sel.holdout_evaluation.get("au_pr"),
+        holdout_auroc=sel.holdout_evaluation.get("au_roc"),
+        prevalence=prevalence, families=families,
+        peak_device_gb_train=train_peak_gb,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, shape_launches=shape_launches,
+        capture_launches=capture_launches)
+    log("workflow-titanic: " + json.dumps(res))
+    by_shape = collections.Counter()
+    for key, n in capture_launches.items():
+        by_shape[launch_key(key)] += n
+    ok = (small_ok and all(n > 0 for n in launches.values())
+          and res["text_plans"] == ["hash"]
+          and {r["key"] for r in ti_rows} == set(capture_launches)
+          and dict(by_shape) == shape_launches
+          and set(families) == {"OpLogisticRegression",
+                                "OpRandomForestClassifier"}
+          and scored.shape == (len(new), 5)
+          and bool(np.isfinite(scored).all())
+          and best["mean_metric"] > prevalence
+          and sel.holdout_evaluation["au_pr"] > prevalence)
+    return ok, capture_launches, ti_rows
+
+
 @contextlib.contextmanager
 def record_refit_levels(store: list):
     """Inside the block, every one-lane call of the tree fit's level split
@@ -965,6 +1271,32 @@ def record_refit_levels(store: list):
         yield store
     finally:
         T._level_split = original
+
+
+@contextlib.contextmanager
+def time_dispatch(store: dict):
+    """Inside the block, each call of a kernel's dispatcher adds its
+    calls and wall seconds to `store`: {kernel: [calls, seconds]}. For
+    CPU tensors, where the dispatchers run the plain versions."""
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    originals = {name: getattr(TK, name) for name in TK.KERNELS}
+
+    def timed(name):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kw)
+            tally = store.setdefault(name, [0, 0.0])
+            tally[0] += 1
+            tally[1] += time.perf_counter() - t0
+            return out
+        return run
+    for name in originals:
+        setattr(TK, name, timed(name))
+    try:
+        yield store
+    finally:
+        for name, fn in originals.items():
+            setattr(TK, name, fn)
 
 
 def first_divergence(a: list, b: list):
@@ -1159,10 +1491,7 @@ def workflow_main_phase(rows: int, seed: int):
     width = len(sc.names)
     kept = len(next(st for st in model.stages if type(st).__name__
                     == "SanityCheckerModel").indices_to_keep)
-    walls = {}
-    for w in model.runner.walls:
-        key = f"{w['op']} {w['stage'].split('_')[0]}"
-        walls[key] = walls.get(key, 0.0) + w["seconds"]
+    walls = stage_walls(model)
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     captured_gb = sum(t.numel() * t.element_size() for _, args, _ in
                       captured.values() for t in args
@@ -1214,14 +1543,7 @@ def workflow_main_phase(rows: int, seed: int):
 
     best = max(sel.validation_results, key=lambda v: v["mean_metric"])
     prevalence = float(yh.mean())
-    families = {}
-    for v in sel.validation_results:
-        fam = families.setdefault(v["model_name"], dict(
-            sweep_s=selector.validator.family_walls.get(v["model_name"]),
-            cells=0, best_cv_aupr=-1.0, best_grid=None))
-        fam["cells"] += 1
-        if v["mean_metric"] > fam["best_cv_aupr"]:
-            fam.update(best_cv_aupr=v["mean_metric"], best_grid=v["grid"])
+    families = family_results(sel, selector)
     res = dict(
         rows=rows, raw_data_s=raw_s, train_s=train_s, score_s=score_s,
         stage_walls_s=walls, selector_walls_s=selector.walls,
@@ -1264,6 +1586,28 @@ def workflow_main_phase(rows: int, seed: int):
           and stream_pass["driver"] == "streamed" and stats_exact
           and stats_err < 1e-4)
     return ok, shape_launches, capture_launches, wf_rows
+
+
+def stage_walls(model) -> dict:
+    """Wall seconds of a trained workflow's stages by "op class"."""
+    walls = {}
+    for w in model.runner.walls:
+        key = f"{w['op']} {w['stage'].split('_')[0]}"
+        walls[key] = walls.get(key, 0.0) + w["seconds"]
+    return walls
+
+
+def family_results(sel, selector) -> dict:
+    """Each model family's sweep wall, cell count and best CV AuPR."""
+    families = {}
+    for v in sel.validation_results:
+        fam = families.setdefault(v["model_name"], dict(
+            sweep_s=selector.validator.family_walls.get(v["model_name"]),
+            cells=0, best_cv_aupr=-1.0, best_grid=None))
+        fam["cells"] += 1
+        if v["mean_metric"] > fam["best_cv_aupr"]:
+            fam.update(best_cv_aupr=v["mean_metric"], best_grid=v["grid"])
+    return families
 
 
 def capture_key(key: str, name: str, args: tuple, kw: dict) -> str:
@@ -1328,8 +1672,10 @@ def capture_kernel_inputs(store: dict, counts: collections.Counter):
         clones.clear()
 
 
-def captured_shape(key: str, name: str, args: tuple, kw: dict) -> tuple:
-    """(label, kernel, S, args, kwargs) of one capture key."""
+def captured_shape(key: str, name: str, args: tuple, kw: dict,
+                   prefix: str = "workflow-main") -> tuple:
+    """(label, kernel, S, args, kwargs) of one capture key; `prefix` names
+    the phase whose train() launched it."""
     S = int(key.split("S=")[1].split()[0])
     if name == "table_lookup":
         label = f"leaves: Fo={args[1].shape[0]} M={S}"
@@ -1345,7 +1691,7 @@ def captured_shape(key: str, name: str, args: tuple, kw: dict) -> tuple:
         label = (f"tree root: F={F} B={B} Fo={Fo}{chans} S=1"
                  if name == "hist_folds"
                  else f"level S={S}: F={F} B={B} Fo={Fo}{chans}")
-    return f"workflow-main {label}", name, S, args, kw
+    return f"{prefix} {label}", name, S, args, kw
 
 
 def tf32_phase() -> bool:
@@ -1443,6 +1789,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     if not workflow_small_phase(SEED):
         failures.append("workflow-small CPU/GPU disagreement")
+    ti_ok, ti_captures, ti_rows = workflow_titanic_phase(TITANIC_ROWS, SEED)
+    if not ti_ok:
+        failures.append("workflow-titanic")
+    failures += [f"kernel {r['name']} ({r['shape']})" for r in ti_rows
+                 if not r.pop("ok")]
+    rows += ti_rows
+    torch.cuda.empty_cache()
     wf_ok, wf_launches, wf_captures, wf_rows = workflow_main_phase(
         args.rows, SEED)
     if not wf_ok:
@@ -1451,14 +1804,15 @@ def main() -> int:
                  if not r.pop("ok")]
     rows += wf_rows
     counts = {"tree": shape_launches, "glm": glm_launches,
-              "workflow": wf_captures}
+              "workflow": wf_captures, "titanic": ti_captures}
     for r in rows:
         key = r.pop("key")
         r["launches"] = counts[r["phase"]].get(key, 0)
-        # launches at this row's key inside workflow-main's train(): its
-        # (kernel, F, S) key, a workflow row's own capture key
-        r["workflow_launches"] = (wf_captures if r["phase"] == "workflow"
-                                  else wf_launches).get(key, 0)
+        if r["phase"] != "titanic":
+            # launches at this row's key inside workflow-main's train():
+            # its (kernel, F, S) key, a workflow row's own capture key
+            r["workflow_launches"] = (wf_captures if r["phase"] == "workflow"
+                                      else wf_launches).get(key, 0)
     failures += [f"kernel {r['name']} ({r['shape']}): no launch on its "
                  "main path" for r in rows if not r["launches"]]
     log(f"total: {time.perf_counter() - t_start:.1f}s")

@@ -1,0 +1,332 @@
+"""The port's numeric DSL, math and misc stages, lambda stages and
+bucketizers against the JAX package.
+
+Each stage is built through the DSL in both packages on the same seeded
+records (after `reset_uids()` in each) and run in a `Workflow` on the CPU.
+The columns carry NaN, zeros (divide), negatives (log, sqrt) and ties
+(bucket splits). Tolerances: f32 outputs within 1 ulp (the JAX package's
+layer program is XLA's, the port's is torch's: exp, log, sqrt and pow may
+round apart by an ulp; a log of another base is the natural log times the
+f32 reciprocal of ln(base) in both, so it is held to one ulp of that
+natural log, carried through the product; every other op is
+bit-identical); fitted parameters
+within 1e-12; bucketizer splits, vectors and vector metadata identical;
+lambda stages identical.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+from transmogrifai_tpu.features.builder import FeatureBuilder as JFB
+from transmogrifai_tpu.readers.readers import ListReader as JList
+from transmogrifai_tpu.utils import uid as JU
+from transmogrifai_tpu.workflow import Workflow as JWorkflow
+import transmogrifai_tpu.types as JT
+
+import transmogrifai_tpu_torch  # noqa: F401 — installs the dsl
+from transmogrifai_tpu_torch import dsl as PD
+from transmogrifai_tpu_torch.features.builder import FeatureBuilder as PFB
+from transmogrifai_tpu_torch.features.feature import Feature as PFeature
+from transmogrifai_tpu_torch.readers.readers import ListReader as PList
+from transmogrifai_tpu_torch.stages.base import (LambdaTransformer,
+                                                  binary_transformer,
+                                                  unary_transformer)
+from transmogrifai_tpu_torch.utils import uid as PU
+from transmogrifai_tpu_torch.workflow import Workflow as PWorkflow
+import transmogrifai_tpu_torch.types as PT
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def records(n=400, seed=3):
+    """x: NaN, zeros, negatives; y: zeros (divide) and NaN; k: integers
+    with ties; label: 0/1 tied to k and x."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 3, size=n)
+    x[rng.uniform(size=n) < 0.1] = 0.0
+    x[rng.uniform(size=n) < 0.1] = np.nan
+    y = np.round(rng.normal(0, 2, size=n), 1)
+    y[rng.uniform(size=n) < 0.15] = 0.0
+    y[rng.uniform(size=n) < 0.05] = np.nan
+    k = rng.integers(0, 12, size=n).astype(float)
+    k[rng.uniform(size=n) < 0.05] = np.nan
+    logit = 0.6 * (np.nan_to_num(k) - 6) + 0.3 * np.nan_to_num(x)
+    label = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(float)
+    return [{"x": None if np.isnan(x[i]) else float(x[i]),
+             "y": None if np.isnan(y[i]) else float(y[i]),
+             "k": None if np.isnan(k[i]) else float(k[i]),
+             "label": float(label[i])} for i in range(n)]
+
+
+def _derived(FB, T):
+    """(name, feature) pairs of every stage, built through the DSL."""
+    x = FB.Real("x").as_predictor()
+    y = FB.Real("y").as_predictor()
+    k = FB.Real("k").as_predictor()
+    label = FB.RealNN("label").as_response()
+    filled = x.fill_missing_with_mean()
+    scaled = x.scale(slope=2.5, intercept=-1.0)
+    out = [
+        ("plus", x + y), ("minus", x - y), ("times", x * y),
+        ("divide", x / y), ("plusS", x + 2.5), ("minusS", x - 1.5),
+        ("timesS", x * 3.0), ("divideS", x / 7.0), ("divide0", x / 0.0),
+        ("radd", 1.0 + x), ("rmul", 0.5 * y),
+        ("abs", x.abs()), ("ceil", x.ceil()), ("floor", x.floor()),
+        ("round", x.round()), ("exp", x.exp()), ("sqrt", x.sqrt()),
+        ("log", x.log()), ("log10", x.log(10.0)), ("pow2", x.power(2.0)),
+        ("pow05", y.power(0.5)), ("pow33", x.power(3.3)),
+        ("alias", x.alias("xx")), ("occur", x.to_occur()),
+        ("filled", filled), ("znorm", x.z_normalize()),
+        ("filled_znorm", filled.z_normalize()),
+        ("scaled", scaled), ("logscaled", y.scale("logarithmic")),
+        ("descaled", scaled.descale(scaled,
+                                    scaler=scaled.origin_stage)),
+        ("percentile", filled.calibrate_percentile(10)),
+        ("bucket_q", k.bucketize(num_buckets=4)),
+        ("bucket_fixed", x.bucketize(splits=[-np.inf, -1.0, 0.0, 2.0,
+                                             np.inf], track_nulls=False)),
+        ("autobucket", k.autobucketize(label, max_splits=4,
+                                       min_info_gain=0.001)),
+        ("replaced", k.replace_with(3.0, 30.0)),
+        ("mapped", x.map_values(
+            lambda v: None if v is None else v * v + 1.0)),
+        ("mapped_feature", k.map(
+            lambda v: None if v.value is None
+            else ("hi" if v.value > 5 else "lo"),
+            output_type=T.PickList, operation_name="band")),
+        ("exists", y.exists(lambda v: v > 0)),
+        ("filtered", y.filter_values(lambda v: v > 0, default=-1.0)),
+        ("filter_not", y.filter_not(lambda v: v > 0, default=-1.0)),
+        ("collected", x.collect(lambda v: v if v > 0 else None, -7.0)),
+    ]
+    vec = k.bucketize(num_buckets=4)
+    out.append(("dropped", vec.drop_indices_by(
+        lambda c: c.indicator_value == "NullIndicatorValue")))
+    return out
+
+
+def _train(pkg):
+    FB, U, T, Workflow, List, kw = (
+        (JFB, JU, JT, JWorkflow, JList, {}) if pkg == "jax" else
+        (PFB, PU, PT, PWorkflow, PList, {"device": "cpu"}))
+    U.reset_uids()
+    derived = _derived(FB, T)
+    model = Workflow(**kw).set_reader(List(records())) \
+        .set_result_features(*[f for _, f in derived]).train()
+    return model, derived
+
+
+@pytest.fixture(scope="module")
+def trained():
+    return _train("jax"), _train("torch")
+
+
+def assert_f32_within_1ulp(a, b, name, scale=None):
+    """a and b agree within one ulp; with `scale`, within one ulp of a / scale
+    carried through the product (a = f32(value * scale))."""
+    a = np.asarray(a, np.float64).astype(np.float32)
+    b = np.asarray(b, np.float64).astype(np.float32)
+    assert a.shape == b.shape, name
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=name)
+    ok = ~np.isnan(a)
+    x, y = a[ok], b[ok]
+    same = x == y
+    gap = np.abs(x.astype(np.float64) - y.astype(np.float64))
+    big = np.maximum(np.abs(x), np.abs(y))
+    ulp = np.spacing(big).astype(np.float64)
+    if scale is not None:
+        ulp = np.spacing(big / np.float32(scale)).astype(np.float64) \
+            * scale + ulp
+    assert np.all(same | (gap <= ulp)), (name, np.max(gap / ulp))
+
+
+SCALARS = ["plus", "minus", "times", "divide", "plusS", "minusS", "timesS",
+           "divideS", "divide0", "radd", "rmul", "abs", "ceil", "floor",
+           "round", "exp", "sqrt", "log", "log10", "pow2", "pow05", "pow33",
+           "alias", "occur", "filled", "znorm", "filled_znorm", "scaled",
+           "logscaled", "descaled", "percentile", "replaced", "mapped",
+           "exists", "filtered", "filter_not", "collected"]
+# ops whose f32 rounding is the same in XLA and torch
+EXACT = {"plus", "minus", "times", "divide", "plusS", "minusS", "timesS",
+         "divideS", "divide0", "radd", "rmul", "abs", "ceil", "floor",
+         "round", "alias", "occur", "filled", "znorm", "filled_znorm",
+         "scaled", "descaled", "percentile", "replaced", "mapped", "exists",
+         "filtered", "filter_not", "collected"}
+
+
+@pytest.mark.parametrize("name", SCALARS)
+def test_scalar_stage_matches_jax(trained, name):
+    (jm, jd), (pm, pd) = trained
+    jf, pf = dict(jd)[name], dict(pd)[name]
+    assert pf.name == jf.name and pf.type_name == jf.type_name
+    a = jm._train_data.data(jf.name)
+    b = pm._train_data.data(pf.name)
+    if name in EXACT:
+        np.testing.assert_array_equal(b, a)
+    elif name == "log10":
+        assert_f32_within_1ulp(a, b, name,
+                               scale=np.float32(1) / np.float32(np.log(10)))
+    else:
+        assert_f32_within_1ulp(a, b, name)
+
+
+def test_the_derived_columns_hold_the_empty_rules(trained):
+    (_, _), (pm, pd) = trained
+    d = {n: pm._train_data.data(f.name) for n, f in pd}
+    x = np.array([np.nan if r["x"] is None else r["x"] for r in records()])
+    y = np.array([np.nan if r["y"] is None else r["y"] for r in records()])
+    assert np.isnan(d["divide"][y == 0]).all()
+    assert np.isnan(d["divide0"]).all()
+    assert np.isnan(d["sqrt"][x < 0]).all()
+    assert np.isnan(d["log"][x <= 0]).all()
+    assert not np.isnan(d["znorm"]).any() and not np.isnan(d["filled"]).any()
+    assert (d["znorm"][np.isnan(x)] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["bucket_q", "bucket_fixed", "autobucket",
+                                  "dropped", "mapped_feature"])
+def test_vector_and_host_stage_matches_jax(trained, name):
+    (jm, jd), (pm, pd) = trained
+    jf, pf = dict(jd)[name], dict(pd)[name]
+    assert pf.name == jf.name
+    a, b = jm._train_data.column(jf.name), pm._train_data.column(pf.name)
+    if name == "mapped_feature":
+        assert list(b.data) == list(a.data)
+        return
+    np.testing.assert_array_equal(b.data, a.data)
+    assert b.data.dtype == a.data.dtype == np.float32
+    assert b.metadata.to_json() == a.metadata.to_json()
+
+
+FITTED = {"ZNormalizeModel": ("mean", "std"),
+          "FillMissingWithMeanModel": ("mean",),
+          "PercentileCalibratorModel": ("splits",),
+          "NumericBucketizerModel": ("splits",),
+          "DecisionTreeNumericBucketizerModel": ("splits",)}
+
+
+@pytest.mark.parametrize("cls", sorted(FITTED))
+def test_fitted_parameters_match_jax(trained, cls):
+    (jm, _), (pm, _) = trained
+    js = [s for s in jm.stages if type(s).__name__ == cls]
+    ps = [s for s in pm.stages if type(s).__name__ == cls]
+    assert len(js) == len(ps) >= 1
+    for a, b in zip(js, ps):
+        assert a.uid == b.uid and a.output_name() == b.output_name()
+        for key in FITTED[cls]:
+            va, vb = a.save_args()[key], b.save_args()[key]
+            if "Bucketizer" in cls:   # splits identical
+                assert [np.asarray(s).tolist() for s in np.atleast_1d(vb)] \
+                    == [np.asarray(s).tolist() for s in np.atleast_1d(va)]
+            else:
+                np.testing.assert_allclose(vb, va, rtol=0, atol=1e-12)
+
+
+def test_label_splits_fall_on_the_ties(trained):
+    (_, _), (pm, _) = trained
+    st = next(s for s in pm.stages
+              if type(s).__name__ == "DecisionTreeNumericBucketizerModel")
+    assert 1 <= len(st.splits) <= 4
+    assert all(float(s).is_integer() for s in st.splits), st.splits
+
+
+def _ops_table_names():
+    """The keys of the JAX package's dsl `ops` table."""
+    tree = ast.parse((REPO / "transmogrifai_tpu" / "dsl.py").read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "install")
+    table = next(n.value for n in ast.walk(fn)
+                 if isinstance(n, ast.Assign) and n.targets[0].id == "ops")
+    return [k.value for k in table.keys]
+
+
+def test_every_dsl_name_is_installed():
+    names = _ops_table_names()
+    assert len(names) >= 80
+    missing = [n for n in names if not callable(getattr(PFeature, n, None))]
+    assert missing == []
+    assert set(PD.UNPORTED) <= set(names)
+
+
+@pytest.mark.parametrize("name", sorted(PD.UNPORTED))
+def test_unported_dsl_name_raises_naming_its_stage(name):
+    stage, module = PD.UNPORTED[name]
+    f = PFB.Text("t").as_predictor()
+    with pytest.raises(NotImplementedError) as err:
+        getattr(f, name)()
+    assert stage in str(err.value) and module in str(err.value)
+
+
+def test_tokenize_then_tf_idf_raises_and_tf_hashes():
+    PU.reset_uids()
+    toks = PFB.Text("t").as_predictor().tokenize()
+    assert toks.type_name == "TextList"
+    with pytest.raises(NotImplementedError, match="TfIdfVectorizer"):
+        toks.tf_idf()
+    assert toks.tf(num_features=8).type_name == "OPVector"
+    with pytest.raises(NotImplementedError, match="MapVectorizer"):
+        PFB.TextMap("m").as_predictor().smart_vectorize()
+
+
+def test_module_level_transmogrify_and_combine():
+    PU.reset_uids()
+    a, b = PFB.Real("a").as_predictor(), PFB.PickList("b").as_predictor()
+    vec = PD.transmogrify([a, b])
+    both = PD.combine([a.vectorize(), b.pivot()])
+    rows = [{"a": 1.0, "b": "u"}, {"a": None, "b": "v"}] * 20
+    model = PWorkflow(device="cpu").set_reader(PList(rows)) \
+        .set_result_features(vec, both).train()
+    assert model._train_data.data(vec.name).shape[0] == 40
+    assert model._train_data.column(both.name).metadata.size == \
+        model._train_data.data(both.name).shape[1]
+
+
+def test_lambda_stage_helpers():
+    PU.reset_uids()
+    a, b = PFB.Real("a").as_predictor(), PFB.Real("b").as_predictor()
+    neg = unary_transformer("neg", lambda v: PT.Real(
+        None if v.value is None else -v.value), PT.Real, PT.Real)
+    both = binary_transformer("both", lambda u, v: PT.Binary(
+        u.value is not None and v.value is not None), PT.Real, PT.Real,
+        PT.Binary)
+    fa, fb = neg.set_input(a).get_output(), \
+        both.set_input(a, b).get_output()
+    assert isinstance(neg, LambdaTransformer) and neg.save_args()["lambda"]
+    rows = [{"a": 1.5, "b": None}, {"a": None, "b": 2.0}, {"a": 2.0, "b": 1}]
+    ds = PWorkflow(device="cpu").set_reader(PList(rows)) \
+        .set_result_features(fa, fb).train()._train_data
+    np.testing.assert_array_equal(ds.data(fa.name), [-1.5, np.nan, -2.0])
+    np.testing.assert_array_equal(ds.data(fb.name), [0.0, 0.0, 1.0])
+
+
+def test_jax_fitted_stages_carry_over(trained):
+    """The JAX-fitted workflow of every stage, carried into the port by
+    convert.workflow_model_from_jax (fitted means, std, percentile and
+    bucket splits, with their metadata), scores new records as the JAX
+    package does, at the tolerances above."""
+    from transmogrifai_tpu_torch import convert
+    (jm, jd), _ = trained
+    PU.reset_uids()
+    pd = _derived(PFB, PT)
+    carried = convert.workflow_model_from_jax(
+        [f for _, f in pd], [convert.stage_state(st) for st in jm.stages],
+        device="cpu")
+    new = records(150, seed=9)
+    a = jm.score(JList(new).generate_dataset(jm.raw_features()))
+    b = carried.score(PList(new).generate_dataset(carried.raw_features()))
+    for (name, jf), (_, pf) in zip(jd, pd):
+        x, y = a.column(jf.name), b.column(pf.name)
+        if x.data.dtype == object:
+            assert list(y.data) == list(x.data), name
+        elif name in EXACT or x.data.ndim == 2:
+            np.testing.assert_array_equal(y.data, x.data, err_msg=name)
+        elif name == "log10":
+            assert_f32_within_1ulp(x.data, y.data, name,
+                                   scale=np.float32(1) / np.float32(
+                                       np.log(10)))
+        else:
+            assert_f32_within_1ulp(x.data, y.data, name)
+        if x.data.ndim == 2:
+            assert y.metadata.to_json() == x.metadata.to_json()

@@ -131,8 +131,10 @@ def test_vocabulary_order_and_ties():
                                                            "female"]]
 
 
-@pytest.mark.parametrize("tname", ["Text", "TextArea", "Email", "URL",
-                                   "Phone", "Date", "DateTime", "TextList",
+# Text, TextArea and TextList transmogrify since the text slice
+# (tests/test_torch_text.py); these groups are still to be ported
+@pytest.mark.parametrize("tname", ["Base64", "DateList", "Email", "URL",
+                                   "Phone", "Date", "DateTime", "TextMap",
                                    "Geolocation", "RealMap", "PickListMap"])
 def test_unported_groups_raise(tname):
     f = getattr(PFB, tname)("x").as_predictor()

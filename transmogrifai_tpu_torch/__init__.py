@@ -12,7 +12,9 @@ fold-fused boosted-tree fit on four hand-written CUDA kernels
 (ops/tree_kernels.py, csrc/tree_kernels.cu); logistic regression and the
 linear SVC take the streamed route with per-lane retirement
 (ops/glm_sweep.py) on large data and the lane-batched solver (ops/glm.py)
-below it. Module names mirror the JAX package.
+below it. Module names mirror the JAX package. Importing the package
+installs the feature dsl (dsl.py): `fare + age`, `age.z_normalize()`,
+`sex.pivot()`, `name.tokenize()` and the rest of the JAX package's names.
 
 The package imports torch and numpy only, never jax or transmogrifai_tpu.
 Entry points run on the GPU unless the caller asks for the CPU
@@ -38,3 +40,5 @@ without CUDA they raise instead of running on the CPU.
         .set_result_features(pred).train()
     scores = model.score()
 """
+
+from . import dsl  # noqa: E402,F401 — installs the rich feature syntax

@@ -4,10 +4,11 @@ automl/transmogrifier.py).
 Reference: core/.../impl/feature/Transmogrifier.scala:92 — groups features
 by static type and applies each group's default vectorizer, then combines
 the group vectors. Defaults mirror TransmogrifierDefaults
-(Transmogrifier.scala:52-90). This slice ports the numeric groups (Real,
+(Transmogrifier.scala:52-90). The port has the numeric groups (Real,
 Integral, Binary, RealNN), the categorical pivots (PickList-like text and
-MultiPickList) and OPVector combining; every other group (free text,
-structured text, dates, lists, geolocation, maps) raises
+MultiPickList), free text (Text, TextArea: SmartTextVectorizer), TextList
+hashing and OPVector combining; every other group (the structured text
+types Email, Phone, URL and Base64, dates, geolocation, maps) raises
 NotImplementedError naming the feature type.
 """
 from __future__ import annotations
@@ -32,8 +33,10 @@ from .vectorizers.numeric import (
 @dataclass
 class TransmogrifierDefaults:
     """Reference Transmogrifier.scala:52-90: the defaults the ported groups
-    read (the text, date and map groups' defaults come with them)."""
+    read (the date and map groups' defaults come with them)."""
 
+    default_num_of_features: int = 512
+    max_categorical_cardinality: int = 30
     top_k: int = 20
     min_support: int = 10
     fill_value: float = 0.0
@@ -149,11 +152,21 @@ def _vectorizer_for(key: str, d: TransmogrifierDefaults,
                                 min_support=d.min_support,
                                 clean_text=d.clean_text,
                                 track_nulls=d.track_nulls)
+    if key == "text":
+        from .vectorizers.text import SmartTextVectorizer
+        return SmartTextVectorizer(
+            max_cardinality=d.max_categorical_cardinality,
+            num_features=d.default_num_of_features, top_k=d.top_k,
+            min_support=d.min_support, track_nulls=d.track_nulls)
+    if key == "textlist":
+        from .vectorizers.text import TextListHashingVectorizer
+        return TextListHashingVectorizer(
+            num_features=d.default_num_of_features)
     if key == "vector":
         return VectorsCombiner()
     named = ", ".join(f"{f.name} ({f.type_name})" for f in feats) or key
     raise NotImplementedError(
         f"the default vectorizer of the '{key}' group is not ported yet: "
-        f"cannot transmogrify {named}; this slice vectorizes Real, "
-        "Integral, Binary, RealNN, PickList-like text, MultiPickList and "
-        "OPVector features")
+        f"cannot transmogrify {named}; the port vectorizes Real, "
+        "Integral, Binary, RealNN, PickList-like text, MultiPickList, "
+        "Text, TextArea, TextList and OPVector features")

@@ -2,8 +2,8 @@
 automl/vectorizers/numeric.py; host numpy, as there).
 
 Reference: core/.../impl/feature/{RealVectorizer, IntegralVectorizer,
-BinaryVectorizer}.scala. The bucketizers (NumericBucketizer,
-DecisionTreeNumericBucketizer) are not ported yet.
+BinaryVectorizer, NumericBucketizer}.scala. The label-driven
+DecisionTreeNumericBucketizer lives in transformers/misc.py.
 
 Layout matches the reference: for each input feature, its (imputed) value
 column, then — when track_nulls — its null-indicator column.
@@ -163,4 +163,101 @@ class RealNNVectorizer(SequenceVectorizer):
                                         parent_feature_type=f.type_name)
                    for f in self.input_features]
         model.set_metadata(VectorMetadata(name=self.output_name(), columns=md_cols))
+        return model
+
+
+class NumericBucketizerModel(VectorizerModel):
+    """Fixed-split bucketing -> one-hot bucket indicators (+ null column).
+
+    Reference NumericBucketizer.scala:303: splits are [-inf, s1), [s1, s2)...
+    """
+
+    input_types = (OPNumeric,)  # mirrors NumericBucketizer's numeric family
+
+    def __init__(self, splits: Sequence[Sequence[float]],
+                 track_nulls: bool = True, track_invalid: bool = False,
+                 operation_name: str = "bucketize",
+                 uid: Optional[str] = None):
+        super().__init__(operation_name, uid=uid)
+        self.splits = [np.asarray(s, dtype=np.float64) for s in splits]
+        self.track_nulls = track_nulls
+        self.track_invalid = track_invalid
+
+    def transform_block(self, cols: Sequence[Column]) -> np.ndarray:
+        X = numeric_block(cols)
+        blocks = []
+        for j, s in enumerate(self.splits):
+            x = X[:, j]
+            nbuckets = len(s) - 1
+            idx = np.clip(np.searchsorted(s, x, side="right") - 1, 0,
+                          nbuckets - 1)
+            onehot = np.zeros((x.shape[0], nbuckets), dtype=np.float64)
+            valid = np.isfinite(x)
+            onehot[np.arange(x.shape[0])[valid], idx[valid]] = 1.0
+            blocks.append(onehot)
+            if self.track_nulls:
+                blocks.append((~valid).astype(np.float64)[:, None])
+        return np.concatenate(blocks, axis=1)
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        d.update(splits=[s.tolist() for s in self.splits],
+                 track_nulls=self.track_nulls,
+                 track_invalid=self.track_invalid)
+        return d
+
+
+class NumericBucketizer(SequenceVectorizer):
+    """Quantile or fixed-split bucketizer (reference NumericBucketizer)."""
+
+    input_types = (Real,)
+
+    @classmethod
+    def _declare_params(cls):
+        return [
+            Param("splits", "explicit split points per feature "
+                  "(list of lists)", None),
+            Param("num_buckets", "quantile bucket count when splits not "
+                  "given", 4),
+            Param("track_nulls", "append null-indicator columns", True),
+        ]
+
+    def __init__(self, operation_name: str = "bucketize",
+                 uid: Optional[str] = None, **params):
+        super().__init__(operation_name, uid=uid, **params)
+
+    def fit_columns(self, *cols: Column) -> NumericBucketizerModel:
+        X = numeric_block(cols)
+        given = self.get_param("splits")
+        nb = int(self.get_param("num_buckets"))
+        track = self.get_param("track_nulls")
+        splits: List[np.ndarray] = []
+        for j in range(X.shape[1]):
+            if given is not None:
+                s = np.asarray(given[j], dtype=np.float64)
+            else:
+                col = X[:, j][np.isfinite(X[:, j])]
+                if col.size == 0:
+                    s = np.array([-np.inf, np.inf])
+                else:
+                    qs = np.quantile(col, np.linspace(0, 1, nb + 1)[1:-1])
+                    s = np.concatenate([[-np.inf], np.unique(qs), [np.inf]])
+            splits.append(s)
+        model = NumericBucketizerModel(
+            splits=splits, track_nulls=track,
+            operation_name=self.operation_name)
+        md_cols: List[VectorColumnMetadata] = []
+        for f, s in zip(self.input_features, splits):
+            for b in range(len(s) - 1):
+                md_cols.append(VectorColumnMetadata(
+                    parent_feature_name=f.name,
+                    parent_feature_type=f.type_name,
+                    grouping=f.name, indicator_value=f"bucket_{b}"))
+            if track:
+                md_cols.append(VectorColumnMetadata(
+                    parent_feature_name=f.name,
+                    parent_feature_type=f.type_name,
+                    grouping=f.name, indicator_value=NULL_STRING))
+        model.set_metadata(VectorMetadata(name=self.output_name(),
+                                          columns=md_cols))
         return model

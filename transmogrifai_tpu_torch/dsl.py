@@ -1,0 +1,426 @@
+"""Rich feature syntax: the reference's dsl implicits as Feature methods
+(counterpart of dsl.py).
+
+Reference: core/.../dsl/ (`Rich{Numeric,Text,Date,List,Map,Vector}Feature`
+add `feature.tokenize()`, `f1 + f2`, `.pivot()`, `.sanityCheck()`,
+`.transmogrify()` to features by implicit conversion). The methods are
+installed on Feature when this module is imported (the package __init__
+imports it), so ``fare + age``, ``age.fill_missing_with_mean()`` and
+``features.transmogrify()`` read as in the Scala dsl.
+
+Every name of the JAX package's dsl is installed. A method whose stage the
+port has not ported yet raises NotImplementedError naming that stage and
+its module in the JAX package (`UNPORTED`).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Sequence, Tuple
+
+from .features.feature import Feature
+from .types import Binary, OPMap, Prediction, RealNN, OPVector
+
+# -- arithmetic (RichNumericFeature) ----------------------------------------
+
+
+def _binary_op(self: Feature, other: Any, cls_scalar, cls_feature):
+    if isinstance(other, Feature):
+        return cls_feature().set_input(self, other).get_output()
+    return cls_scalar(scalar=float(other)).set_input(self).get_output()
+
+
+def _add(self, other):
+    from .transformers.math import AddTransformer, ScalarAddTransformer
+    return _binary_op(self, other, ScalarAddTransformer, AddTransformer)
+
+
+def _sub(self, other):
+    from .transformers.math import (ScalarSubtractTransformer,
+                                    SubtractTransformer)
+    return _binary_op(self, other, ScalarSubtractTransformer,
+                      SubtractTransformer)
+
+
+def _mul(self, other):
+    from .transformers.math import (MultiplyTransformer,
+                                    ScalarMultiplyTransformer)
+    return _binary_op(self, other, ScalarMultiplyTransformer,
+                      MultiplyTransformer)
+
+
+def _div(self, other):
+    from .transformers.math import DivideTransformer, ScalarDivideTransformer
+    return _binary_op(self, other, ScalarDivideTransformer, DivideTransformer)
+
+
+def _unary(self: Feature, cls, **kw):
+    return cls(**kw).set_input(self).get_output()
+
+
+def _abs(self):
+    from .transformers.math import AbsTransformer
+    return _unary(self, AbsTransformer)
+
+
+def _log(self, base: float = 2.718281828459045):
+    from .transformers.math import LogTransformer
+    return _unary(self, LogTransformer, base=base)
+
+
+def _exp(self):
+    from .transformers.math import ExpTransformer
+    return _unary(self, ExpTransformer)
+
+
+def _sqrt(self):
+    from .transformers.math import SqrtTransformer
+    return _unary(self, SqrtTransformer)
+
+
+def _round(self):
+    from .transformers.math import RoundTransformer
+    return _unary(self, RoundTransformer)
+
+
+def _ceil(self):
+    from .transformers.math import CeilTransformer
+    return _unary(self, CeilTransformer)
+
+
+def _floor(self):
+    from .transformers.math import FloorTransformer
+    return _unary(self, FloorTransformer)
+
+
+def _power(self, p: float):
+    from .transformers.math import PowerTransformer
+    return _unary(self, PowerTransformer, exponent=p)
+
+
+def _z_normalize(self):
+    """Z-score scaling fit on the data (RichNumericFeature.zNormalize)."""
+    from .transformers.math import ZNormalizeEstimator
+    return ZNormalizeEstimator().set_input(self).get_output()
+
+
+# -- misc (RichFeature) ------------------------------------------------------
+
+def _alias(self, name: str):
+    from .transformers.misc import AliasTransformer
+    return _unary(self, AliasTransformer, name=name)
+
+
+def _to_occur(self):
+    from .transformers.misc import ToOccurTransformer
+    return _unary(self, ToOccurTransformer)
+
+
+def _fill_missing_with_mean(self):
+    from .transformers.misc import FillMissingWithMean
+    return _unary(self, FillMissingWithMean)
+
+
+def _scale(self, scaling_type: str = "linear", slope: float = 1.0,
+           intercept: float = 0.0):
+    from .transformers.misc import ScalerTransformer
+    return _unary(self, ScalerTransformer, scaling_type=scaling_type,
+                  slope=slope, intercept=intercept)
+
+
+def _autobucketize(self, label: Feature, max_splits: int = 15,
+                   min_info_gain: float = 0.01):
+    from .transformers.misc import DecisionTreeNumericBucketizer
+    stage = DecisionTreeNumericBucketizer(max_splits=max_splits,
+                                          min_info_gain=min_info_gain)
+    return stage.set_input(label, self).get_output()
+
+
+def _calibrate_percentile(self, buckets: int = 100):
+    from .transformers.misc import PercentileCalibrator
+    return _unary(self, PercentileCalibrator, buckets=buckets)
+
+
+def _bucketize(self, splits=None, num_buckets: int = 4,
+               track_nulls: bool = True):
+    """Fixed-split or quantile buckets (RichNumericFeature.bucketize)."""
+    from .automl.vectorizers.numeric import NumericBucketizer
+    given = None if splits is None else [list(splits)]
+    return NumericBucketizer(splits=given, num_buckets=num_buckets,
+                             track_nulls=track_nulls) \
+        .set_input(self).get_output()
+
+
+def _replace_with(self, old_value, new_value):
+    """Swap one raw value for another (RichFeature.replaceWith:75)."""
+    from .transformers.misc import ReplaceWithTransformer
+    return ReplaceWithTransformer(old_value=old_value, new_value=new_value) \
+        .set_input(self).get_output()
+
+
+def _drop_indices_by(self, predicate):
+    """Drop vector columns whose metadata matches `predicate`
+    (RichVectorFeature.dropIndicesBy)."""
+    from .transformers.misc import DropIndicesByTransformer
+    return DropIndicesByTransformer(predicate=predicate) \
+        .set_input(self).get_output()
+
+
+def _descale(self, scaled_source: Feature, scaler=None):
+    """Invert a ScalerTransformer's scaling (RichNumericFeature.descale); a
+    Prediction input descales its prediction value
+    (RichPredictionFeature.descale:1113)."""
+    from .transformers.misc import DescalerTransformer
+    target = self
+    if issubclass(self.feature_type, Prediction):
+        target = _map_feature(self, lambda p: p.prediction, RealNN,
+                              operation_name="predictionValue")
+    return DescalerTransformer(scaler=scaler) \
+        .set_input(target, scaled_source).get_output()
+
+
+# -- lambda stages (RichFeature.map / exists / filter / collect) -------------
+# A lambda stage runs its python function row by row on the host.
+
+def _map_values(self, fn, output_type=None, operation_name: str = "map"):
+    """Apply a python function per raw value (RichFeature.map:61)."""
+    from .stages.base import LambdaTransformer
+    out_t = output_type or self.feature_type
+    return LambdaTransformer(
+        operation_name,
+        lambda v, _f=fn, _t=out_t: _t(_f(v.value)),
+        (self.feature_type,), out_t).set_input(self).get_output()
+
+
+def _map_feature(self, fn, output_type, operation_name: str = "map"):
+    """Arbitrary row-level transform (RichFeature.map): `fn` takes and
+    returns FeatureType instances."""
+    from .stages.base import LambdaTransformer
+    stage = LambdaTransformer(operation_name, fn,
+                              input_types=(self.feature_type,),
+                              output_type=output_type)
+    return stage.set_input(self).get_output()
+
+
+def _exists(self, pred, operation_name: str = "exists"):
+    """Binary: the predicate holds for the raw value (RichFeature.exists:176)."""
+    from .stages.base import LambdaTransformer
+    return LambdaTransformer(
+        operation_name,
+        lambda v, _p=pred: Binary(None if v.value is None else
+                                  bool(_p(v.value))),
+        (self.feature_type,), Binary).set_input(self).get_output()
+
+
+def _filter_values(self, pred, default, operation_name: str = "filter"):
+    """Keep values passing the predicate, else the default
+    (RichFeature.filter:134)."""
+    from .stages.base import LambdaTransformer
+    t = self.feature_type
+    return LambdaTransformer(
+        operation_name,
+        lambda v, _p=pred, _d=default, _t=t: (
+            v if (v.value is not None and _p(v.value)) else _t(_d)),
+        (t,), t).set_input(self).get_output()
+
+
+def _filter_not(self, pred, default, operation_name: str = "filterNot"):
+    """Complement of filter_values (RichFeature.filterNot:148)."""
+    return _filter_values(self, lambda v, _p=pred: not _p(v), default,
+                          operation_name=operation_name)
+
+
+def _collect(self, fn, default, output_type=None,
+             operation_name: str = "collect"):
+    """Partial map: `fn` returns None where undefined, replaced by
+    `default` (RichFeature.collect:160)."""
+    from .stages.base import LambdaTransformer
+    out_t = output_type or self.feature_type
+
+    def apply(v, _f=fn, _t=out_t, _d=default):
+        r = None if v.value is None else _f(v.value)
+        return _t(_d if r is None else r)
+
+    return LambdaTransformer(operation_name, apply, (self.feature_type,),
+                             out_t).set_input(self).get_output()
+
+
+def _tupled(self):
+    """Prediction -> (prediction RealNN, rawPrediction OPVector,
+    probability OPVector) (RichPredictionFeature.tupled:1098)."""
+    pred = _map_feature(self, lambda p: p.prediction, RealNN,
+                        operation_name="predictionValue")
+    raw = _map_feature(self, lambda p: p.raw_prediction, OPVector,
+                       operation_name="rawPrediction")
+    prob = _map_feature(self, lambda p: p.probability, OPVector,
+                        operation_name="probability")
+    return pred, raw, prob
+
+
+# -- text (RichTextFeature, RichListFeature) ---------------------------------
+
+def _tokenize(self, min_token_length: int = 1, to_lowercase: bool = True,
+              filter_stopwords: bool = False):
+    from .transformers.text import TextTokenizer
+    return _unary(self, TextTokenizer, min_token_length=min_token_length,
+                  to_lowercase=to_lowercase,
+                  filter_stopwords=filter_stopwords)
+
+
+def _tf(self, num_features: int = 512):
+    """Hashed term frequencies (RichListFeature.tf via HashingTF)."""
+    from .automl.vectorizers.text import TextListHashingVectorizer
+    return TextListHashingVectorizer(num_features=num_features) \
+        .set_input(self).get_output()
+
+
+def _smart_vectorize(self, *others, **kwargs):
+    """Cardinality-adaptive text vectorization (RichTextFeature
+    .smartVectorize:223 -> SmartTextVectorizer)."""
+    if issubclass(self.feature_type, OPMap):
+        _raise_unported("smart_vectorize (map input)", "MapVectorizer",
+                        "automl/vectorizers/maps.py")
+    from .automl.vectorizers.text import SmartTextVectorizer
+    return SmartTextVectorizer(**kwargs).set_input(self, *others) \
+        .get_output()
+
+
+# -- vectors, selection (RichVectorFeature, RichFeaturesCollection) ----------
+
+def _combine_with(self, *others):
+    """Concatenate OPVector features (RichVectorFeature combine)."""
+    from .automl.vectorizers.combiner import VectorsCombiner
+    return VectorsCombiner().set_input(self, *others).get_output()
+
+
+def _vectorize(self, **kwargs):
+    from .automl.transmogrifier import transmogrify as tm
+    return tm([self], **kwargs)
+
+
+def _pivot(self, top_k: int = 20):
+    from .automl.vectorizers.categorical import OneHotVectorizer
+    return OneHotVectorizer(top_k=top_k).set_input(self).get_output()
+
+
+def _sanity_check(self, label: Feature, **kwargs):
+    from .automl.preparators import SanityChecker
+    return SanityChecker(**kwargs).set_input(label, self).get_output()
+
+
+def _random_forest_vec(self, label: Feature, **params):
+    """Fit a random-forest classifier on (label, vector) and emit the
+    Prediction feature (RichVectorFeature.randomForest:77)."""
+    from .models.trees import OpRandomForestClassifier
+    return OpRandomForestClassifier(**params) \
+        .set_input(label, self).get_output()
+
+
+# -- not ported yet ----------------------------------------------------------
+
+#: dsl name -> (the JAX package's stage, its module there)
+UNPORTED: Dict[str, Tuple[str, str]] = {
+    "text_len": ("TextLenTransformer", "transformers/text.py"),
+    "detect_languages": ("LangDetector", "transformers/text.py"),
+    "detect_mime_types": ("MimeTypeDetector", "transformers/text.py"),
+    "is_valid_phone": ("PhoneNumberParser", "transformers/text.py"),
+    "email_domain": ("EmailToPickList", "transformers/text.py"),
+    "index_string": ("OpStringIndexer", "transformers/text.py"),
+    "count_vectorize": ("OpCountVectorizer", "transformers/text.py"),
+    "tf_idf": ("TfIdfVectorizer", "transformers/text.py"),
+    "lda": ("OpLDA", "transformers/topics.py"),
+    "word2vec": ("OpWord2Vec", "transformers/topics.py"),
+    "recognize_entities": ("NameEntityRecognizer", "transformers/ner.py"),
+    "ngram_similarity": ("NGramSimilarity", "transformers/text.py"),
+    "jaccard_similarity": ("JaccardSimilarity", "transformers/text.py"),
+    "loco_insights": ("RecordInsightsLOCO", "insights/"),
+    "to_unit_circle": ("DateToUnitCircleTransformer",
+                       "transformers/misc.py"),
+    "to_unit_circle_map": ("DateMapUnitCircleVectorizer",
+                           "automl/vectorizers/maps.py"),
+    "to_date_list": ("DateToListTransformer", "transformers/misc.py"),
+    "to_date_time_list": ("DateToListTransformer", "transformers/misc.py"),
+    "vectorize_dates": ("DateVectorizer", "automl/vectorizers/dates.py"),
+    "filter_keys": ("FilterMapKeys", "transformers/misc.py"),
+    "vectorize_map": ("map_vectorizer_for", "automl/vectorizers/maps.py"),
+    "autobucketize_map": ("DecisionTreeNumericMapBucketizer",
+                          "transformers/misc.py"),
+    "vectorize_geo": ("GeolocationVectorizer", "automl/vectorizers/geo.py"),
+    "to_multi_pick_list": ("TextToMultiPickList", "transformers/text.py"),
+    "is_valid_email": ("ValidEmailTransformer", "transformers/text.py"),
+    "email_prefix": ("EmailPrefixTransformer", "transformers/text.py"),
+    "url_domain": ("UrlPartsTransformer", "transformers/text.py"),
+    "url_protocol": ("UrlPartsTransformer", "transformers/text.py"),
+    "is_valid_url": ("ValidUrlTransformer", "transformers/text.py"),
+    "to_isotonic_calibrated": ("IsotonicRegressionCalibrator",
+                               "models/mlp.py"),
+    "is_substring": ("SubstringTransformer", "transformers/text.py"),
+    "tokenize_regex": ("RegexTokenizer", "transformers/text.py"),
+    "remove_stop_words": ("StopWordsRemover", "transformers/text.py"),
+    "ngram": ("NGramTransformer", "transformers/text.py"),
+    "is_valid_phone_map": ("PhoneValidityMap", "transformers/misc.py"),
+    "detect_mime_types_map": ("MimeTypeMap", "transformers/misc.py"),
+    "parse_phone": ("PhoneParser", "transformers/text.py"),
+    "deindexed": ("OpIndexToString", "transformers/text.py"),
+    "idf": ("OpIDF", "transformers/text.py"),
+}
+
+
+def _raise_unported(name: str, stage: str, module: str):
+    raise NotImplementedError(
+        f"Feature.{name}: its stage {stage} (transmogrifai_tpu/{module}) "
+        "is not ported to transmogrifai_tpu_torch yet")
+
+
+def _unported(name: str) -> Callable:
+    stage, module = UNPORTED[name]
+
+    def method(self, *args, **kwargs):
+        _raise_unported(name, stage, module)
+    method.__name__ = name
+    method.__doc__ = f"Not ported yet: the JAX package's {stage} " \
+        f"(transmogrifai_tpu/{module})."
+    return method
+
+
+def install() -> None:
+    """Install the dsl methods on Feature (idempotent)."""
+    ops = {
+        "__add__": _add, "__radd__": _add, "__sub__": _sub,
+        "__mul__": _mul, "__rmul__": _mul, "__truediv__": _div,
+        "abs": _abs, "log": _log, "exp": _exp, "sqrt": _sqrt,
+        "round": _round, "ceil": _ceil, "floor": _floor, "power": _power,
+        "alias": _alias, "to_occur": _to_occur,
+        "fill_missing_with_mean": _fill_missing_with_mean, "scale": _scale,
+        "autobucketize": _autobucketize,
+        "calibrate_percentile": _calibrate_percentile,
+        "tokenize": _tokenize,
+        "vectorize": _vectorize, "pivot": _pivot,
+        "sanity_check": _sanity_check, "tupled": _tupled,
+        "combine_with": _combine_with, "descale": _descale,
+        "map_values": _map_values, "replace_with": _replace_with,
+        "exists": _exists, "filter_values": _filter_values,
+        "bucketize": _bucketize, "z_normalize": _z_normalize,
+        "tf": _tf, "drop_indices_by": _drop_indices_by,
+        "map": _map_feature, "filter_not": _filter_not,
+        "collect": _collect, "random_forest": _random_forest_vec,
+        "smart_vectorize": _smart_vectorize,
+        "auto_transform": _vectorize,  # RichFeaturesCollection alias
+    }
+    ops.update({name: _unported(name) for name in UNPORTED})
+    for name, fn in ops.items():
+        setattr(Feature, name, fn)
+
+
+def transmogrify(features: Sequence[Feature], **kwargs):
+    """Module-level shortcut mirroring RichFeaturesCollection.transmogrify."""
+    from .automl.transmogrifier import transmogrify as tm
+    return tm(list(features), **kwargs)
+
+
+def combine(features: Sequence[Feature]):
+    """Concatenate OPVector features into one (RichFeaturesCollection
+    .combine:76 -> VectorsCombiner)."""
+    from .automl.vectorizers.combiner import VectorsCombiner
+    return VectorsCombiner().set_input(*list(features)).get_output()
+
+
+install()

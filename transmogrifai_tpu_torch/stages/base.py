@@ -312,6 +312,48 @@ class Estimator(PipelineStage):
         return model
 
 
+# -- lambda-style concrete bases ------------------------------------------
+# (reference stages/base/{unary,binary,ternary,quaternary}/: the arity is
+# len(input_types); these keep user code as terse as the Scala lambda
+# bases)
+
+class LambdaTransformer(Transformer):
+    """Transformer from a row-level python function."""
+
+    def __init__(self, operation_name: str,
+                 transform_fn: Callable[..., FeatureType],
+                 input_types: Sequence[Optional[Type[FeatureType]]],
+                 output_type: Type[FeatureType],
+                 uid: Optional[str] = None, **params: Any):
+        self.input_types = tuple(input_types)
+        self.output_type = output_type
+        self._fn = transform_fn
+        super().__init__(operation_name, uid=uid, **params)
+
+    def transform_value(self, *vals: FeatureType) -> FeatureType:
+        out = self._fn(*vals)
+        if not isinstance(out, FeatureType):
+            out = self.output_type(out)
+        return out
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        d["lambda"] = True  # the function itself does not travel
+        return d
+
+
+def unary_transformer(operation_name: str, fn: Callable, in_type, out_type,
+                      **params) -> LambdaTransformer:
+    return LambdaTransformer(operation_name, fn, (in_type,), out_type,
+                             **params)
+
+
+def binary_transformer(operation_name: str, fn: Callable, in1, in2,
+                       out_type, **params) -> LambdaTransformer:
+    return LambdaTransformer(operation_name, fn, (in1, in2), out_type,
+                             **params)
+
+
 class TorchTransformer(Transformer):
     """Transformer defined purely by tensor math (counterpart of
     JaxTransformer). Pass the batched tensors->tensor fn to the ctor (or

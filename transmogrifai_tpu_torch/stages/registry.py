@@ -21,6 +21,10 @@ _STAGE_MODULES = [
     "transmogrifai_tpu_torch.automl.vectorizers.numeric",
     "transmogrifai_tpu_torch.automl.vectorizers.categorical",
     "transmogrifai_tpu_torch.automl.vectorizers.combiner",
+    "transmogrifai_tpu_torch.automl.vectorizers.text",
+    "transmogrifai_tpu_torch.transformers.math",
+    "transmogrifai_tpu_torch.transformers.misc",
+    "transmogrifai_tpu_torch.transformers.text",
     "transmogrifai_tpu_torch.automl.preparators",
     "transmogrifai_tpu_torch.automl.selector",
     "transmogrifai_tpu_torch.models.glm",
