@@ -84,7 +84,8 @@ Phases, each of which fails the run on error:
              (examples/op_titanic_simple.py: a Text name hashed into 512
              bins, DSL arithmetic, pivot, fill + z-normalize, a lambda
              map) on `titanic_named_records`: CPU against card at 20 000
-             records (LR's default grid, RF 10 trees at depth {3, 5}: the
+             records (LR's 2 least regularised default grid points, RF
+             10 trees at depth {3, 5}: the
              matrix and metadata identical, the same drops and winner,
              scores within 1e-5 a row or a tie witness; where the CPU's
              train() goes), then 100 000 records through
@@ -94,7 +95,26 @@ Phases, each of which fails the run on error:
              against the prevalence; every kernel at each (kernel, F, S,
              C, Fo) key of train() (F ~ 590) against its plain version
              (rows of the kernels line, phase "titanic");
-13. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
+13. workflow-wide — bench.py's wide schema (PickLists of 50 and 12
+             categories, a Text, two Reals, a Date, a RealMap) with one
+             feature of each date, map, geolocation and structured text
+             group (Email, URL, Phone, Base64, Geolocation, DateList,
+             PickListMap, a DateMap through to_unit_circle_map;
+             `wide_columns`): at 20 000 rows with a cut grid twice on the
+             card (C1: the largest |dp| between the runs, identical
+             matrices, the same winner, the largest CV-cell difference, a
+             tie witness where the refits split apart) and on the CPU
+             (as in workflow-titanic), then at 1 000 000 rows on the card
+             through transmogrify, SanityChecker() and a 3-fold sweep of
+             LR's default grid, RF of 10 trees at depth {3, 6} and GBT of
+             10 rounds at depth 4: each group's width, each stage's and
+             derivation's walls, train and score walls, each family's
+             sweep, peak memory, winner and holdout AuPR against the
+             prevalence, and every kernel at each (kernel, F, S, C, Fo)
+             key of train() (F = 650) against its plain version (rows of
+             the kernels line, phase "wide"), while the CPU's leg trains
+             in a thread;
+14. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
              5 folds, the selector's default model types and grids: LR,
              RF, GBT and SVC, max_depth up to 12): the wall of each stage
              and of each family's sweep, each host-to-device copy, peak
@@ -114,9 +134,9 @@ Float32 products stay in full f32: the run fails unless TF32 is off
 
 The last three lines of standard output are {"kernels": [...]} (each
 row's `launches` at its (kernel, F, S) key in the phase it names, a
-workflow or titanic row's at its (kernel, F, S, C, Fo) key inside its
-phase's train(), and, but for titanic rows, `workflow_launches` at that
-key inside workflow-main's train()), the
+workflow, titanic or wide row's at its (kernel, F, S, C, Fo) key inside
+its phase's train(), and, for the tree, GLM and workflow rows,
+`workflow_launches` at that key inside workflow-main's train()), the
 card's name and power limit, and
 {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is unavailable or the package is
@@ -151,6 +171,9 @@ REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
 }
 GLM_EVAL_LANES = 8            # the streamed eval's grid chunk
 TITANIC_ROWS = 100_000        # workflow-titanic's main path (PERF.md §4)
+WIDE_ROWS = 1_000_000         # bench.py's wide_rows: workflow-wide's main path
+WIDE_LEG_ROWS = 20_000        # workflow-wide's CPU-against-card leg
+WIDE_SCORE_ROWS = 100_000     # new rows workflow-wide scores
 XGB_GRID = [dict(num_round=10, max_depth=d, eta=e, reg_lambda=lam,
                  max_bins=32)
             for d in (4, 6) for e in (0.05, 0.1, 0.2, 0.3) for lam in (1.0, 5.0)]
@@ -229,14 +252,18 @@ def kernel_phase(seed: int):
     return out + glm_rows
 
 
-def kernel_rows(shapes: list, phase: str = "tree") -> list:
+def kernel_rows(shapes: list, phase: str = "tree",
+                before_timing=None) -> list:
     """One result row per (label, kernel, S, args, kwargs) of `shapes`: the
     kernel against its plain version on those inputs, timed in turns
     against its rows path (where the planner takes another), with its
     bound, plain and library times. Every
     count of the work (bytes, adds, data-dependent nonzeros) is taken from
     the inputs themselves. `phase` names the main-path phase whose launch
-    counts the row reads."""
+    counts the row reads. Every shape is checked first (its library call
+    bound to that shape's own sizes), then
+    `before_timing()` (where given) is called, then every shape is timed:
+    what runs beside the checks has ended before the first timing."""
     import torch
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
     from transmogrifai_tpu_torch.tools import hist_paths as HP
@@ -246,7 +273,7 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
     def nz(t):   # data-dependent work: nonzero payload entries
         return float((t != 0).sum())
 
-    rows_out = []
+    checked = []
     for label, name, S, args, kw in shapes:
         n_adds = moved = make_lib = None
         rank = name == "hist_folds" and not kw.get("derive_count")
@@ -271,15 +298,15 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
             n_bytes = TK.kernel_bytes("hist_folds", 1, args[0].shape[1], 1,
                                       xb_itemsize=4, out_cells=L * 2 * RB)
             n_ops = n_adds = nz(args[1])
-            make_lib = lambda a: _bincount_hist(a[0], a[1], 1, RB, 1, L,
-                                                slot=a[2])
+            make_lib = lambda a, RB=RB, L=L: _bincount_hist(
+                a[0], a[1], 1, RB, 1, L, slot=a[2])
         elif name == "hist_folds":
             n_bytes = TK.kernel_bytes("hist_folds", F, N, Fo, channels=C,
                                       out_cells=Fo * Co * F * B)
             n_ops = n_adds = F * (sum(nz(ch) for ch in chans)
                                   + nz(chans[-1]))
-            make_lib = lambda a: _bincount_hist(a[0], a[1], F, B, Fo, 1,
-                                                derive_count=True)
+            make_lib = lambda a, F=F, B=B, Fo=Fo: _bincount_hist(
+                a[0], a[1], F, B, Fo, 1, derive_count=True)
         elif name == "route":       # compares, select, multiply-add a lane
             F, N = args[0].shape
             Fo = args[1].shape[0]
@@ -301,6 +328,7 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
                              a[1].long().clamp(0, a[0].shape[1] - 1)),
                 0.0)
         dispatch = getattr(TK, name)
+        t_check = time.perf_counter()
         got = dispatch(*args, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -310,7 +338,6 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
         # call above
         slow_plain = time.perf_counter() - t0 > 0.2
         acc = HP.accuracy(name, got, want, args, kw)
-        err, ok = acc["max_abs_err"], acc["ok"]
         if name in ("route", "table_lookup"):
             tol = "exact"
         elif rank:                # 0/1 weights: integer sums are exact
@@ -324,6 +351,16 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
                    + ("; node ids exact" if name == "route_hist" else ""))
         del got, want
         torch.cuda.empty_cache()
+        checked.append((label, name, S, args, kw, n_adds, moved, make_lib,
+                        n_bytes, n_ops, dispatch, slow_plain, acc, tol,
+                        time.perf_counter() - t_check))
+    if before_timing is not None:
+        before_timing()
+    rows_out = []
+    for (label, name, S, args, kw, n_adds, moved, make_lib, n_bytes, n_ops,
+         dispatch, slow_plain, acc, tol, check_s) in checked:
+        err, ok = acc["max_abs_err"], acc["ok"]
+        t_timing = time.perf_counter()
         path = HP.planner(name, S, args, kw, n_sm)[0]().path
         turns = {}
         # where the planner takes the rows path itself, the two are one
@@ -339,7 +376,12 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
                               warm=0 if slow_plain else 1)
         library_ms = None
         if make_lib is not None:
-            library_ms = HP.cuda_ms(make_lib(args), reps=5)
+            # a library call slower than 0.2 s is timed once, by its first
+            # call; a faster one 5 times after that first call
+            lib = make_lib(args)
+            library_ms = HP.cuda_ms(lib, reps=1, warm=0)
+            if library_ms <= 200:
+                library_ms = HP.cuda_ms(lib, reps=5, warm=0)
         # the streaming floor of route and table_lookup on this card: a
         # device-to-device copy of the lane plane they read and write
         copy_ms = (HP.cuda_ms(args[1].clone, reps=7)
@@ -357,14 +399,16 @@ def kernel_rows(shapes: list, phase: str = "tree") -> list:
                    library_ms=library_ms, path=path, earlier_ms=earlier_ms,
                    smem_floor_ms=n_adds and smem_floor_ms(n_adds),
                    copy_ms=copy_ms, moved_bytes=moved,
+                   check_s=check_s, timing_s=time.perf_counter() - t_timing,
                    key=capture_key(key, name, args, kw)
-                   if phase in ("workflow", "titanic") else key)
+                   if phase in ("workflow", "titanic", "wide") else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
             f"ms={ms:.4f} earlier_ms={earlier_ms} ({path} vs rows) "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"smem_floor_ms={row['smem_floor_ms']} copy_ms={copy_ms} "
-            f"library_ms={library_ms}")
+            f"library_ms={library_ms} check_s={check_s:.2f} "
+            f"timing_s={row['timing_s']:.2f}")
         rows_out.append(row)
         torch.cuda.empty_cache()
     return rows_out
@@ -913,6 +957,184 @@ def titanic_named_records(n: int, seed: int):
     return out
 
 
+WIDE_REFERENCE_MS = 1_501_000_000_000   # the date vectorizers' "now"
+_TLDS = ["com", "org", "net", "io", "co.uk", "de"]
+_MIME_HEADS = [b"\x89PNG\r\n\x1a\n", b"%PDF-1.7\n", b"GIF89a", b'{"id": ',
+               b"PK\x03\x04"]
+
+
+def _object_array(values) -> "object":
+    import numpy as np
+    out = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        out[i] = v
+    return out
+
+
+def wide_columns(n: int, seed: int) -> dict:
+    """bench.py's wide schema (`make_wide_rows`: PickLists plA of 50 and plB
+    of 12 categories, a Text txt of 5 words over 7 with n/100 distinct
+    texts, Reals r1 and r2 with 10% missing, a Date dt = 1.5e12 + [0, 1e9)
+    ms, a RealMap mp of keys k0 and k1) and one seeded feature of each
+    other group of the date, map, geolocation and structured text slice:
+    an Email (~20 000 local parts over ~200 domains, 5% invalid, 5%
+    empty), a URL (http, https and ftp over ~300 domains, 5% invalid), a
+    Phone (US, GB and DE numbers with and without +cc, ~10% invalid), a
+    Base64 (PNG, PDF, GIF, JSON and ZIP headers and random bytes, 20%
+    empty), a Geolocation (10% missing), a DateList of 0-5 dates, a
+    PickListMap of 3 keys and a DateMap of 2 keys; the RealNN label is a
+    seeded logistic of r1, dt's hour of day, mp's k0, the email domain's
+    group and the phone's validity. Returns {name: (feature type name,
+    numpy column: float64 with NaN, or objects)}."""
+    import base64
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    words = ["alpha", "beta", "gamma", "delta", "omega", "sigma", "tau"]
+    cats_a = np.array([f"cat{i}" for i in range(50)], dtype=object)
+    cats_b = np.array([f"seg{i}" for i in range(12)], dtype=object)
+    n_txt = max(n // 100, 1)
+    texts = np.array([" ".join(rng.choice(words, size=5))
+                      for _ in range(n_txt)], dtype=object)
+    r1 = rng.normal(size=n)
+    r2 = np.where(rng.uniform(size=n) < 0.1, np.nan, rng.normal(size=n))
+    dt = (1_500_000_000_000 + rng.integers(0, 10**9, size=n)) \
+        .astype(np.float64)
+    k0, k1 = rng.normal(size=n), rng.normal(size=n)
+
+    syl = _SYLLABLES
+    locals_ = np.array(sorted({
+        f"{syl[a]}{syl[b]}.{syl[c]}{d}" for a, b, c, d in zip(
+            *(rng.integers(0, 25, 30_000) for _ in range(3)),
+            rng.integers(0, 100, 30_000))})[:20_000], dtype=object)
+    domains = [f"{syl[a]}{syl[b]}{syl[c]}.{_TLDS[t]}" for a, b, c, t in zip(
+        *(rng.integers(0, 25, 200) for _ in range(3)),
+        rng.integers(0, len(_TLDS), 200))]
+    dom = rng.integers(0, 200, n)
+    dom_group = dom % 4          # the label's signal
+    em_u = rng.uniform(size=n).tolist()
+    em_local = locals_[rng.integers(0, len(locals_), n)].tolist()
+    email = [None if u < 0.05 else
+             f"{lo}-at-{domains[d]}" if u < 0.08 else
+             f"{lo}@" if u < 0.10 else f"{lo}@{domains[d]}"
+             for u, lo, d in zip(em_u, em_local, dom.tolist())]
+
+    url_domains = [f"www.{syl[a]}{syl[b]}.{_TLDS[t]}" for a, b, t in zip(
+        rng.integers(0, 25, 300), rng.integers(0, 25, 300),
+        rng.integers(0, len(_TLDS), 300))]
+    schemes = rng.choice(["http", "https", "ftp"], p=[0.3, 0.6, 0.1],
+                         size=n).tolist()
+    ud, up, uu = (rng.integers(0, 300, n).tolist(),
+                  rng.integers(0, 50, n).tolist(), rng.uniform(size=n))
+    url = [None if u < 0.05 else
+           f"{url_domains[d]}/page{p}" if u < 0.08 else
+           f"mailto:{url_domains[d]}" if u < 0.10 else
+           f"{s}://{url_domains[d]}/page{p}"
+           for u, s, d, p in zip(uu.tolist(), schemes, ud, up)]
+
+    kind = rng.choice(7, p=[0.3, 0.15, 0.15, 0.1, 0.1, 0.1, 0.1], size=n)
+    a3, b3, c4 = (rng.integers(200, 1000, n).tolist(),
+                  rng.integers(200, 1000, n).tolist(),
+                  rng.integers(0, 10_000, n).tolist())
+    g8 = rng.integers(10**7, 10**8, n).tolist()
+    d8 = rng.integers(10**6, 10**8, n).tolist()
+    phone_valid = kind < 6
+    phone_missing = rng.uniform(size=n) < 0.05
+    forms = [
+        "({a}) {b}-{c:04d}", "+1 {a} {b} {c:04d}", "{a}-{b}-{c:04d}",
+        "+44 20 {g1} {g2:04d}", "+49 30 {d:08d}", "+49 89 {d6:06d}",
+        "{b}-{c:04d}"]                                   # too short
+    phone = [None if m else forms[k].format(
+        a=a, b=b, c=c, g1=g // 10**4, g2=g % 10**4, d=d, d6=d % 10**6)
+        for m, k, a, b, c, g, d in zip(phone_missing.tolist(),
+                                       kind.tolist(), a3, b3, c4, g8, d8)]
+
+    pool = [base64.b64encode(_MIME_HEADS[h] + rng.bytes(24)).decode()
+            for h in rng.integers(0, len(_MIME_HEADS), 20_000)] + \
+        [base64.b64encode(rng.bytes(32)).decode() for _ in range(5_000)]
+    pick = rng.integers(0, len(pool), n).tolist()
+    bu = rng.uniform(size=n).tolist()
+    b64 = [None if u < 0.1 else "" if u < 0.2 else pool[k]
+           for u, k in zip(bu, pick)]
+
+    geo_missing = (rng.uniform(size=n) < 0.1).tolist()
+    geo = [None if m else [a, o, c] for m, a, o, c in zip(
+        geo_missing, rng.uniform(25, 60, n).tolist(),
+        rng.uniform(-125, 30, n).tolist(),
+        rng.integers(1, 10, n).astype(np.float64).tolist())]
+
+    lengths = rng.integers(0, 6, n)
+    flat = (1_400_000_000_000 + rng.integers(0, 2 * 10**11,
+                                             int(lengths.sum()))).tolist()
+    ends = np.cumsum(lengths).tolist()
+    visits = [flat[e - k:e] for e, k in zip(ends, lengths.tolist())]
+
+    colors = ["red", "green", "blue", "black", "white", "Grey"]
+    sizes = ["S", "M", "L", "XL"]
+    tiers = ["free", "pro", "enterprise"]
+    # every (color, size, tier) with each key present or not: one shared
+    # dict per combination
+    combos = [{k: v for k, v, p in (("color", c, pc), ("size", z, pz),
+                                    ("tier", t, pt)) if p}
+              for c in colors for z in sizes for t in tiers
+              for pc in (0, 1) for pz in (0, 1) for pt in (0, 1)]
+    weights = np.array([0.85 ** sum(p) * 0.15 ** (3 - sum(p)) for p in (
+        (pc, pz, pt) for _ in range(len(colors) * len(sizes) * len(tiers))
+        for pc in (0, 1) for pz in (0, 1) for pt in (0, 1))])
+    attrs = [combos[i] for i in rng.choice(len(combos), size=n,
+                                           p=weights / weights.sum())]
+    created = 1_450_000_000_000 + rng.integers(0, 5 * 10**10, n)
+    renewed = (created + rng.integers(0, 3 * 10**10, n)).tolist()
+    has_renewal = (rng.uniform(size=n) < 0.6).tolist()
+    events = [{"created": c, "renewed": r} if h else {"created": c}
+              for c, r, h in zip(created.tolist(), renewed, has_renewal)]
+
+    hour = (dt / 3_600_000.0) % 24.0
+    logit = (0.8 * r1 + 0.9 * np.cos(2 * np.pi * hour / 24.0) + 0.7 * k0
+             + 0.8 * (dom_group < 2) - 0.6 * ~phone_valid - 0.3)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+    mp = [{"k0": a, "k1": b} for a, b in zip(k0.tolist(), k1.tolist())]
+    return {
+        "label": ("RealNN", y),
+        "plA": ("PickList", cats_a[rng.integers(0, 50, n)]),
+        "plB": ("PickList", cats_b[rng.integers(0, 12, n)]),
+        "txt": ("Text", texts[rng.integers(0, n_txt, n)]),
+        "r1": ("Real", r1), "r2": ("Real", r2), "dt": ("Date", dt),
+        "mp": ("RealMap", _object_array(mp)),
+        "email": ("Email", _object_array(email)),
+        "url": ("URL", _object_array(url)),
+        "phone": ("Phone", _object_array(phone)),
+        "b64": ("Base64", _object_array(b64)),
+        "geo": ("Geolocation", _object_array(geo)),
+        "visits": ("DateList", _object_array(visits)),
+        "attrs": ("PickListMap", _object_array(attrs)),
+        "events": ("DateMap", _object_array(events))}
+
+
+def wide_dataset(cols: dict, Dataset, Column, types):
+    """A Dataset of `wide_columns`' columns for either package (its
+    Dataset, Column and types module)."""
+    return Dataset({name: Column(getattr(types, t).column_kind, arr)
+                    for name, (t, arr) in cols.items()})
+
+
+def wide_vector(FB, transmogrify, Defaults):
+    """(label, transmogrified vector) of the wide schema, built with either
+    package's FeatureBuilder, transmogrify and TransmogrifierDefaults: every
+    column a predictor, the DateMap through `to_unit_circle_map`, the date
+    vectorizers' reference time fixed."""
+    label = FB.RealNN("label").as_response()
+    feats = [getattr(FB, t)(name).as_predictor() for name, t in (
+        ("plA", "PickList"), ("plB", "PickList"), ("txt", "Text"),
+        ("r1", "Real"), ("r2", "Real"), ("dt", "Date"), ("mp", "RealMap"),
+        ("email", "Email"), ("url", "URL"), ("phone", "Phone"),
+        ("b64", "Base64"), ("geo", "Geolocation"), ("visits", "DateList"),
+        ("attrs", "PickListMap"))]
+    events = FB.DateMap("events").as_predictor().to_unit_circle_map()
+    return label, transmogrify(
+        feats + [events], defaults=Defaults(
+            reference_date_ms=WIDE_REFERENCE_MS))
+
+
 def workflow_small_phase(seed: int) -> bool:
     """The user's flow on 100 000 titanic-shaped records through ListReader
     (FeatureBuilder -> transmogrify -> SanityChecker -> 3-fold
@@ -1051,25 +1273,32 @@ def workflow_small_phase(seed: int) -> bool:
             and explained(cpu_card) and explained(card_card))
 
 
+def lr_cut_grid() -> list:
+    """Logistic regression's 2 least regularised default grid points (reg
+    0.001, elastic net 0.1 and 0.5): the CPU legs' cut of its 8, for the
+    CPU's sake (each point is a Newton solve over ~600 columns)."""
+    from transmogrifai_tpu_torch.automl.selectors import default_grid_for
+    return sorted(default_grid_for("OpLogisticRegression"),
+                  key=lambda g: g["reg_param"])[:2]
+
+
 def titanic_cut_selector():
     """The README sweep shape of the port's example (reference_selector:
-    3-fold CV, 10% holdout) cut as workflow-small cuts it: logistic
-    regression's default grid and random forests of 10 trees at depth
-    {3, 5}."""
-    from transmogrifai_tpu_torch.automl.selectors import default_grid_for
+    3-fold CV, 10% holdout) cut as workflow-small cuts it: `lr_cut_grid()`
+    and random forests of 10 trees at depth {3, 5}."""
     from transmogrifai_tpu_torch.examples import op_titanic_simple as EX
     from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
     from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
     return EX.reference_selector(models_and_parameters=[
-        (OpLogisticRegression(), default_grid_for("OpLogisticRegression")),
+        (OpLogisticRegression(), lr_cut_grid()),
         (OpRandomForestClassifier(), [
             dict(max_depth=d, num_trees=10, min_instances_per_node=10)
             for d in (3, 5)])])
 
 
-def titanic_vector_names(model) -> tuple:
+def vector_names(model) -> tuple:
     """(transmogrified vector, checked vector) column names of a trained
-    titanic workflow: the SanityChecker's input and output."""
+    workflow: the SanityChecker's input and output."""
     sc = next(st for st in model.stages
               if type(st).__name__ == "SanityCheckerModel")
     return sc.input_names()[1], sc.output_name()
@@ -1131,49 +1360,22 @@ def workflow_titanic_phase(rows: int, seed: int):
                         train_s=time.perf_counter() - t0,
                         scored=score(model, pred))
     c, g = out["cpu"], out["cuda"]
-    cm, gm = c["model"], g["model"]
-    vec, checked = titanic_vector_names(cm)
-    cx, gx = cm._train_data.column(vec), gm._train_data.column(vec)
-    cs, gs = cm.sanity_checker_summary(), gm.sanity_checker_summary()
-    csel, gsel = cm.selector_summary(), gm.selector_summary()
     carried = convert.workflow_model_from_jax(
-        [c["pred"]], [convert.stage_state(st) for st in cm.stages],
+        [c["pred"]], [convert.stage_state(st) for st in c["model"].stages],
         device="cuda")
     carried_diff = float(np.abs(score(carried, c["pred"])[:, -1]
                                 - c["scored"][:, -1]).max())
-    dprob = np.abs(c["scored"][:, -1] - g["scored"][:, -1])
-    first = first_divergence(c["levels"], g["levels"])
-    names = cm._train_data.column(checked).metadata.column_names()
-    witness = None if first is None else split_witness(
-        c["levels"], g["levels"], *first,
-        csel.best_grid.get("max_depth", 0), names)
     cmp = dict(
-        rows=len(small), width=int(gx.data.shape[1]),
-        matrix_identical=cx.data.tobytes() == gx.data.tobytes(),
-        metadata_identical=cx.metadata.to_json() == gx.metadata.to_json(),
-        same_drops=(cs.dropped == gs.dropped
-                    and list(cs.drop_reasons) == list(gs.drop_reasons)),
-        winner_cpu=[csel.best_model_name, csel.best_grid],
-        winner_cuda=[gsel.best_model_name, gsel.best_grid],
-        max_cell_diff=max(abs(a["mean_metric"] - b["mean_metric"]) for a, b
-                          in zip(csel.validation_results,
-                                 gsel.validation_results)),
-        max_prob_diff=float(dprob.max()),
-        share_prob_within_1e5=float((dprob <= 1e-5).mean()),
-        witness=witness, carried_cpu_model_on_card_max_prob_diff=carried_diff,
+        compare_runs(c, g), rows=len(small),
+        carried_cpu_model_on_card_max_prob_diff=carried_diff,
         train_s_cpu=c["train_s"], train_s_cuda=g["train_s"],
-        cpu_stage_walls_s=stage_walls(cm),
+        cpu_stage_walls_s=stage_walls(c["model"]),
         cpu_selector_walls_s=c["pred"].origin_stage.walls,
         cpu_family_sweep_s=c["pred"].origin_stage.validator.family_walls,
         cpu_plain_kernels=cpu_kernels)
     log("workflow-titanic cpu-vs-card: " + json.dumps(cmp))
-    small_ok = (cmp["matrix_identical"] and cmp["metadata_identical"]
-                and cmp["same_drops"]
-                and cmp["winner_cpu"] == cmp["winner_cuda"]
-                and (cmp["max_prob_diff"] <= 1e-5
-                     or (witness is not None and witness["tie"]))
-                and carried_diff <= 1e-5)
-    del out, c, g, cm, gm, carried, cx, gx
+    small_ok = runs_agree(cmp) and carried_diff <= 1e-5
+    del out, c, g, carried
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1198,7 +1400,7 @@ def workflow_titanic_phase(rows: int, seed: int):
     walls = stage_walls(model)
     sel = model.selector_summary()
     sc = model.sanity_checker_summary()
-    vec, checked = titanic_vector_names(model)
+    vec, checked = vector_names(model)
     width = int(model._train_data.data(vec).shape[1])
     smart = next(st for st in model.stages
                  if type(st).__name__ == "SmartTextModel")
@@ -1248,6 +1450,303 @@ def workflow_titanic_phase(rows: int, seed: int):
           and best["mean_metric"] > prevalence
           and sel.holdout_evaluation["au_pr"] > prevalence)
     return ok, capture_launches, ti_rows
+
+
+def wide_selector(leg: bool = False):
+    """workflow-wide's selector: 3-fold CrossValidation (the DataBalancer's
+    10% holdout) over logistic regression's default grid (8 points), random
+    forests of 10 trees at depth {3, 6} and Spark GBT of 10 rounds at depth
+    4. `leg`: the CPU-against-card leg's cut of it, for the CPU's sake:
+    `lr_cut_grid()`, a forest of 5 trees at depth 3, the GBT at 3 rounds
+    of depth 3."""
+    from transmogrifai_tpu_torch.automl.selectors import (
+        BinaryClassificationModelSelector, default_grid_for)
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import (
+        OpGBTClassifier, OpRandomForestClassifier)
+    lr = lr_cut_grid() if leg else default_grid_for("OpLogisticRegression")
+    return BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=42, models_and_parameters=[
+            (OpLogisticRegression(), lr),
+            (OpRandomForestClassifier(), [
+                dict(num_trees=5 if leg else 10, max_depth=d,
+                     min_instances_per_node=10)
+                for d in ((3,) if leg else (3, 6))]),
+            (OpGBTClassifier(), [dict(max_iter=3 if leg else 10,
+                                      max_depth=3 if leg else 4)])])
+
+
+def wide_workflow(cols: dict, device=None, leg: bool = False):
+    """(workflow, prediction) of the wide flow in the port: transmogrify ->
+    SanityChecker() -> `wide_selector(leg)` -> Workflow(device) over a
+    Dataset of `cols`."""
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.automl.preparators import SanityChecker
+    from transmogrifai_tpu_torch.automl.transmogrifier import (
+        TransmogrifierDefaults, transmogrify)
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder
+    from transmogrifai_tpu_torch.workflow import Workflow
+    label, vec = wide_vector(FeatureBuilder, transmogrify,
+                             TransmogrifierDefaults)
+    checked = SanityChecker().set_input(label, vec).get_output()
+    pred = wide_selector(leg).set_input(label, checked).get_output()
+    wf = Workflow(device=device).set_input_dataset(
+        wide_dataset(cols, Dataset, Column, T)).set_result_features(pred)
+    return wf, pred
+
+
+def wide_scores(model, pred, cols: dict):
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    return model.score(wide_dataset(cols, Dataset, Column, T)) \
+        .data(pred.name)
+
+
+def compare_runs(a: dict, b: dict) -> dict:
+    """Two trained runs of one workflow (`model`, `pred`, refit `levels`,
+    `scored`) side by side: the transmogrified matrix and metadata, the
+    SanityChecker's drops and reasons, the winner, the largest CV-cell
+    difference, the scores' largest difference, and where the refits split
+    a node differently, the first such node's `split_witness`."""
+    import numpy as np
+    am, bm = a["model"], b["model"]
+    vec, checked = vector_names(am)
+    ax, bx = am._train_data.column(vec), bm._train_data.column(vec)
+    asc, bsc = am.sanity_checker_summary(), bm.sanity_checker_summary()
+    asel, bsel = am.selector_summary(), bm.selector_summary()
+    dprob = np.abs(a["scored"][:, -1] - b["scored"][:, -1])
+    first = first_divergence(a["levels"], b["levels"])
+    names = am._train_data.column(checked).metadata.column_names()
+    witness = None if first is None else split_witness(
+        a["levels"], b["levels"], *first,
+        asel.best_grid.get("max_depth", 0), names)
+    return dict(
+        width=int(bx.data.shape[1]),
+        matrix_identical=ax.data.tobytes() == bx.data.tobytes(),
+        metadata_identical=ax.metadata.to_json() == bx.metadata.to_json(),
+        same_drops=(asc.dropped == bsc.dropped
+                    and list(asc.drop_reasons) == list(bsc.drop_reasons)),
+        dropped=len(bsc.dropped),
+        winner=[[asel.best_model_name, asel.best_grid],
+                [bsel.best_model_name, bsel.best_grid]],
+        same_winner=(asel.best_model_name, asel.best_grid)
+        == (bsel.best_model_name, bsel.best_grid),
+        max_cell_diff=max(abs(x["mean_metric"] - y["mean_metric"])
+                          for x, y in zip(asel.validation_results,
+                                          bsel.validation_results)),
+        max_prob_diff=float(dprob.max()),
+        share_prob_within_1e5=float((dprob <= 1e-5).mean()),
+        scored_rows=len(dprob), witness=witness)
+
+
+def runs_agree(cmp: dict) -> bool:
+    """compare_runs' verdict: identical matrix, metadata and drops, the
+    same winner, and scores within 1e-5 a row or a tie at the first node
+    the refits split differently."""
+    return (cmp["matrix_identical"] and cmp["metadata_identical"]
+            and cmp["same_drops"] and cmp["same_winner"]
+            and (cmp["max_prob_diff"] <= 1e-5
+                 or (cmp["witness"] is not None and cmp["witness"]["tie"])))
+
+
+def group_widths(model) -> dict:
+    """Width of each vectorizer's block in a trained workflow, by stage."""
+    out = {}
+    for st in model.stages:
+        md = st.output_metadata() if hasattr(st, "output_metadata") \
+            else None
+        name = type(st).__name__
+        if md is None or name in ("VectorsCombiner", "SanityCheckerModel") \
+                or name.startswith("Selected"):
+            continue
+        key = f"{name} {','.join(st.input_names())}"
+        out[key] = md.size
+    return out
+
+
+def wide_leg_run(cols: dict, new: dict, device) -> dict:
+    """One run of workflow-wide's 20 000-row leg: `wide_workflow(cols,
+    device, leg=True)` trained with its refit levels recorded, then scored
+    on `new`."""
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    reset_uids()
+    wf, pred = wide_workflow(cols, device=device, leg=True)
+    t0 = time.perf_counter()
+    with record_refit_levels([]) as levels:
+        model = wf.train()
+    return dict(model=model, pred=pred, levels=levels,
+                train_s=time.perf_counter() - t0,
+                scored=wide_scores(model, pred, new))
+
+
+def workflow_wide_phase(rows: int, seed: int):
+    """bench.py's wide schema with one feature of each date, map,
+    geolocation and structured text group (`wide_columns`) through the
+    user's flow: transmogrify (every group's default, Email, URL and Base64
+    derived to PickLists, Phone to a Binary) -> SanityChecker() ->
+    `wide_selector()` -> Workflow().train() -> score().
+
+    The leg at `WIDE_LEG_ROWS` rows with `wide_selector(leg=True)`, twice
+    on the card with the same inputs and once on the CPU (plain versions).
+    Card against card (C1: the histogram kernels flush float atomics in no
+    fixed order): the largest |dp|, whether the matrices are identical,
+    whether the winners match, the largest CV-cell difference, and where
+    the refits split a node differently, the witness of the tie. CPU
+    against card: the matrix and metadata identical, the same drops for
+    the same reasons, the same winner, scores of new rows within 1e-5 a
+    row or a tie witness, the CPU-fitted workflow carried onto the card
+    within 1e-5.
+
+    The main path: `rows` rows on the card. Launch counters are reset just
+    before train() and read just after: every kernel must have launched,
+    route_hist at S >= 2 too. The width of each group, each stage's fit and
+    transform wall (the derivations' too), the train and score walls
+    (score on `WIDE_SCORE_ROWS` new rows), each family's sweep, peak device
+    memory, the winner and the holdout AuPR against the prevalence; each
+    kernel at every (kernel, F, S, C, Fo) key of train() on the inputs of
+    its first launch against its plain version (rows of the kernels line,
+    phase "wide"), the capture keys' launches adding up to the
+    dispatchers' counts. The CPU's leg trains in a thread beside those
+    kernel checks (they keep the card busy and the host idle, and neither
+    touches what the other patches or counts) and is joined before the
+    kernels are timed, so no host work of its own delays a timed launch
+    (`leg_wait_s`: how long the timing waited for it). Returns (ok,
+    launches by capture key, kernel rows)."""
+    import threading
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch import convert
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+
+    t_phase = t0 = time.perf_counter()
+    small = wide_columns(WIDE_LEG_ROWS, seed + 21)
+    small_new = wide_columns(WIDE_LEG_ROWS, seed + 22)
+    log(f"workflow-wide: leg data made in {time.perf_counter() - t0:.2f}s")
+    g, g2 = (wide_leg_run(small, small_new, None) for _ in range(2))
+    c1 = dict(compare_runs(g, g2),
+              train_s=[g["train_s"], g2["train_s"]])
+    log("workflow-wide card-vs-card (C1): " + json.dumps(c1))
+    del g2
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cols = wide_columns(rows, seed + 23)
+    new = wide_columns(WIDE_SCORE_ROWS, seed + 24)
+    raw_s = time.perf_counter() - t0
+    reset_uids()
+    wf, pred = wide_workflow(cols)
+    selector = pred.origin_stage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, capture_launches = {}, collections.Counter()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    with capture_kernel_inputs(captured, capture_launches):
+        model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = dict(TK.launches)
+    shape_launches = dict(TK.shape_launches)
+    capture_launches = dict(capture_launches)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sel = model.selector_summary()
+    sc = model.sanity_checker_summary()
+    vec, _ = vector_names(model)
+    width = int(model._train_data.data(vec).shape[1])
+    kept = len(next(st for st in model.stages if type(st).__name__
+                    == "SanityCheckerModel").indices_to_keep)
+    widths = group_widths(model)
+    walls = stage_walls(model)
+    prevalence = float(cols["label"][1].mean())
+    best = max(sel.validation_results, key=lambda v: v["mean_metric"])
+    families = family_results(sel, selector)
+    model._train_data = None
+    del cols
+    t0 = time.perf_counter()
+    scored = wide_scores(model, pred, new)
+    score_s = time.perf_counter() - t0
+    score_walls = stage_walls(model)
+    main_s = time.perf_counter() - t_phase
+
+    cpu = {}
+
+    def cpu_leg():
+        try:
+            cpu.update(wide_leg_run(small, small_new, "cpu"))
+        except BaseException as e:     # re-raised by the phase's thread
+            cpu["error"] = e
+    leg = threading.Thread(target=cpu_leg, name="wide-cpu-leg")
+    leg.start()
+    leg_wait = {}
+
+    def join_leg():
+        t = time.perf_counter()
+        leg.join()
+        leg_wait["s"] = time.perf_counter() - t
+    wide_rows_out = kernel_rows([captured_shape(key, *captured[key],
+                                                prefix="workflow-wide")
+                                 for key in sorted(captured)], phase="wide",
+                                before_timing=join_leg)
+    del captured
+    torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t_phase - main_s
+    if "error" in cpu:
+        raise cpu["error"]
+    carried = convert.workflow_model_from_jax(
+        [cpu["pred"]], [convert.stage_state(st) for st in
+                        cpu["model"].stages], device="cuda")
+    carried_diff = float(np.abs(
+        wide_scores(carried, cpu["pred"], small_new)[:, -1]
+        - cpu["scored"][:, -1]).max())
+    cmp = dict(compare_runs(cpu, g), rows=WIDE_LEG_ROWS,
+               carried_cpu_model_on_card_max_prob_diff=carried_diff,
+               train_s_cpu=cpu["train_s"], train_s_cuda=g["train_s"],
+               cpu_stage_walls_s=stage_walls(cpu["model"]),
+               cpu_family_sweep_s=cpu["pred"].origin_stage.validator
+               .family_walls)
+    log("workflow-wide cpu-vs-card: " + json.dumps(cmp))
+    leg_ok = (runs_agree(cmp) and carried_diff <= 1e-5
+              and c1["matrix_identical"] and c1["same_drops"]
+              and c1["same_winner"])
+    del cpu, g, carried
+    torch.cuda.empty_cache()
+    res = dict(
+        rows=rows, phase_s=time.perf_counter() - t_phase,
+        kernel_checks_s=checks_s, leg_wait_s=leg_wait["s"],
+        raw_data_s=raw_s,
+        train_s=train_s, score_s=score_s, score_rows=WIDE_SCORE_ROWS,
+        group_widths=widths, stage_walls_s=walls,
+        score_stage_walls_s=score_walls, selector_walls_s=selector.walls,
+        width_before=width, width_after=kept, flagged=len(sc.dropped),
+        winner=[sel.best_model_name, sel.best_grid],
+        winner_cv_aupr=best["mean_metric"],
+        holdout_aupr=sel.holdout_evaluation.get("au_pr"),
+        holdout_auroc=sel.holdout_evaluation.get("au_roc"),
+        prevalence=prevalence, families=families,
+        peak_device_gb_train=train_peak_gb,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, shape_launches=shape_launches,
+        capture_launches=capture_launches)
+    log("workflow-wide: " + json.dumps(res))
+    by_shape = collections.Counter()
+    for key, n in capture_launches.items():
+        by_shape[launch_key(key)] += n
+    level_keys = [k for k in shape_launches
+                  if k.startswith("route_hist") and not k.endswith(" S=1")]
+    ok = (leg_ok and all(n > 0 for n in launches.values())
+          and set(launches) == set(TK.KERNELS)
+          and any(shape_launches[k] > 0 for k in level_keys)
+          and {r["key"] for r in wide_rows_out} == set(capture_launches)
+          and dict(by_shape) == shape_launches
+          and set(families) == {"OpLogisticRegression",
+                                "OpRandomForestClassifier",
+                                "OpGBTClassifier"}
+          and scored.shape == (WIDE_SCORE_ROWS, 5)
+          and bool(np.isfinite(scored).all())
+          and best["mean_metric"] > prevalence
+          and sel.holdout_evaluation["au_pr"] > prevalence)
+    return ok, capture_launches, wide_rows_out
 
 
 @contextlib.contextmanager
@@ -1789,13 +2288,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     if not workflow_small_phase(SEED):
         failures.append("workflow-small CPU/GPU disagreement")
-    ti_ok, ti_captures, ti_rows = workflow_titanic_phase(TITANIC_ROWS, SEED)
-    if not ti_ok:
-        failures.append("workflow-titanic")
-    failures += [f"kernel {r['name']} ({r['shape']})" for r in ti_rows
-                 if not r.pop("ok")]
-    rows += ti_rows
-    torch.cuda.empty_cache()
+    counts = {"tree": shape_launches, "glm": glm_launches}
+    for name, phase, n_rows, key in (
+            ("workflow-titanic", workflow_titanic_phase, TITANIC_ROWS,
+             "titanic"),
+            ("workflow-wide", workflow_wide_phase, WIDE_ROWS, "wide")):
+        ok, counts[key], new_rows = phase(n_rows, SEED)
+        if not ok:
+            failures.append(name)
+        failures += [f"kernel {r['name']} ({r['shape']})" for r in new_rows
+                     if not r.pop("ok")]
+        rows += new_rows
+        torch.cuda.empty_cache()
     wf_ok, wf_launches, wf_captures, wf_rows = workflow_main_phase(
         args.rows, SEED)
     if not wf_ok:
@@ -1803,12 +2307,11 @@ def main() -> int:
     failures += [f"kernel {r['name']} ({r['shape']})" for r in wf_rows
                  if not r.pop("ok")]
     rows += wf_rows
-    counts = {"tree": shape_launches, "glm": glm_launches,
-              "workflow": wf_captures, "titanic": ti_captures}
+    counts["workflow"] = wf_captures
     for r in rows:
         key = r.pop("key")
         r["launches"] = counts[r["phase"]].get(key, 0)
-        if r["phase"] != "titanic":
+        if r["phase"] in ("tree", "glm", "workflow"):
             # launches at this row's key inside workflow-main's train():
             # its (kernel, F, S) key, a workflow row's own capture key
             r["workflow_launches"] = (wf_captures if r["phase"] == "workflow"

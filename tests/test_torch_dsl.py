@@ -266,8 +266,25 @@ def test_tokenize_then_tf_idf_raises_and_tf_hashes():
     with pytest.raises(NotImplementedError, match="TfIdfVectorizer"):
         toks.tf_idf()
     assert toks.tf(num_features=8).type_name == "OPVector"
-    with pytest.raises(NotImplementedError, match="MapVectorizer"):
-        PFB.TextMap("m").as_predictor().smart_vectorize()
+    # a text map smart-vectorizes through the map vectorizer, as in the
+    # JAX package: a low-cardinality key pivots, a free-text key hashes
+    rng = np.random.default_rng(4)
+    rows = [{"m": {"color": str(rng.choice(["red", "Blue", "green"])),
+                   "note": f"note number {rng.integers(60)}"}}
+            for _ in range(300)]
+
+    def fit(FB, U, Workflow, List, kw):
+        U.reset_uids()
+        vec = FB.TextMap("m").as_predictor().smart_vectorize(
+            num_features=16)
+        data = Workflow(**kw).set_reader(List(rows)) \
+            .set_result_features(vec).train()._train_data
+        return data.column(vec.name)
+    a = fit(JFB, JU, JWorkflow, JList, {})
+    b = fit(PFB, PU, PWorkflow, PList, {"device": "cpu"})
+    assert b.data.shape == a.data.shape == (300, 3 + 1 + 1 + 16 + 1)
+    assert b.data.tobytes() == a.data.tobytes()
+    assert b.metadata.to_json() == a.metadata.to_json()
 
 
 def test_module_level_transmogrify_and_combine():
@@ -330,3 +347,163 @@ def test_jax_fitted_stages_carry_over(trained):
             assert_f32_within_1ulp(x.data, y.data, name)
         if x.data.ndim == 2:
             assert y.metadata.to_json() == x.metadata.to_json()
+
+
+# -- the date, map, geolocation and structured text names --------------------
+
+def structured_records(n=300, seed=5):
+    """Dates (pre-1970 and missing too), emails, URLs (userinfo, ports,
+    localhost, invalid), phones (US, GB, DE, short), base64 payloads
+    (headers, random bytes, undecodable, empty), locations, and date,
+    real, phone and base64 maps with missing keys; a label that the map's
+    k0 predicts."""
+    import base64
+    rng = np.random.default_rng(seed)
+    heads = [b"\x89PNG\r\n", b"%PDF-1.4", b"GIF89a", b"PK\x03\x04", b"{"]
+    urls = ["https://user:pw@example.com/a", "http://localhost:8080/x",
+            "https://example.com:8443/a", "ftp://files.example.org/f",
+            "nope", "mailto:x@y.com", "https://sub.example.com/p?q=1"]
+    phones = ["(415) 555-0134", "+44 20 7946 0958", "+49 30 1234567",
+              "030 1234567", "555-0134", "+1 415 555 0134", "1-415-555-0134"]
+    out = []
+    for _ in range(n):
+        u = rng.uniform(size=8)
+        k0 = float(rng.normal())
+        ms = int(rng.integers(-10**11, 2 * 10**12))
+        payload = base64.b64encode(heads[rng.integers(5)]
+                                   + rng.bytes(6)).decode()
+        out.append({
+            "label": float(k0 + 0.3 * rng.normal() > 0),
+            "dt": None if u[0] < 0.1 else ms,
+            "dtt": None if u[1] < 0.1 else ms + 3_600_000,
+            "em": (None if u[2] < 0.1 else "jane.doe@" if u[2] < 0.15 else
+                   f"u{rng.integers(40)}@d{rng.integers(5)}.com"),
+            "url": None if u[3] < 0.1 else urls[rng.integers(len(urls))],
+            "ph": None if u[4] < 0.1 else phones[rng.integers(len(phones))],
+            "b64": (None if u[5] < 0.1 else "!!not base64" if u[5] < 0.15
+                    else base64.b64encode(rng.bytes(9)).decode()
+                    if u[5] < 0.3 else payload),
+            "geo": None if u[6] < 0.1 else [float(rng.uniform(-60, 60)),
+                                            float(rng.uniform(-170, 170)),
+                                            float(rng.integers(1, 6))],
+            "dmap": {k: ms + int(rng.integers(0, 10**9)) for k, p in
+                     (("a", 0.9), ("b", 0.5)) if rng.uniform() < p},
+            "rmap": {k: v for k, v, p in (("k0", k0, 0.95),
+                                          ("k1", float(rng.normal()), 0.7),
+                                          ("k2", float(rng.normal()), 0.5))
+                     if rng.uniform() < p},
+            "phmap": {k: phones[rng.integers(len(phones))] for k in "hw"
+                      if rng.uniform() < 0.7},
+            "b64map": {k: payload for k in "xy" if rng.uniform() < 0.7},
+        })
+    return out
+
+
+def _structured(FB):
+    """(dsl name, feature) of each of the twenty names, built through the
+    dsl."""
+    label = FB.RealNN("label").as_response()
+    dt, dtt = FB.Date("dt").as_predictor(), FB.DateTime("dtt").as_predictor()
+    em, url = FB.Email("em").as_predictor(), FB.URL("url").as_predictor()
+    ph, b64 = FB.Phone("ph").as_predictor(), FB.Base64("b64").as_predictor()
+    geo = FB.Geolocation("geo").as_predictor()
+    dmap, rmap = FB.DateMap("dmap").as_predictor(), \
+        FB.RealMap("rmap").as_predictor()
+    phmap = FB.PhoneMap("phmap").as_predictor()
+    b64map = FB.Base64Map("b64map").as_predictor()
+    return [
+        ("to_unit_circle", dt.to_unit_circle("DayOfWeek")),
+        ("to_unit_circle_map", dmap.to_unit_circle_map("HourOfDay")),
+        ("to_date_list", dt.to_date_list()),
+        ("to_date_time_list", dtt.to_date_time_list()),
+        ("vectorize_dates", dt.vectorize_dates(
+            dtt, reference_date_ms=1.6e12,
+            circular_periods=["HourOfDay", "DayOfWeek", "DayOfMonth",
+                              "DayOfYear", "WeekOfYear", "MonthOfYear"])),
+        ("filter_keys", rmap.filter_keys(block=["k1"])),
+        ("vectorize_map", rmap.vectorize_map()),
+        ("autobucketize_map", rmap.autobucketize_map(label, max_splits=3)),
+        ("vectorize_geo", geo.vectorize_geo()),
+        ("is_valid_email", em.is_valid_email()),
+        ("email_prefix", em.email_prefix()),
+        ("email_domain", em.email_domain()),
+        ("url_domain", url.url_domain()),
+        ("url_protocol", url.url_protocol()),
+        ("is_valid_url", url.is_valid_url()),
+        ("detect_mime_types", b64.detect_mime_types()),
+        ("detect_mime_types_map", b64map.detect_mime_types_map()),
+        ("is_valid_phone", ph.is_valid_phone()),
+        ("is_valid_phone_map", phmap.is_valid_phone_map()),
+        ("parse_phone", ph.parse_phone()),
+    ]
+
+
+PORTED = ["to_unit_circle", "to_unit_circle_map", "to_date_list",
+          "to_date_time_list", "vectorize_dates", "filter_keys",
+          "vectorize_map", "autobucketize_map", "vectorize_geo",
+          "is_valid_email", "email_prefix", "email_domain", "url_domain",
+          "url_protocol", "is_valid_url", "detect_mime_types",
+          "detect_mime_types_map", "is_valid_phone", "is_valid_phone_map",
+          "parse_phone"]
+
+
+@pytest.fixture(scope="module")
+def structured():
+    out = {}
+    for pkg, FB, U, Workflow, List, kw in (
+            ("jax", JFB, JU, JWorkflow, JList, {}),
+            ("torch", PFB, PU, PWorkflow, PList, {"device": "cpu"})):
+        U.reset_uids()
+        derived = _structured(FB)
+        model = Workflow(**kw).set_reader(List(structured_records())) \
+            .set_result_features(*[f for _, f in derived]).train()
+        out[pkg] = (model, derived)
+    return out
+
+
+def assert_columns_equal(a, b, name):
+    """Vectors bit for bit with their metadata; host columns (strings,
+    lists, maps) equal; Binary columns equal, NaN where missing."""
+    if a.data.dtype == object:
+        assert list(b.data) == list(a.data), name
+        return
+    assert b.data.dtype == a.data.dtype, name
+    assert b.data.shape == a.data.shape, name
+    np.testing.assert_array_equal(b.data, a.data, err_msg=name)
+    if a.data.ndim == 2:
+        assert b.data.tobytes() == a.data.tobytes(), name
+        assert b.metadata.to_json() == a.metadata.to_json(), name
+
+
+def test_ported_names_leave_unported():
+    assert len(set(PORTED)) == 20 and set(PORTED) <= set(_ops_table_names())
+    assert not set(PORTED) & set(PD.UNPORTED)
+    assert len(PD.UNPORTED) == 19
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_ported_dsl_name_matches_jax(structured, name):
+    (jm, jd), (pm, pd) = structured["jax"], structured["torch"]
+    jf, pf = dict(jd)[name], dict(pd)[name]
+    assert pf.name == jf.name and pf.type_name == jf.type_name
+    assert_columns_equal(jm._train_data.column(jf.name),
+                         pm._train_data.column(pf.name), name)
+
+
+def test_jax_fitted_structured_stages_carry_over(structured):
+    """The JAX-fitted date, map and geolocation stages (reference times,
+    map plans, fills, bucket splits, unit-circle key sets), carried into
+    the port by convert.workflow_model_from_jax, score new records as the
+    JAX package does."""
+    from transmogrifai_tpu_torch import convert
+    jm, jd = structured["jax"]
+    PU.reset_uids()
+    pd = _structured(PFB)
+    carried = convert.workflow_model_from_jax(
+        [f for _, f in pd], [convert.stage_state(st) for st in jm.stages],
+        device="cpu")
+    new = structured_records(120, seed=11)
+    a = jm.score(JList(new).generate_dataset(jm.raw_features()))
+    b = carried.score(PList(new).generate_dataset(carried.raw_features()))
+    for (name, jf), (_, pf) in zip(jd, pd):
+        assert_columns_equal(a.column(jf.name), b.column(pf.name), name)

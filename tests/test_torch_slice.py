@@ -156,6 +156,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, transmogrifai_tpu_torch\n"
             "import transmogrifai_tpu_torch.automl.tuning.validators\n"
             "import transmogrifai_tpu_torch.convert\n"
+            "from transmogrifai_tpu_torch.stages import registry\n"
+            "assert 'DateMapUnitCircleModel' in registry.stage_registry()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'transmogrifai_tpu' or "
             "m.startswith('transmogrifai_tpu.'))\n"

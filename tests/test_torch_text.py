@@ -195,7 +195,20 @@ def test_carried_text_models_score_identically():
 
 
 def test_structured_text_types_still_raise():
-    for t in ("Email", "Phone", "URL", "Base64"):
-        PU.reset_uids()
-        with pytest.raises(NotImplementedError, match=t.lower()):
-            p_tm([getattr(PFB, t)("f").as_predictor()])
+    """The structured text types no longer raise: since their slice each
+    derives, as in the JAX package, before its group's default vectorizer
+    (Email, URL and Base64 to a PickList, Phone to a Binary)."""
+    for t, stage, vec in (("Email", "EmailToPickList", "OneHotVectorizer"),
+                          ("Phone", "PhoneNumberParser", "BinaryVectorizer"),
+                          ("URL", "UrlToDomainPickList", "OneHotVectorizer"),
+                          ("Base64", "MimeTypeDetector", "OneHotVectorizer")):
+        out = []
+        for FB, U, tm in ((JFB, JU, j_tm), (PFB, PU, p_tm)):
+            U.reset_uids()
+            v = tm([getattr(FB, t)("f").as_predictor()])
+            derived = v.parents[0]
+            out.append((v.name, type(v.origin_stage).__name__,
+                        derived.name, derived.type_name,
+                        type(derived.origin_stage).__name__))
+        assert out[1] == out[0], t
+        assert out[1][1] == vec and out[1][4] == stage

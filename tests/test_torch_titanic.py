@@ -42,7 +42,12 @@ from transmogrifai_tpu.utils import uid as JU
 import chip_smoke
 from test_torch_tree_models import _ReferenceDraws
 from transmogrifai_tpu_torch import convert
+from transmogrifai_tpu_torch.automl.selectors import \
+    default_grid_for as p_grid
 from transmogrifai_tpu_torch.examples import op_titanic_simple as PEX
+from transmogrifai_tpu_torch.models.glm import OpLogisticRegression as PLR
+from transmogrifai_tpu_torch.models.trees import \
+    OpRandomForestClassifier as PRF
 from transmogrifai_tpu_torch.ops import trees as PT
 from transmogrifai_tpu_torch.readers.readers import ListReader as PList
 from transmogrifai_tpu_torch.utils import uid as PU
@@ -59,6 +64,12 @@ def jax_cut_selector():
         models_and_parameters=[
             (JLR(), j_grid("OpLogisticRegression")),
             (JRF(), [dict(g) for g in RF_CUT])])
+
+
+def port_cut_selector():
+    return PEX.reference_selector(models_and_parameters=[
+        (PLR(), p_grid("OpLogisticRegression")),
+        (PRF(), [dict(g) for g in RF_CUT])])
 
 
 def _train(rows, jax_selector=None, port_selector=None):
@@ -82,7 +93,7 @@ def flows():
         lr = _train(PEX.synthetic_passengers(300))
         lr["new"] = PEX.synthetic_passengers(200, seed=7)
         rf = _train(chip_smoke.titanic_named_records(2000, 21),
-                    jax_cut_selector, chip_smoke.titanic_cut_selector)
+                    jax_cut_selector, port_cut_selector)
         rf["new"] = chip_smoke.titanic_named_records(400, 22)
     finally:
         mp.undo()
@@ -93,7 +104,7 @@ FLOWS = ["lr", "rf"]
 
 
 def _vectors(model):
-    return chip_smoke.titanic_vector_names(model)
+    return chip_smoke.vector_names(model)
 
 
 @pytest.mark.parametrize("flow", FLOWS)
@@ -169,7 +180,7 @@ def test_summary_names_the_selected_model(flows, flow):
 def test_jax_fitted_workflow_scores_within_1e5(flows, flow):
     f = flows[flow]
     PU.reset_uids()
-    selector = chip_smoke.titanic_cut_selector() if flow == "rf" else None
+    selector = port_cut_selector() if flow == "rf" else None
     _, ppred = PEX.build_workflow(selector, device="cpu")
     carried = convert.workflow_model_from_jax(
         [ppred], [convert.stage_state(st) for st in f["jmodel"].stages],

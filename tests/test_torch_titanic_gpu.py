@@ -8,9 +8,9 @@ only PyTorch:
 
 2 000 records in the Kaggle shapes (`chip_smoke.titanic_named_records`:
 hashed names, high-cardinality tickets, mostly empty cabins) through
-`build_workflow(chip_smoke.titanic_cut_selector())` (logistic
-regression's default grid, random forests of 10 trees at depth {3, 5},
-3 folds, 10% holdout) on each device. Tolerances: the transmogrified
+`build_workflow(cut_selector())` (logistic regression's default grid,
+random forests of 10 trees at depth {3, 5}, 3 folds, 10% holdout) on
+each device. Tolerances: the transmogrified
 matrix and its metadata bit-identical (host numpy, and f32 DSL math that
 rounds alike on both devices); the same drops and winner; the scored
 probabilities within 1e-5 a row or, where the refits split a node
@@ -22,12 +22,23 @@ import pytest
 import torch
 
 import chip_smoke
+from transmogrifai_tpu_torch.automl.selectors import default_grid_for
 from transmogrifai_tpu_torch.examples import op_titanic_simple as EX
+from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
 from transmogrifai_tpu_torch.ops import tree_kernels as TK
 from transmogrifai_tpu_torch.readers.readers import ListReader
 from transmogrifai_tpu_torch.utils.uid import reset_uids
 
 pytestmark = pytest.mark.gpu
+
+
+def cut_selector():
+    return EX.reference_selector(models_and_parameters=[
+        (OpLogisticRegression(), default_grid_for("OpLogisticRegression")),
+        (OpRandomForestClassifier(), [
+            dict(max_depth=d, num_trees=10, min_instances_per_node=10)
+            for d in (3, 5)])])
 
 
 @pytest.fixture(scope="module")
@@ -39,8 +50,7 @@ def runs():
     out = {}
     for dev in ("cpu", "cuda"):
         reset_uids()
-        wf, pred = EX.build_workflow(chip_smoke.titanic_cut_selector(),
-                                     device=dev)
+        wf, pred = EX.build_workflow(cut_selector(), device=dev)
         TK.reset_launches()
         with chip_smoke.record_refit_levels([]) as levels:
             model = wf.set_reader(ListReader(rows)).train()
@@ -60,7 +70,7 @@ def test_the_card_run_launches_every_kernel(runs):
 
 def test_matrix_and_metadata_identical(runs):
     c, g = runs["cpu"]["model"], runs["cuda"]["model"]
-    for name in chip_smoke.titanic_vector_names(c):
+    for name in chip_smoke.vector_names(c):
         a, b = c._train_data.column(name), g._train_data.column(name)
         assert a.data.tobytes() == b.data.tobytes(), name
         assert a.metadata.to_json() == b.metadata.to_json()
@@ -85,7 +95,7 @@ def test_scores_within_1e5_or_a_tie(runs):
     first = chip_smoke.first_divergence(c["levels"], g["levels"])
     assert first is not None, diff
     sel = c["model"].selector_summary()
-    names = c["model"]._train_data.column(chip_smoke.titanic_vector_names(
+    names = c["model"]._train_data.column(chip_smoke.vector_names(
         c["model"])[1]).metadata.column_names()
     w = chip_smoke.split_witness(c["levels"], g["levels"], *first,
                                  sel.best_grid.get("max_depth", 0), names)

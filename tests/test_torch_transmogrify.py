@@ -4,9 +4,11 @@ Both packages get the same seeded records and build the same features with
 their uid counters reset, so vector and column names agree too. Tolerance:
 none — both vectorize on the host in numpy float32, so the transmogrified
 matrix is bit-identical and the vector metadata identical, for every
-ported type group, with null tracking on and off, on the train path
-(fit + columnar transform) and the score path (combiner sinks). Groups the
-port has no vectorizer for raise NotImplementedError.
+type group, with null tracking on and off, on the train path (fit +
+columnar transform) and the score path (combiner sinks): the numeric and
+categorical groups here at length, the date, map, geolocation and
+structured text groups one case each, and every other OPMap subtype and
+DateTimeList on the train path.
 """
 import numpy as np
 import pytest
@@ -131,12 +133,141 @@ def test_vocabulary_order_and_ties():
                                                            "female"]]
 
 
-# Text, TextArea and TextList transmogrify since the text slice
-# (tests/test_torch_text.py); these groups are still to be ported
+# the date, map, geolocation and structured text groups, one feature each
+# beside a Real, on seeded values with their awkward cases: pre-1970 and
+# missing dates, empty date lists, invalid emails and URLs, short phone
+# numbers, empty and undecodable payloads, missing keys and locations
+_MIME_HEADS = [b"\x89PNG\r\n", b"%PDF-1.4", b"GIF89a", b'{"a": 1}',
+               b"PK\x03\x04"]
+
+
+def _group_value(tname, rng):
+    import base64
+    u = rng.uniform()
+    if tname == "Base64":
+        if u < 0.2:
+            return None if u < 0.1 else ""
+        if u < 0.3:
+            return base64.b64encode(rng.bytes(12)).decode()
+        return base64.b64encode(_MIME_HEADS[rng.integers(5)]
+                                + rng.bytes(6)).decode()
+    if tname in ("Date", "DateTime"):
+        return None if u < 0.1 else int(rng.integers(-10**11, 2 * 10**12))
+    if tname == "DateList":
+        return [int(v) for v in rng.integers(-10**10, 2 * 10**12,
+                                             size=rng.integers(0, 6))]
+    if tname == "Email":
+        return (None if u < 0.1 else "not-an-email" if u < 0.15 else
+                f"user{rng.integers(300)}@dom{rng.integers(12)}.com")
+    if tname == "URL":
+        return (None if u < 0.1 else "nope" if u < 0.15 else
+                f"{rng.choice(['http', 'https', 'ftp'])}://"
+                f"site{rng.integers(12)}.org/p")
+    if tname == "Phone":
+        return (None if u < 0.1 else "12345" if u < 0.2 else str(rng.choice(
+            ["(415) 555-0134", "+44 20 7946 0958", "+49 30 1234567",
+             "030 1234567"])))
+    if tname == "TextMap":
+        m = {}
+        if rng.uniform() < 0.8:
+            m["color"] = str(rng.choice(["red", "Blue", "green"]))
+        if rng.uniform() < 0.8:
+            m["note"] = f"free text {rng.integers(100)}"
+        return m or None
+    if tname == "Geolocation":
+        return None if u < 0.1 else [float(rng.uniform(-60, 60)),
+                                     float(rng.uniform(-170, 170)),
+                                     float(rng.integers(1, 6))]
+    if tname == "RealMap":
+        return {k: float(rng.normal()) for k, p in (("k0", 0.9), ("k1", 0.5))
+                if rng.uniform() < p}
+    assert tname == "PickListMap"
+    return {k: str(rng.choice(["a", "b", "c", "dd"])) for k in "pqr"
+            if rng.uniform() < 0.8}
+
+
+def group_records(tname, n=600, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"age": float(rng.normal()), "x": _group_value(tname, rng)}
+            for _ in range(n)]
+
+
 @pytest.mark.parametrize("tname", ["Base64", "DateList", "Email", "URL",
                                    "Phone", "Date", "DateTime", "TextMap",
                                    "Geolocation", "RealMap", "PickListMap"])
-def test_unported_groups_raise(tname):
-    f = getattr(PFB, tname)("x").as_predictor()
-    with pytest.raises(NotImplementedError, match=tname):
-        p_transmogrify([PFB.Real("age").as_predictor(), f])
+def test_ported_group_matches_jax(tname):
+    """The group's default vectorizer (after its derivation for Email, URL,
+    Base64 and Phone) gives the JAX package's matrix bit for bit and its
+    metadata, on the train path and the score path."""
+    def vector(FB, U, tm, Defaults):
+        U.reset_uids()
+        return tm([FB.Real("age").as_predictor(),
+                   getattr(FB, tname)("x").as_predictor()],
+                  defaults=Defaults(reference_date_ms=1.6e12))
+    recs = group_records(tname)
+    jvec = vector(JFB, JU, j_transmogrify, JDefaults)
+    pvec = vector(PFB, PU, p_transmogrify, PDefaults)
+    jm = JWorkflow().set_reader(JList(recs)).set_result_features(jvec).train()
+    pm = PWorkflow(device="cpu").set_reader(PList(recs)) \
+        .set_result_features(pvec).train()
+    assert jvec.name == pvec.name
+    jc, pc = jm._train_data.column(jvec.name), pm._train_data.column(pvec.name)
+    assert pc.data.dtype == np.float32 and pc.data.shape == jc.data.shape
+    assert pc.data.shape[1] > 2
+    assert jc.data.tobytes() == pc.data.tobytes()
+    assert jc.metadata.to_json() == pc.metadata.to_json()
+    new = group_records(tname, 200, seed=9)
+    js = jm.score(JList(new).generate_dataset(jm.raw_features()))
+    ps = pm.score(PList(new).generate_dataset(pm.raw_features()))
+    assert js.data(jvec.name).tobytes() == ps.data(pvec.name).tobytes()
+
+
+def _map_value(tname, rng):
+    """A map row of `tname` over keys a, b, c (each present 70% of rows)."""
+    def one():
+        if tname == "BinaryMap":
+            return bool(rng.uniform() < 0.4)
+        if tname in ("IntegralMap", "DateMap", "DateTimeMap"):
+            return int(rng.integers(-10**11, 2 * 10**12))
+        if tname in ("RealMap", "PercentMap", "CurrencyMap"):
+            return float(rng.normal())
+        if tname == "MultiPickListMap":
+            return {t for t in ("x", "Y", "z") if rng.uniform() < 0.4}
+        if tname == "GeolocationMap":
+            return [float(rng.uniform(-60, 60)),
+                    float(rng.uniform(-170, 170)), float(rng.integers(1, 6))]
+        return str(rng.choice(["red", "Blue", "green!", "rare"],
+                              p=[0.4, 0.3, 0.27, 0.03]))
+    return {k: one() for k in "abc" if rng.uniform() < 0.7} or None
+
+
+MAP_TYPES = ["EmailMap", "Base64Map", "PhoneMap", "IDMap", "URLMap",
+             "TextAreaMap", "ComboBoxMap", "CountryMap", "StateMap", "CityMap",
+             "PostalCodeMap", "StreetMap", "BinaryMap", "IntegralMap",
+             "PercentMap", "CurrencyMap", "DateMap", "DateTimeMap",
+             "MultiPickListMap", "GeolocationMap"]
+
+
+@pytest.mark.parametrize("tname", MAP_TYPES + ["DateTimeList"])
+def test_every_map_type_and_datetime_list_match_jax(tname):
+    """Every other OPMap subtype (through its map_<type> group) and the
+    DateTimeList group give the JAX package's matrix and metadata."""
+    rng = np.random.default_rng(7)
+    recs = [{"age": float(rng.normal()),
+             "x": (_group_value("DateList", rng) if tname == "DateTimeList"
+                   else _map_value(tname, rng))} for _ in range(400)]
+
+    def vector(FB, U, tm, Defaults):
+        U.reset_uids()
+        return tm([FB.Real("age").as_predictor(),
+                   getattr(FB, tname)("x").as_predictor()],
+                  defaults=Defaults(reference_date_ms=1.6e12))
+    jvec = vector(JFB, JU, j_transmogrify, JDefaults)
+    pvec = vector(PFB, PU, p_transmogrify, PDefaults)
+    jm = JWorkflow().set_reader(JList(recs)).set_result_features(jvec).train()
+    pm = PWorkflow(device="cpu").set_reader(PList(recs)) \
+        .set_result_features(pvec).train()
+    jc, pc = jm._train_data.column(jvec.name), pm._train_data.column(pvec.name)
+    assert pc.data.shape == jc.data.shape and pc.data.shape[1] > 2
+    assert jc.data.tobytes() == pc.data.tobytes()
+    assert jc.metadata.to_json() == pc.metadata.to_json()

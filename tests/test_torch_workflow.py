@@ -322,14 +322,19 @@ def test_ported_model_types_take_the_reference_grids():
 
 
 def test_text_feature_raises_in_transmogrify():
-    """Free text transmogrifies since the text slice; a structured text
-    type whose derivation stage is not ported still raises, naming it."""
+    """Free text transmogrifies since the text slice and the structured
+    text types since theirs: an Email derives its domain PickList first,
+    as in the JAX package; nothing of these raises any more."""
     assert p_tm([PFB.Real("age").as_predictor(),
                  PFB.Text("name").as_predictor()]).type_name == "OPVector"
-    feats = [PFB.Real("age").as_predictor(),
-             PFB.Email("contact").as_predictor()]
-    with pytest.raises(NotImplementedError, match="contact"):
-        p_tm(feats)
+    names = []
+    for FB, U, tm in ((JFB, JU, j_tm), (PFB, PU, p_tm)):
+        U.reset_uids()
+        vec = tm([FB.Real("age").as_predictor(),
+                  FB.Email("contact").as_predictor()])
+        names.append([(p.name, p.type_name) for p in vec.parents])
+    assert names[1] == names[0]
+    assert any(n.startswith("contact_emailDomain") for n, _ in names[1])
 
 
 def test_train_validation_split_workflow_agrees():

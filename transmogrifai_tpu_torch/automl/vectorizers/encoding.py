@@ -12,7 +12,7 @@ are the same bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -150,3 +150,72 @@ def category_counts(data: Sequence[Any], clean_fn,
         cv = clean_fn(u)
         out[cv] = out.get(cv, 0) + int(c)
     return out, n_present
+
+
+def empty_mask(data: Sequence[Any]) -> np.ndarray:
+    """[n] bool: value is falsy (None or an empty collection or string)."""
+    return np.fromiter((not v for v in data), np.bool_, len(data))
+
+
+def float_column(vals: Sequence[Any], fill: float) -> np.ndarray:
+    """[n] float64 with None -> fill."""
+    return np.fromiter(
+        (fill if v is None else float(v) for v in vals),
+        np.float64, len(vals))
+
+
+def triple_block(data: Sequence[Any], fill: Sequence[float]) -> np.ndarray:
+    """[n, 3] from (lat, lon, acc) triples with falsy -> fill."""
+    n = len(data)
+    f0, f1, f2 = (float(fill[0]), float(fill[1]),
+                  float(fill[2])) if len(fill) >= 3 else (0.0, 0.0, 0.0)
+    return np.fromiter(
+        ((v[0], v[1], v[2]) if v else (f0, f1, f2) for v in data),
+        dtype=np.dtype((np.float64, 3)), count=n)
+
+
+def extract_key_columns(data: Sequence[Any], keys: Sequence[str],
+                        clean_fn=None) -> Dict[str, List[Any]]:
+    """Explode a column of dict rows into per-key value lists in ONE pass
+    over the entries. `clean_fn` normalizes raw keys before matching (None
+    = exact match)."""
+    n = len(data)
+    cols: Dict[str, List[Any]] = {k: [None] * n for k in keys}
+    if clean_fn is None:
+        for i, m in enumerate(data):
+            if m:
+                for k, v in m.items():
+                    c = cols.get(k)
+                    if c is not None:
+                        c[i] = v
+    else:
+        # first-wins on cleaned-key collisions ({'First.Name', 'FirstName'}
+        # both cleaning to 'firstname'), as a first-match scan would
+        for i, m in enumerate(data):
+            if m:
+                for k, v in m.items():
+                    c = cols.get(clean_fn(str(k)))
+                    if c is not None and c[i] is None:
+                        c[i] = v
+    return cols
+
+
+def list_reduce(data: Sequence[Any], mode: str
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row max/min of variable-length numeric lists: (reduced [n]
+    float64 with 0.0 for empty, empty_mask [n] bool), through
+    np.maximum/minimum.reduceat over the flattened values."""
+    n = len(data)
+    lengths = np.fromiter((len(v) if v else 0 for v in data), np.int64, n)
+    empty = lengths == 0
+    out = np.zeros(n, np.float64)
+    total = int(lengths.sum())
+    if total:
+        flat = np.fromiter(
+            (float(x) for v in data if v for x in v), np.float64, total)
+        nz = np.nonzero(~empty)[0]
+        starts = np.zeros(len(nz), np.int64)
+        np.cumsum(lengths[nz][:-1], out=starts[1:])
+        ufunc = np.maximum if mode == "max" else np.minimum
+        out[nz] = ufunc.reduceat(flat, starts)
+    return out, empty

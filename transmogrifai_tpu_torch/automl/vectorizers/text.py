@@ -22,7 +22,8 @@ from ...transformers.text import tokenize_text
 from ...types import Text, TextList
 from .base import SequenceVectorizer, VectorizerModel
 from .categorical import clean_text_value
-from .encoding import category_counts, null_mask, pivot_block_single
+from .encoding import (category_counts, factorize, null_mask,
+                       pivot_block_single)
 
 MIN_TOKEN_LENGTH = 1  # reference TextTokenizer.MinTokenLength
 
@@ -41,9 +42,11 @@ def tokenize_hash_counts(docs: Sequence[Optional[str]], bins: int,
     """Documents -> [n, bins + pad_cols] hashed token counts. `pad_cols`
     appends zero columns for in-place indicator writes (the null tracker).
     `out`: pre-zeroed in-place destination (may be a strided slice of the
-    final combined matrix; the combiner sink)."""
-    counts = hash_tokens_to_counts([tokenize(d) for d in docs], bins,
-                                   seed=seed)
+    final combined matrix; the combiner sink). Each distinct document is
+    tokenized and counted once (a missing one as the empty document)."""
+    uniq, inv, _ = factorize(docs)
+    counts = hash_tokens_to_counts([tokenize(d) for d in uniq], bins,
+                                   seed=seed)[inv]
     if out is not None:
         out[:, :bins] = counts
         return out

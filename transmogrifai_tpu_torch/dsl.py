@@ -14,7 +14,7 @@ its module in the JAX package (`UNPORTED`).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 from .features.feature import Feature
 from .types import Binary, OPMap, Prediction, RealNN, OPVector
@@ -274,12 +274,157 @@ def _tf(self, num_features: int = 512):
 
 def _smart_vectorize(self, *others, **kwargs):
     """Cardinality-adaptive text vectorization (RichTextFeature
-    .smartVectorize:223 -> SmartTextVectorizer)."""
+    .smartVectorize:223 -> SmartTextVectorizer); text-map inputs route
+    through the key-discovering map vectorizer, whose 'smarttext' kind is
+    the SmartTextMapVectorizer equivalent (RichMapFeature:280,425)."""
     if issubclass(self.feature_type, OPMap):
-        _raise_unported("smart_vectorize (map input)", "MapVectorizer",
-                        "automl/vectorizers/maps.py")
+        from .automl.vectorizers.maps import MapVectorizer
+        return MapVectorizer(**kwargs).set_input(self, *others).get_output()
     from .automl.vectorizers.text import SmartTextVectorizer
     return SmartTextVectorizer(**kwargs).set_input(self, *others) \
+        .get_output()
+
+
+# -- structured text (RichEmailFeature, RichURLFeature, RichPhoneFeature,
+# RichBase64Feature) ----------------------------------------------------------
+
+def _email_domain(self):
+    from .transformers.text import EmailToPickList
+    return _unary(self, EmailToPickList)
+
+
+def _is_valid_email(self):
+    from .transformers.text import ValidEmailTransformer
+    return _unary(self, ValidEmailTransformer)
+
+
+def _email_prefix(self):
+    from .transformers.text import EmailPrefixTransformer
+    return _unary(self, EmailPrefixTransformer)
+
+
+def _url_domain(self):
+    from .transformers.text import UrlPartsTransformer
+    return _unary(self, UrlPartsTransformer, part="domain")
+
+
+def _url_protocol(self):
+    from .transformers.text import UrlPartsTransformer
+    return _unary(self, UrlPartsTransformer, part="protocol")
+
+
+def _is_valid_url(self, protocols=None):
+    from .transformers.text import ValidUrlTransformer
+    stage = ValidUrlTransformer()
+    if protocols is not None:
+        stage.set_param("protocols", list(protocols))
+    return stage.set_input(self).get_output()
+
+
+def _detect_mime_types(self):
+    from .transformers.text import MimeTypeDetector
+    return _unary(self, MimeTypeDetector)
+
+
+def _is_valid_phone(self, default_region: str = "US"):
+    from .transformers.text import PhoneNumberParser
+    return _unary(self, PhoneNumberParser, default_region=default_region)
+
+
+def _parse_phone(self, default_region: str = "US"):
+    """Normalized E.164 text (RichTextFeature.parsePhone:464 /
+    parsePhoneDefaultCountry:489)."""
+    from .transformers.text import PhoneParser
+    return _unary(self, PhoneParser, default_region=default_region)
+
+
+# -- dates (RichDateFeature) -------------------------------------------------
+
+def _to_unit_circle(self, time_period: str = "HourOfDay", **kwargs):
+    """Date -> [sin, cos] of a calendar period (RichDateFeature
+    .toUnitCircle:68); DateMap/DateTimeMap inputs take the per-key map
+    route (RichMapFeature.toUnitCircle:716)."""
+    if issubclass(self.feature_type, OPMap):
+        return _to_unit_circle_map(self, time_period=time_period, **kwargs)
+    from .transformers.misc import DateToUnitCircleTransformer
+    return _unary(self, DateToUnitCircleTransformer, time_period=time_period)
+
+
+def _to_unit_circle_map(self, time_period: str = "HourOfDay",
+                        clean_keys: bool = False,
+                        allow_listed_keys=None, block_listed_keys=None):
+    """DateMap -> per-key [sin, cos] unit-circle vector (RichMapFeature
+    .toUnitCircle:716 -> DateMapToUnitCircleVectorizer)."""
+    from .automl.vectorizers.maps import DateMapUnitCircleVectorizer
+    return DateMapUnitCircleVectorizer(
+        time_period=time_period, clean_keys=clean_keys,
+        allow_listed_keys=allow_listed_keys,
+        block_listed_keys=block_listed_keys).set_input(self).get_output()
+
+
+def _to_date_list(self):
+    """Date -> DateList / DateTime -> DateTimeList (RichDateFeature
+    .toDateList:54)."""
+    from .transformers.misc import DateToListTransformer
+    return _unary(self, DateToListTransformer)
+
+
+def _vectorize_dates(self, *others, **kwargs):
+    """Date features -> circular-encoded vector (RichDateFeature
+    .vectorize:97)."""
+    from .automl.vectorizers.dates import DateVectorizer
+    return DateVectorizer(**kwargs).set_input(self, *others).get_output()
+
+
+# -- maps and geolocation (RichMapFeature, RichLocationFeature) --------------
+
+def _filter_keys(self, allow: Optional[Sequence[str]] = None,
+                 block: Optional[Sequence[str]] = None):
+    """Keep/drop map keys (RichMapFeature.filter:58 whiteList/blackList)."""
+    from .transformers.misc import FilterMapKeys
+    return FilterMapKeys(allow=allow, block=block) \
+        .set_input(self).get_output()
+
+
+def _vectorize_map(self, *others, **kwargs):
+    """Per-key map vectorization dispatched on the map's type
+    (RichMapFeature.vectorize overloads)."""
+    from .automl.transmogrifier import TransmogrifierDefaults
+    from .automl.vectorizers.maps import map_vectorizer_for
+    stage = map_vectorizer_for(self.type_name, TransmogrifierDefaults)
+    for k, v in kwargs.items():
+        stage.set_param(k, v)
+    return stage.set_input(self, *others).get_output()
+
+
+def _autobucketize_map(self, label: Feature, **kwargs):
+    """Label-aware bucketization of every numeric map key
+    (RichMapFeature.autoBucketize:542 ->
+    DecisionTreeNumericMapBucketizer)."""
+    from .transformers.misc import DecisionTreeNumericMapBucketizer
+    return DecisionTreeNumericMapBucketizer(**kwargs) \
+        .set_input(label, self).get_output()
+
+
+def _is_valid_phone_map(self, default_region: str = "US"):
+    """Per-key phone validity (RichMapFeature
+    .isValidPhoneDefaultCountryMap)."""
+    from .transformers.misc import PhoneValidityMap
+    return _unary(self, PhoneValidityMap, default_region=default_region)
+
+
+def _detect_mime_types_map(self):
+    """Per-key MIME detection on Base64 maps (RichMapFeature
+    .detectMimeTypes)."""
+    from .transformers.misc import MimeTypeMap
+    return _unary(self, MimeTypeMap)
+
+
+def _vectorize_geo(self, *others, **kwargs):
+    """Geolocation -> mean-imputed (lat, lon, acc) block
+    (RichLocationFeature.vectorize:63)."""
+    from .automl.vectorizers.geo import GeolocationVectorizer
+    return GeolocationVectorizer(**kwargs).set_input(self, *others) \
         .get_output()
 
 
@@ -320,9 +465,6 @@ def _random_forest_vec(self, label: Feature, **params):
 UNPORTED: Dict[str, Tuple[str, str]] = {
     "text_len": ("TextLenTransformer", "transformers/text.py"),
     "detect_languages": ("LangDetector", "transformers/text.py"),
-    "detect_mime_types": ("MimeTypeDetector", "transformers/text.py"),
-    "is_valid_phone": ("PhoneNumberParser", "transformers/text.py"),
-    "email_domain": ("EmailToPickList", "transformers/text.py"),
     "index_string": ("OpStringIndexer", "transformers/text.py"),
     "count_vectorize": ("OpCountVectorizer", "transformers/text.py"),
     "tf_idf": ("TfIdfVectorizer", "transformers/text.py"),
@@ -332,33 +474,13 @@ UNPORTED: Dict[str, Tuple[str, str]] = {
     "ngram_similarity": ("NGramSimilarity", "transformers/text.py"),
     "jaccard_similarity": ("JaccardSimilarity", "transformers/text.py"),
     "loco_insights": ("RecordInsightsLOCO", "insights/"),
-    "to_unit_circle": ("DateToUnitCircleTransformer",
-                       "transformers/misc.py"),
-    "to_unit_circle_map": ("DateMapUnitCircleVectorizer",
-                           "automl/vectorizers/maps.py"),
-    "to_date_list": ("DateToListTransformer", "transformers/misc.py"),
-    "to_date_time_list": ("DateToListTransformer", "transformers/misc.py"),
-    "vectorize_dates": ("DateVectorizer", "automl/vectorizers/dates.py"),
-    "filter_keys": ("FilterMapKeys", "transformers/misc.py"),
-    "vectorize_map": ("map_vectorizer_for", "automl/vectorizers/maps.py"),
-    "autobucketize_map": ("DecisionTreeNumericMapBucketizer",
-                          "transformers/misc.py"),
-    "vectorize_geo": ("GeolocationVectorizer", "automl/vectorizers/geo.py"),
     "to_multi_pick_list": ("TextToMultiPickList", "transformers/text.py"),
-    "is_valid_email": ("ValidEmailTransformer", "transformers/text.py"),
-    "email_prefix": ("EmailPrefixTransformer", "transformers/text.py"),
-    "url_domain": ("UrlPartsTransformer", "transformers/text.py"),
-    "url_protocol": ("UrlPartsTransformer", "transformers/text.py"),
-    "is_valid_url": ("ValidUrlTransformer", "transformers/text.py"),
     "to_isotonic_calibrated": ("IsotonicRegressionCalibrator",
                                "models/mlp.py"),
     "is_substring": ("SubstringTransformer", "transformers/text.py"),
     "tokenize_regex": ("RegexTokenizer", "transformers/text.py"),
     "remove_stop_words": ("StopWordsRemover", "transformers/text.py"),
     "ngram": ("NGramTransformer", "transformers/text.py"),
-    "is_valid_phone_map": ("PhoneValidityMap", "transformers/misc.py"),
-    "detect_mime_types_map": ("MimeTypeMap", "transformers/misc.py"),
-    "parse_phone": ("PhoneParser", "transformers/text.py"),
     "deindexed": ("OpIndexToString", "transformers/text.py"),
     "idf": ("OpIDF", "transformers/text.py"),
 }
@@ -403,6 +525,21 @@ def install() -> None:
         "map": _map_feature, "filter_not": _filter_not,
         "collect": _collect, "random_forest": _random_forest_vec,
         "smart_vectorize": _smart_vectorize,
+        "email_domain": _email_domain, "is_valid_email": _is_valid_email,
+        "email_prefix": _email_prefix, "url_domain": _url_domain,
+        "url_protocol": _url_protocol, "is_valid_url": _is_valid_url,
+        "detect_mime_types": _detect_mime_types,
+        "is_valid_phone": _is_valid_phone, "parse_phone": _parse_phone,
+        "to_unit_circle": _to_unit_circle,
+        "to_unit_circle_map": _to_unit_circle_map,
+        "to_date_list": _to_date_list,
+        "to_date_time_list": _to_date_list,  # DateTime in -> DateTimeList
+        "vectorize_dates": _vectorize_dates,
+        "filter_keys": _filter_keys, "vectorize_map": _vectorize_map,
+        "autobucketize_map": _autobucketize_map,
+        "is_valid_phone_map": _is_valid_phone_map,
+        "detect_mime_types_map": _detect_mime_types_map,
+        "vectorize_geo": _vectorize_geo,
         "auto_transform": _vectorize,  # RichFeaturesCollection alias
     }
     ops.update({name: _unported(name) for name in UNPORTED})

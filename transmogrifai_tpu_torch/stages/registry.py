@@ -22,6 +22,9 @@ _STAGE_MODULES = [
     "transmogrifai_tpu_torch.automl.vectorizers.categorical",
     "transmogrifai_tpu_torch.automl.vectorizers.combiner",
     "transmogrifai_tpu_torch.automl.vectorizers.text",
+    "transmogrifai_tpu_torch.automl.vectorizers.dates",
+    "transmogrifai_tpu_torch.automl.vectorizers.geo",
+    "transmogrifai_tpu_torch.automl.vectorizers.maps",
     "transmogrifai_tpu_torch.transformers.math",
     "transmogrifai_tpu_torch.transformers.misc",
     "transmogrifai_tpu_torch.transformers.text",
