@@ -114,7 +114,23 @@ Phases, each of which fails the run on error:
              key of train() (F = 650) against its plain version (rows of
              the kernels line, phase "wide"), while the CPU's leg trains
              in a thread;
-14. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
+14. workflow-events — an event log through the data-prep flow
+             (`event_log`: 200 000 users' profiles, 1.5M events over 60
+             days): the profiles through an AggregateReader keyed by user,
+             left-outer joined with the events and re-aggregated around a
+             day-45 cutoff (sums over 1, 7 and 30 days, mean, last, union,
+             concat, logical or, midpoint; the label a purchase within 7
+             days after), RawFeatureFilter with the day-52 snapshot's reader
+             as its score reader (three seeded drops: a drift, a low fill
+             rate, a label leak), transmogrify, SanityChecker() and the
+             workflow-wide selector inside Workflow().train(), then score()
+             of the score snapshot: each reader's wall and rows, the
+             filter's drops and reasons, walls, winner and holdout AuPR
+             against the prevalence, every kernel at each key of train()
+             against its plain version (phase "events"); the leg at 5 000
+             users on the CPU and on the card: readers, drops, reasons,
+             matrix and winner identical, scores within 1e-5 or a tie;
+15. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
              5 folds, the selector's default model types and grids: LR,
              RF, GBT and SVC, max_depth up to 12): the wall of each stage
              and of each family's sweep, each host-to-device copy, peak
@@ -174,6 +190,8 @@ TITANIC_ROWS = 100_000        # workflow-titanic's main path (PERF.md §4)
 WIDE_ROWS = 1_000_000         # bench.py's wide_rows: workflow-wide's main path
 WIDE_LEG_ROWS = 20_000        # workflow-wide's CPU-against-card leg
 WIDE_SCORE_ROWS = 100_000     # new rows workflow-wide scores
+EVENTS_USERS = 200_000        # workflow-events' main path (PERF.md §4)
+EVENTS_LEG_USERS = 5_000      # workflow-events' CPU-against-card leg
 XGB_GRID = [dict(num_round=10, max_depth=d, eta=e, reg_lambda=lam,
                  max_bins=32)
             for d in (4, 6) for e in (0.05, 0.1, 0.2, 0.3) for lam in (1.0, 5.0)]
@@ -401,7 +419,8 @@ def kernel_rows(shapes: list, phase: str = "tree",
                    copy_ms=copy_ms, moved_bytes=moved,
                    check_s=check_s, timing_s=time.perf_counter() - t_timing,
                    key=capture_key(key, name, args, kw)
-                   if phase in ("workflow", "titanic", "wide") else key)
+                   if phase in ("workflow", "titanic", "wide", "events")
+                   else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
             f"ms={ms:.4f} earlier_ms={earlier_ms} ({path} vs rows) "
@@ -1749,6 +1768,420 @@ def workflow_wide_phase(rows: int, seed: int):
     return ok, capture_launches, wide_rows_out
 
 
+EVENT_DAY_MS = 86_400_000
+EVENTS_T0 = 1_600_000_000_000         # the event log's day 0 (epoch ms)
+EVENTS_DAYS = 60
+EVENTS_CUTOFF_DAY = 45                # train cutoff; the score reader's: 52
+EVENTS_SCORE_DAY = 52
+EVENTS_PER_USER = 10                  # events a user, on average
+# workflow-events' main path: 1.5M events over 200 000 users. At 10 a user
+# (2M events) the phase took 152 s of its 150 s clock on one host (PERF.md
+# §4): the cut is the event count only, never the schema.
+EVENTS_MAIN_PER_USER = 7.5
+EVENTS_REFERENCE_MS = EVENTS_T0 + EVENTS_DAYS * EVENT_DAY_MS
+EVENTS_DROPS = ("balance", "referral", "supportTicket")
+_EVENT_CHANNELS = ["web", "app", "email", "store", "phone", "partner"]
+_EVENT_TAGS = ["new", "sale", "gift", "bulk", "return", "promo"]
+
+
+def event_log(n_users: int, seed: int,
+              events_per_user: float = EVENTS_PER_USER) -> dict:
+    """A seeded event log in the shape of the JAX package's
+    JoinsAndAggregates: a profiles table (a Real income, a PickList segment
+    of 12, a Date signup, a Geolocation home) and an events table over
+    `EVENTS_DAYS` days (a Real amount, a PickList category of 20, a
+    MultiPickList of tags, a Text channel, a Binary flag, a Percent
+    discount, a Geolocation, an event time, and whether it was a
+    purchase), `events_per_user` events a user on average, their rate and
+    content driven by a latent user propensity. The profiles come as two
+    snapshots, one per cutoff: day `EVENTS_CUTOFF_DAY` (train) and
+    `EVENTS_SCORE_DAY` (score). Three profile fields are seeded for
+    RawFeatureFilter: `balance` drifts between the snapshots (train
+    uniform over [0, 100), score above 500: JS divergence ~0.96),
+    `referral` is filled for one user in 4 000 (fill rate 0.00025), and
+    `supportTicket` is filled exactly for the users who buy within 7 days
+    after the snapshot's cutoff (the label: its nulls leak it). Every
+    signup time differs by the millisecond, so no vectorized date column
+    is a nonzero constant.
+    Returns {"profiles_train", "profiles_score", "events"} as lists of
+    dict records."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, day = n_users, EVENT_DAY_MS
+    z = rng.normal(size=n)
+    users = [f"u{i:07d}" for i in range(n)]
+    income = np.round(rng.lognormal(3.6 + 0.3 * z, 0.4), 2).tolist()  # k$
+    segment = [f"seg{k}" for k in np.clip(
+        np.round(6 + 2 * z + rng.normal(0, 2, n)), 0, 11).astype(int)]
+    signup = (EVENTS_T0 - rng.integers(day, 3 * 365 * day, n)).tolist()
+    home_lat = rng.uniform(25, 50, n)
+    home_lon = rng.uniform(-120, -70, n)
+    home = [[a, o, float(c)] for a, o, c in zip(
+        home_lat.tolist(), home_lon.tolist(), rng.integers(1, 6, n).tolist())]
+    rate = np.exp(0.4 * z)
+    counts = rng.poisson(rate * events_per_user / rate.mean())
+    u = np.repeat(np.arange(n), counts)
+    m = len(u)
+    t = EVENTS_T0 + rng.integers(0, EVENTS_DAYS * day, m)
+    amount = np.round(rng.lognormal(2.2 + 0.4 * z[u], 0.6), 2)
+    cat = np.clip(np.round(10 + 3 * z[u] + rng.normal(0, 4, m)), 0, 19)
+    n_tags = rng.integers(0, 3, m)
+    tag_ids = rng.integers(0, len(_EVENT_TAGS), (m, 2))
+    chan = rng.choice(len(_EVENT_CHANNELS), m,
+                      p=[0.35, 0.3, 0.15, 0.1, 0.06, 0.04])
+    flag = rng.uniform(size=m) < 1 / (1 + np.exp(1.5 - z[u]))
+    pct = np.round(rng.uniform(-0.05, 1.05, m), 3)
+    lat = np.round(home_lat[u] + rng.normal(0, 0.5, m), 4)
+    lon = np.round(home_lon[u] + rng.normal(0, 0.5, m), 4)
+    buy = rng.uniform(size=m) < 1 / (1 + np.exp(2.2 - 1.2 * z[u]))
+    tags = [[_EVENT_TAGS[a] for a in row[:k]]
+            for row, k in zip(tag_ids.tolist(), n_tags.tolist())]
+    events = [
+        {"user": users[i], "t": ti, "amount": a, "category": f"c{int(c)}",
+         "tags": tg, "channel": _EVENT_CHANNELS[ch], "flag": f,
+         "discount": d, "geo": [la, lo, 1.0],
+         "kind": "purchase" if b else "view"}
+        for i, ti, a, c, tg, ch, f, d, la, lo, b in zip(
+            u.tolist(), t.tolist(), amount.tolist(), cat.tolist(), tags,
+            chan.tolist(), flag.tolist(), pct.tolist(), lat.tolist(),
+            lon.tolist(), buy.tolist())]
+    ticket = np.round(rng.lognormal(2, 1, n), 2).tolist()
+    referral_at = set(range(7, n, 4000))
+
+    def profiles(cutoff_day: int, balance) -> list:
+        c = EVENTS_T0 + cutoff_day * day
+        # the label's rule: a purchase at cutoff <= t < cutoff + 7 days
+        hit = buy & (t >= c) & (t < c + 7 * day)
+        bought = np.bincount(u[hit], minlength=n) > 0
+        return [{"user": users[i], "cutoff": c, "income": income[i],
+                 "segment": segment[i], "signup": signup[i],
+                 "home": home[i], "balance": balance[i],
+                 "referral": 25.0 if i in referral_at else None,
+                 "supportTicket": ticket[i] if bought[i] else None}
+                for i in range(n)]
+    base = rng.uniform(0, 100, n)
+    return {"profiles_train": profiles(EVENTS_CUTOFF_DAY,
+                                       np.round(base, 2).tolist()),
+            "profiles_score": profiles(EVENTS_SCORE_DAY,
+                                       np.round(base + 500, 2).tolist()),
+            "events": events}
+
+
+def _max0(a, b):
+    return max(a, b)
+
+
+def events_features(FB) -> dict:
+    """The events flow's raw features, built with either package's
+    FeatureBuilder: the profile side (`left`: income, segment, signup,
+    home and the three seeded fields), the event side (`right`: spend
+    summed over 1, 7 and 30 days, mean amount, last category, tag union,
+    channel concat, the flag's logical or, the mean discount, the event
+    midpoint), the two time columns (`cutoff`, `t`) and the response
+    (`label`: a purchase within 7 days after the cutoff)."""
+    day = EVENT_DAY_MS
+
+    def get(key):
+        return lambda r: r.get(key)
+    left = [FB.Real("income").extract(get("income")).as_predictor(),
+            FB.PickList("segment").extract(get("segment")).as_predictor(),
+            FB.Date("signup").extract(get("signup")).as_predictor(),
+            FB.Geolocation("home").extract(get("home")).as_predictor()] + \
+        [FB.Real(name).extract(get(name)).as_predictor()
+         for name in EVENTS_DROPS]
+    spend = [FB.Real(f"spend{d}d").extract(get("amount")).aggregate("sum")
+             .window(d * day).as_predictor() for d in (1, 7, 30)]
+    right = spend + [
+        FB.Real("meanAmount").extract(get("amount")).aggregate("mean")
+        .as_predictor(),
+        FB.PickList("lastCategory").extract(get("category"))
+        .aggregate("last").as_predictor(),
+        FB.MultiPickList("tags").extract(get("tags")).aggregate("union")
+        .as_predictor(),
+        FB.Text("channels").extract(get("channel")).aggregate("concat")
+        .as_predictor(),
+        FB.Binary("anyFlag").extract(get("flag")).aggregate("logical_or")
+        .as_predictor(),
+        FB.Percent("discount").extract(get("discount")).as_predictor(),
+        FB.Geolocation("eventMidpoint").extract(get("geo"))
+        .aggregate("midpoint").as_predictor()]
+    label = FB.RealNN("purchased").extract(
+        lambda r: 1.0 if r.get("kind") == "purchase" else 0.0) \
+        .aggregate(_max0, zero=lambda: 0.0).window(7 * day).as_response()
+    return dict(left=left, right=right, label=label,
+                cutoff=FB.Date("cutoff").extract(get("cutoff"))
+                .as_predictor(),
+                t=FB.Date("t").extract(get("t")).as_predictor())
+
+
+def events_reader(R, feats: dict, profiles: list, events: list):
+    """The profiles through an AggregateReader keyed by user, left-outer
+    joined with the event-level events (keyed by user), then re-aggregated
+    per user around each profile's cutoff (`with_secondary_aggregation`,
+    a 30-day TimeBasedFilter; the time columns dropped). `R` is either
+    package's readers module."""
+    names = lambda fs: [f.name for f in fs]   # noqa: E731
+    prof = R.AggregateReader(R.ListReader(profiles),
+                             key_fn=lambda r: r["user"])
+    ev = R.ListReader(events, key_fn=lambda r: r["user"])
+    return prof.left_outer_join(
+        ev, left_features=names(feats["left"] + [feats["cutoff"]]),
+        right_features=names(feats["right"] + [feats["t"],
+                                               feats["label"]]),
+    ).with_secondary_aggregation(R.TimeBasedFilter(
+        condition=R.TimeColumn("cutoff", keep=False),
+        primary=R.TimeColumn("t", keep=False),
+        time_window=30 * EVENT_DAY_MS))
+
+
+def events_workflow(pkg: dict, log: dict, selector, device=None):
+    """(workflow, prediction, score reader) of the events flow in either
+    package (`pkg`: FeatureBuilder FB, readers R, transmogrify,
+    TransmogrifierDefaults Defaults, SanityChecker SC, RawFeatureFilter
+    RFF, Workflow): the joined aggregate reader of the train snapshot ->
+    RawFeatureFilter(score_reader=the score snapshot's reader) ->
+    transmogrify -> SanityChecker() -> `selector` -> Workflow(device)."""
+    feats = events_features(pkg["FB"])
+    R = pkg["R"]
+    train = events_reader(R, feats, log["profiles_train"], log["events"])
+    score = events_reader(R, feats, log["profiles_score"], log["events"])
+    vec = pkg["transmogrify"](
+        feats["left"] + feats["right"], defaults=pkg["Defaults"](
+            reference_date_ms=EVENTS_REFERENCE_MS))
+    checked = pkg["SC"]().set_input(feats["label"], vec).get_output()
+    pred = selector.set_input(feats["label"], checked).get_output()
+    dev = {} if device is False else {"device": device}
+    wf = pkg["Workflow"](**dev).set_reader(train).set_result_features(
+        pred, feats["cutoff"], feats["t"]).with_raw_feature_filter(
+            pkg["RFF"](score_reader=score))
+    return wf, pred, score
+
+
+def port_events_pkg() -> dict:
+    from transmogrifai_tpu_torch import readers as R
+    from transmogrifai_tpu_torch.automl.preparators import SanityChecker
+    from transmogrifai_tpu_torch.automl.transmogrifier import (
+        TransmogrifierDefaults, transmogrify)
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter
+    from transmogrifai_tpu_torch.workflow import Workflow
+    return dict(FB=FeatureBuilder, R=R, transmogrify=transmogrify,
+                Defaults=TransmogrifierDefaults, SC=SanityChecker,
+                RFF=RawFeatureFilter, Workflow=Workflow)
+
+
+@contextlib.contextmanager
+def time_calls(obj, method: str, store: list, keep: list = None):
+    """Inside the block, each call of `obj.method` appends (wall seconds,
+    rows of the dataset it returns or None) to `store`, and what it
+    returns to `keep` where given."""
+    original = getattr(obj, method)
+
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = original(*args, **kw)
+        ds = getattr(out, "cleaned", out)
+        store.append((time.perf_counter() - t0,
+                      getattr(ds, "n_rows", None)))
+        if keep is not None:
+            keep.append(out)
+        return out
+    setattr(obj, method, run)
+    try:
+        yield store
+    finally:
+        setattr(obj, method, original)
+
+
+def events_dataset_digest(ds) -> str:
+    """A digest of a reader's dataset: column names, kinds, keys, values
+    and nulls (repr of every cell, NaN and None kept apart)."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in ds.column_names():
+        col = ds.column(name)
+        h.update(f"{name}:{col.kind}:{col.data.dtype}".encode())
+        if col.data.dtype.kind == "f":
+            h.update(col.data.tobytes())
+        else:
+            for v in col.data:
+                h.update(repr(sorted(v) if isinstance(v, set)
+                              else v).encode())
+    return h.hexdigest()
+
+
+def events_leg_run(log: dict, device) -> dict:
+    """One run of workflow-events' CPU-against-card leg: the events flow
+    with `wide_selector(leg=True)` trained on `device` with its refit
+    levels recorded, the two readers' datasets digested, RawFeatureFilter's
+    drops and exclusion reasons kept, and the score snapshot scored."""
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    reset_uids()
+    wf, pred, score = events_workflow(port_events_pkg(), log,
+                                      wide_selector(leg=True), device)
+    t0 = time.perf_counter()
+    with record_refit_levels([]) as levels:
+        model = wf.train()
+    train_s = time.perf_counter() - t0
+    score_ds = score.generate_dataset(model.raw_features())
+    return dict(
+        model=model, pred=pred, levels=levels, train_s=train_s,
+        digests=[events_dataset_digest(wf._reader.generate_dataset(
+            model.raw_features())), events_dataset_digest(score_ds)],
+        blacklist=list(model.blacklist),
+        reasons=[r.to_json() for r in
+                 model.rff_results.exclusion_reasons],
+        scored=model.score(score_ds).data(pred.name))
+
+
+def workflow_events_phase(users: int, seed: int):
+    """An event log through the data-prep flow (`event_log`,
+    `events_workflow`): the profiles through an AggregateReader and the
+    events, left-outer joined and re-aggregated around a day-45 cutoff
+    (`with_secondary_aggregation`), RawFeatureFilter with the day-52
+    snapshot's reader as its score reader, transmogrify, SanityChecker()
+    and `wide_selector()` (LR's default grid, RF 10 trees at depth {3, 6},
+    GBT 10 rounds at depth 4, 3 folds) inside Workflow().train(), then
+    score() of the score snapshot's users (the dataset the filter's score
+    reader made inside train(): each snapshot is read once).
+
+    The leg at `EVENTS_LEG_USERS` users with `wide_selector(leg=True)` on
+    the CPU and on the card: the two readers' datasets, RawFeatureFilter's
+    drops and exclusion reasons, the matrix and the winner identical, the
+    scores within 1e-5 a row or a tie witness (`compare_runs`).
+
+    The main path: `users` users on the card. Each reader's wall and rows,
+    RawFeatureFilter's wall and its drops with their reasons (exactly
+    `EVENTS_DROPS`, each for its own reason), the width, the
+    SanityChecker's flags, train and score walls, each family's sweep, peak
+    device memory, the winner and the holdout AuPR against the prevalence;
+    launch counters reset just before train() and read just after, every
+    kernel launched; each kernel at every (kernel, F, S, C, Fo) key of
+    train() on the inputs of its first launch against its plain version
+    (rows of the kernels line, phase "events"). Returns (ok, launches by
+    capture key, kernel rows)."""
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.readers import readers as R
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+
+    t_phase = t0 = time.perf_counter()
+    small = event_log(EVENTS_LEG_USERS, seed + 31)
+    legs = {dev or "cuda": events_leg_run(small, dev)
+            for dev in ("cpu", None)}
+    cpu, card = legs["cpu"], legs["cuda"]
+    cmp = dict(compare_runs(cpu, card), users=EVENTS_LEG_USERS,
+               readers_identical=cpu["digests"] == card["digests"],
+               rff_identical=(cpu["blacklist"] == card["blacklist"]
+                              and cpu["reasons"] == card["reasons"]),
+               blacklist=card["blacklist"], train_s_cpu=cpu["train_s"],
+               train_s_cuda=card["train_s"])
+    leg_s = time.perf_counter() - t0
+    log(f"workflow-events cpu-vs-card ({leg_s:.2f}s): " + json.dumps(cmp))
+    leg_ok = (runs_agree(cmp) and cmp["readers_identical"]
+              and cmp["rff_identical"]
+              and sorted(cmp["blacklist"]) == sorted(EVENTS_DROPS))
+    del legs, cpu, card, small
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ev_log = event_log(users, seed + 33, EVENTS_MAIN_PER_USER)
+    n_events = len(ev_log["events"])
+    data_s = time.perf_counter() - t0
+    reset_uids()
+    wf, pred, _ = events_workflow(port_events_pkg(), ev_log,
+                                      wide_selector())
+    selector = pred.origin_stage
+    reader_walls, rff_walls, read = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, capture_launches = {}, collections.Counter()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    with time_calls(R.JoinedAggregateReader, "generate_dataset",
+                    reader_walls, read), \
+            time_calls(RawFeatureFilter, "apply", rff_walls), \
+            capture_kernel_inputs(captured, capture_launches):
+        model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = dict(TK.launches)
+    shape_launches = dict(TK.shape_launches)
+    capture_launches = dict(capture_launches)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sel = model.selector_summary()
+    sc = model.sanity_checker_summary()
+    vec, _ = vector_names(model)
+    width = int(model._train_data.data(vec).shape[1])
+    label = model._train_data.data("purchased")
+    prevalence = float(np.mean(label))
+    best = max(sel.validation_results, key=lambda v: v["mean_metric"])
+    families = family_results(sel, selector)
+    walls = stage_walls(model)
+    rff = model.rff_results
+    reasons = {r.name: [k for k in ("low_fill_rate", "high_fill_rate_diff",
+                                    "high_fill_ratio_diff",
+                                    "high_js_divergence", "null_leakage")
+                        if getattr(r, k)]
+               for r in rff.exclusion_reasons
+               if r.key is None and r.excluded}
+    js = {r.name: r.js_divergence for r in rff.exclusion_reasons
+          if r.name in EVENTS_DROPS}
+    model._train_data = None
+    score_ds = read[-1]
+    del read
+    t0 = time.perf_counter()
+    scored = model.score(score_ds)
+    score_s = time.perf_counter() - t0
+    probs = scored.data(pred.name)
+    main_s = time.perf_counter() - t_phase - leg_s
+    rows_out = kernel_rows([captured_shape(key, *captured[key],
+                                           prefix="workflow-events")
+                            for key in sorted(captured)], phase="events")
+    del captured
+    torch.cuda.empty_cache()
+    res = dict(
+        users=users, events=n_events, phase_s=time.perf_counter() - t_phase,
+        leg_s=leg_s, main_s=main_s, data_s=data_s,
+        reader_walls_s_rows=dict(zip(("train", "score"), reader_walls)),
+        rff_s=[w for w, _ in rff_walls], rff_drops=reasons,
+        rff_js_of_seeded=js, train_s=train_s, score_s=score_s,
+        stage_walls_s=walls, selector_walls_s=selector.walls,
+        width=width, flagged=len(sc.dropped),
+        winner=[sel.best_model_name, sel.best_grid],
+        winner_cv_aupr=best["mean_metric"],
+        holdout_aupr=sel.holdout_evaluation.get("au_pr"),
+        holdout_auroc=sel.holdout_evaluation.get("au_roc"),
+        prevalence=prevalence, families=families,
+        peak_device_gb_train=train_peak_gb,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, shape_launches=shape_launches,
+        capture_launches=capture_launches)
+    log("workflow-events: " + json.dumps(res))
+    by_shape = collections.Counter()
+    for key, n in capture_launches.items():
+        by_shape[launch_key(key)] += n
+    ok = (leg_ok and sorted(model.blacklist) == sorted(EVENTS_DROPS)
+          and reasons == {"balance": ["high_js_divergence"],
+                          "referral": ["low_fill_rate"],
+                          "supportTicket": ["null_leakage"]}
+          and len(reader_walls) == 2
+          and all(n == users for _, n in reader_walls)
+          and all(n > 0 for n in launches.values())
+          and set(launches) == set(TK.KERNELS)
+          and {r["key"] for r in rows_out} == set(capture_launches)
+          and dict(by_shape) == shape_launches
+          and set(families) == {"OpLogisticRegression",
+                                "OpRandomForestClassifier",
+                                "OpGBTClassifier"}
+          and probs.shape[0] == users
+          and bool(np.isfinite(probs).all())
+          and best["mean_metric"] > prevalence
+          and sel.holdout_evaluation["au_pr"] > prevalence)
+    return ok, capture_launches, rows_out
+
+
 @contextlib.contextmanager
 def record_refit_levels(store: list):
     """Inside the block, every one-lane call of the tree fit's level split
@@ -2292,7 +2725,9 @@ def main() -> int:
     for name, phase, n_rows, key in (
             ("workflow-titanic", workflow_titanic_phase, TITANIC_ROWS,
              "titanic"),
-            ("workflow-wide", workflow_wide_phase, WIDE_ROWS, "wide")):
+            ("workflow-wide", workflow_wide_phase, WIDE_ROWS, "wide"),
+            ("workflow-events", workflow_events_phase, EVENTS_USERS,
+             "events")):
         ok, counts[key], new_rows = phase(n_rows, SEED)
         if not ok:
             failures.append(name)

@@ -216,7 +216,13 @@ def test_feature_builder_graph_agrees():
 
 
 def test_feature_builder_rejects_named_aggregators():
-    with pytest.raises(NotImplementedError, match="sum"):
-        PFB.Real("x").aggregate("sum")
+    # named aggregators are ported now: a name builds the JAX package's
+    # monoid, an unknown one raises as there
+    assert PFB.Real("x").aggregate("sum").as_predictor().origin_stage \
+        .aggregator.aggregator.reduce([1.0, None, 2.0]) == 3.0
+    with pytest.raises(ValueError, match="Unknown aggregator"):
+        PFB.Real("x").aggregate("median")
+    with pytest.raises(ValueError, match="Unknown aggregator"):
+        JFB.Real("x").aggregate("median")
     agg = PFB.Real("x").aggregate(lambda a, b: (a or 0) + b).as_predictor()
     assert agg.origin_stage.aggregator.aggregator.reduce([1.0, 2.0]) == 3.0

@@ -15,6 +15,11 @@ linear SVC take the streamed route with per-lane retirement
 below it. Module names mirror the JAX package. Importing the package
 installs the feature dsl (dsl.py): `fare + age`, `age.z_normalize()`,
 `sex.pivot()`, `name.tokenize()` and the rest of the JAX package's names.
+The package exports the JAX package's top-level names (the feature types,
+`FeatureBuilder`, `Feature`, the stage base classes, `Dataset`, `Column`)
+and `Workflow`. Event logs come in through the aggregate, conditional and
+joined readers (readers/), and `Workflow.with_raw_feature_filter` drops
+unreliable raw features before `transmogrify()` (filters/).
 
 The package imports torch and numpy only, never jax or transmogrifai_tpu.
 Entry points run on the GPU unless the caller asks for the CPU
@@ -41,4 +46,19 @@ without CUDA they raise instead of running on the CPU.
     scores = model.score()
 """
 
+from . import types  # noqa: E402
+from .types import *  # noqa: E402,F401,F403 — feature type hierarchy
+from .features.feature import Feature, FeatureHandle, FeatureHistory  # noqa
+from .features.builder import FeatureBuilder, infer_feature_type  # noqa
+from .features.generator import FeatureGeneratorStage  # noqa: E402
+from .stages.base import (  # noqa: E402
+    Estimator, LambdaTransformer, PipelineStage, TorchTransformer,
+    Transformer, binary_transformer, unary_transformer,
+)
+from .stages.params import Param, ParamMap, param_grid  # noqa: E402
+from .data.dataset import Column, Dataset, column_from_values  # noqa
+from .data.vector import VectorColumnMetadata, VectorMetadata  # noqa
+from .workflow import Workflow, WorkflowModel  # noqa: E402
 from . import dsl  # noqa: E402,F401 — installs the rich feature syntax
+
+__all__ = [n for n in dir() if not n.startswith("_")]

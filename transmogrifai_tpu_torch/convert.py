@@ -8,7 +8,7 @@ the same fitted workflow (`workflow_model_from_jax`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -94,7 +94,9 @@ def _fitted_stage(state: Dict[str, Any], device: DeviceLike):
 
 def workflow_model_from_jax(result_features: Sequence[Feature],
                             stage_states: List[Dict[str, Any]],
-                            device: DeviceLike = None):
+                            device: DeviceLike = None,
+                            blacklist: Sequence[str] = (),
+                            rff_results: Optional[Dict[str, Any]] = None):
     """A fitted port WorkflowModel from the fitted JAX workflow's stage
     state.
 
@@ -106,7 +108,10 @@ def workflow_model_from_jax(result_features: Sequence[Feature],
     port's fitted counterpart of the JAX stage — vectorizer fills and
     vocabularies with their metadata, the SanityChecker's kept indices, the
     selector's best model through `linear_model_from_jax` /
-    `tree_model_from_jax` — wired to the port's features."""
+    `tree_model_from_jax` — wired to the port's features. `blacklist` and
+    `rff_results` (the JAX WorkflowModel's `blacklist` and its
+    `rff_results.to_json()`) carry a RawFeatureFilter's outcome across."""
+    from .filters.raw_feature_filter import RawFeatureFilterResults
     from .stages.base import Estimator
     from .workflow.dag import StagesDAG, compute_dag
     from .workflow.fitting import LayerRunner
@@ -137,5 +142,8 @@ def workflow_model_from_jax(result_features: Sequence[Feature],
             model.uid = st.uid
             row.append(model)
         layers.append(row)
-    return WorkflowModel(tuple(result_features), StagesDAG(layers),
-                         LayerRunner(device))
+    return WorkflowModel(
+        tuple(result_features), StagesDAG(layers), LayerRunner(device),
+        blacklist=blacklist,
+        rff_results=None if rff_results is None
+        else RawFeatureFilterResults.from_json(rff_results))

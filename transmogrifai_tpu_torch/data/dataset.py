@@ -39,12 +39,17 @@ class Column:
         return 1
 
 
-def column_from_values(type_cls: Type[FeatureType], values: Iterable[Any]) -> Column:
+def column_from_values(type_cls: Type[FeatureType], values: Iterable[Any],
+                       coerced: bool = False) -> Column:
     """Build a Column from raw per-row python values, coercing through the
-    feature type (the columnar analogue of FeatureTypeSparkConverter)."""
+    feature type (the columnar analogue of FeatureTypeSparkConverter).
+    `coerced`: the values are stored values of `type_cls` already (what a
+    raw feature's extract returns), which coerce to themselves."""
     kind = type_cls.column_kind
-    vals = [type_cls(v).value if not isinstance(v, FeatureType) else v.value
-            for v in values]
+    coerce = type_cls.coercer()
+    vals = list(values) if coerced else [
+        v.value if isinstance(v, FeatureType) else coerce(v)
+        for v in values]
     if kind in (ColumnKind.FLOAT, ColumnKind.INT, ColumnKind.BOOL):
         arr = np.array(
             [np.nan if v is None else (1.0 if v is True else (0.0 if v is False else float(v)))

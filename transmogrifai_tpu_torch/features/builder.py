@@ -19,7 +19,8 @@ from ..types import (
     Binary, FeatureType, Geolocation, Integral, MultiPickList, PickList, Real,
     RealNN, Text, TextList,
 )
-from .aggregators import FeatureAggregator, MonoidAggregator
+from .aggregators import (FeatureAggregator, MonoidAggregator,
+                          named_aggregator)
 from .feature import Feature
 from .generator import FeatureGeneratorStage
 
@@ -42,14 +43,15 @@ class _TypedFeatureBuilder:
     def aggregate(self, plus,
                   zero: Callable[[], Any] = lambda: None) -> "_TypedFeatureBuilder":
         """Monoid for event aggregation (reference FeatureBuilder
-        .aggregate:283-302): a callable plus with an optional zero. The
-        named defaults ("sum", "mean", ...) come with the aggregate
-        readers, which are not ported yet."""
+        .aggregate:283-302). Pass a callable plus (with optional zero) or
+        a named default: "sum" | "min" | "max" | "last" | "first" |
+        "union" | "mean" | "mode" | "concat" | "logical_and" |
+        "logical_or" | "logical_xor" | "midpoint" ("first"/"last" follow
+        event TIME, not encounter order)."""
         if isinstance(plus, str):
-            raise NotImplementedError(
-                f"named aggregator {plus!r} is not ported yet: it comes "
-                "with the aggregate readers; pass a callable plus")
-        agg = MonoidAggregator(zero=zero, plus=plus)
+            agg = named_aggregator(plus, self.type_cls)
+        else:
+            agg = MonoidAggregator(zero=zero, plus=plus)
         self._aggregator = FeatureAggregator(
             type_cls=self.type_cls, aggregator=agg)
         return self

@@ -31,6 +31,9 @@ class FeatureGeneratorStage(PipelineStage):
         self.is_response = is_response
         self.aggregator = aggregator or FeatureAggregator(type_cls=feature_type)
         self.event_time_fn = event_time_fn
+        # which reader's records this feature extracts from (JoinedReader
+        # routing; set directly on the stage)
+        self.reader_hint: Optional[Any] = None
         super().__init__(operation_name=f"gen_{name}", uid=uid)
         self.output_type = feature_type
 
@@ -39,7 +42,13 @@ class FeatureGeneratorStage(PipelineStage):
         v = self.extract_fn(record)
         if isinstance(v, FeatureType):
             return v.value
-        return self.feature_type(v).value
+        return self.feature_type.coercer()(v)
+
+    def extract_all(self, records) -> list:
+        """`extract` of every record, in order."""
+        coerce = self.feature_type.coercer()
+        return [v.value if isinstance(v, FeatureType) else coerce(v)
+                for v in map(self.extract_fn, records)]
 
     def get_output(self) -> Feature:
         return Feature(

@@ -28,9 +28,18 @@ def _moments(X: torch.Tensor, w: torch.Tensor
     """Weighted two-pass column moments in f32: (centered, mean, std).
     `w` [n] gives mean/std [d] and centered [n, d]; `w` [L, n] gives
     [L, d] and [L, n, d]. One-pass E[x^2] - mean^2 would cancel
-    catastrophically in f32 for large-mean columns."""
+    catastrophically in f32 for large-mean columns.
+
+    A column constant over the rows a lane weighs has that value as its
+    mean exactly, so it centers to 0 and standardizes to 0: the matmul's
+    f32 sum of n equal terms need not divide back to the value, and the
+    rounding error over the clamped std would be a second intercept."""
     wsum = torch.clamp(w.sum(-1), min=EPS)
     mean = (w @ X) / wsum[..., None]
+    if X.shape[-2]:
+        x0 = X[..., :1, :]
+        differs = (w > 0).to(X.dtype) @ (X != x0).to(X.dtype)
+        mean = torch.where(differs == 0, x0[..., 0, :], mean)
     centered = X - mean[..., None, :]
     var = (w[..., None, :] @ (centered * centered))[..., 0, :] / wsum[..., None]
     std = torch.sqrt(torch.clamp(var, min=EPS))

@@ -19,7 +19,11 @@ SanityChecker needs, tile by tile on the device:
 - every categorical contingency table as one float64 product per tile
   against a one-hot of the label built per tile from the distinct label
   values (exact counts past 2^24 rows);
-- whole-label moments (count / mean / variance / min / max).
+- whole-label moments (count / mean / variance / min / max);
+- with `lo`, `hi` and `bins`, every column's fixed-range histogram in the
+  same pass (RawFeatureFilter's numeric sketches): the binning rule of
+  ops/stats.hist_bin_ids with the engine's finite-only validity mask, the
+  rows' weights summed per tile with a float64 `torch.bincount`.
 
 Two drivers, routed by `run_stats`:
 
@@ -33,7 +37,7 @@ Two drivers, routed by `run_stats`:
 `rank_matrices` is Spearman's rank pre-pass (tie-aware average ranks,
 the label re-ranked within each column's valid rows), fed back through the
 same moment engine. Not ported: the mesh-sharded driver, the tileplane
-row sources, fused histograms, and the multi-pass legacy route.
+row sources and the multi-pass legacy route.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, to_device
+from . import stats as S
 
 EPS = 1e-12
 
@@ -76,8 +81,9 @@ class FusedStats(NamedTuple):
 
     Per-column arrays are [d]; `m2` is the raw centered second moment.
     `corr_matrix` and `contingency` ([d, C] against the distinct label
-    values, columns optionally clipped to 1 for multi-hot groups) are None
-    unless requested."""
+    values, columns optionally clipped to 1 for multi-hot groups) and
+    `hist` ([d, bins + 1]; last bin = missing mass) are None unless
+    requested."""
 
     count: np.ndarray
     mean: np.ndarray
@@ -96,6 +102,7 @@ class FusedStats(NamedTuple):
     label_max: float
     corr_matrix: Optional[np.ndarray] = None
     contingency: Optional[np.ndarray] = None
+    hist: Optional[np.ndarray] = None
 
 
 class _State(NamedTuple):
@@ -123,6 +130,7 @@ class _State(NamedTuple):
     gzv: Any = None
     gvv: Any = None
     cont: Any = None  # [d, C] (f64)
+    hist: Any = None  # [d, bins + 1] (f64)
 
 
 def _chan_merge(nA, mA, m2A, nB, mB, m2B):
@@ -135,8 +143,9 @@ def _chan_merge(nA, mA, m2A, nB, mB, m2B):
     return n, mean, m2
 
 
-def _tile_state(xb, yb, wb, shift, distinct, clip, *, corr_matrix: bool,
-                y2d: bool, big: float) -> _State:
+def _tile_state(xb, yb, wb, shift, distinct, clip, hist_range, *,
+                bins: int, corr_matrix: bool, y2d: bool,
+                big: float) -> _State:
     """Exact two-pass moments of ONE row tile, shaped as a _State ready
     for the Chan merge. Means are taken of the values less `shift` (the
     first tile's column means): an f32 mean of values near 1e4 is off by
@@ -197,10 +206,15 @@ def _tile_state(xb, yb, wb, shift, distinct, clip, *, corr_matrix: bool,
             xc = torch.where(clip[None, :], torch.clamp(xz, max=1.0), xz)
         cont = (xc * v).to(f8).T @ yoh
 
+    hist = None
+    if bins > 0:
+        ids = S.hist_bin_ids(xb, *hist_range, bins, finite)
+        hist = S.segment_hist(ids, xb.shape[1], bins, wb)
+
     return _State(wsum=wsum, cnt=cnt, mean=mean, m2=m2, cy=cy, ymean=ymean,
                   ym2=ym2, minv=minv, maxv=maxv, nnz=nnz, ycnt=ycnt,
                   lmean=lmean, lm2=lm2, lmin=lmin, lmax=lmax, gzz=gzz,
-                  gzv=gzv, gvv=gvv, cont=cont)
+                  gzv=gzv, gvv=gvv, cont=cont, hist=hist)
 
 
 def _merge_states(a: _State, b: _State) -> _State:
@@ -224,7 +238,7 @@ def _merge_states(a: _State, b: _State) -> _State:
         nnz=a.nnz + b.nnz, ycnt=ycnt, lmean=lmean, lm2=lm2,
         lmin=torch.minimum(a.lmin, b.lmin), lmax=torch.maximum(a.lmax, b.lmax),
         gzz=add(a.gzz, b.gzz), gzv=add(a.gzv, b.gzv), gvv=add(a.gvv, b.gvv),
-        cont=add(a.cont, b.cont))
+        cont=add(a.cont, b.cont), hist=add(a.hist, b.hist))
 
 
 def _merge_states_host(a: _State, b: _State) -> _State:
@@ -247,7 +261,7 @@ def _merge_states_host(a: _State, b: _State) -> _State:
     ldm = float(b.lmean) - float(a.lmean)
     opt = {k: (None if getattr(a, k) is None
                else arr(getattr(a, k)) + arr(getattr(b, k)))
-           for k in ("gzz", "gzv", "gvv", "cont")}
+           for k in ("gzz", "gzv", "gvv", "cont", "hist")}
     return _State(
         wsum=float(a.wsum) + float(b.wsum), cnt=n,
         mean=arr(a.mean) + dxm * (nB / safe),
@@ -279,8 +293,8 @@ def _first_tile_shift(X: torch.Tensor, w: torch.Tensor, c: int
     return torch.where(n > 0, s / torch.clamp(n, min=EPS), 0.0)
 
 
-def _scan_state(X, y, w, distinct, clip, *, corr_matrix: bool,
-                shift) -> _State:
+def _scan_state(X, y, w, distinct, clip, hist_range, *, bins: int,
+                corr_matrix: bool, shift) -> _State:
     """Every row tile's state, merged on the device in row order."""
     n, d = X.shape
     big = float(np.finfo(np.float32).max)
@@ -288,7 +302,8 @@ def _scan_state(X, y, w, distinct, clip, *, corr_matrix: bool,
     st = None
     for a in range(0, n, c):
         ts = _tile_state(X[a:a + c], y[a:a + c], w[a:a + c], shift,
-                         distinct, clip, corr_matrix=corr_matrix,
+                         distinct, clip, hist_range, bins=bins,
+                         corr_matrix=corr_matrix,
                          y2d=y.dim() == 2, big=big)
         st = ts if st is None else _merge_states(st, ts)
     return st
@@ -301,16 +316,26 @@ def _extras(distinct, clip, dev):
             torch.as_tensor(np.asarray(clip, bool), device=dev))
 
 
-def fused_stats(X, y, w=None, *, distinct=None, clip=None,
-                corr_matrix: bool = False, device: DeviceLike = None
-                ) -> Tuple[_State, torch.Tensor]:
+def _hist_range(lo, hi, bins: int, dev):
+    """The (lo, hi) f32 tensors of the in-pass histograms, or None."""
+    if (lo is None) != (bins == 0) or (lo is None) != (hi is None):
+        raise ValueError("histograms need both bins>0 and lo/hi ranges")
+    if lo is None:
+        return None
+    return to_device(lo, dev), to_device(hi, dev)
+
+
+def fused_stats(X, y, w=None, *, distinct=None, clip=None, lo=None,
+                hi=None, bins: int = 0, corr_matrix: bool = False,
+                device: DeviceLike = None) -> Tuple[_State, torch.Tensor]:
     """One-pass sufficient statistics of X in one piece on the device.
 
     X [n, d] (NaN = missing); y [n] label or [n, d] per-column label (rank
     mode); w [n] row weights (None = 1). distinct [C] enables the
     contingency accumulation (clip [d] bool marks multi-hot columns counted
-    at most once). Returns the raw (device state, shift) pair; `run_stats`
-    is the finalizing front door."""
+    at most once); (lo, hi, bins) enables the in-pass histograms. Returns
+    the raw (device state, shift) pair; `run_stats` is the finalizing
+    front door."""
     dev = resolve_device(device)
     X = to_device(X, dev, label="stats")
     y = to_device(y, dev, label="stats label")
@@ -318,17 +343,18 @@ def fused_stats(X, y, w=None, *, distinct=None, clip=None,
     if corr_matrix and d > GRAM_MAX_D:
         raise ValueError(f"corr_matrix capped at {GRAM_MAX_D} columns "
                          f"(got {d}); the consumers cap far below")
+    hist_range = _hist_range(lo, hi, bins, dev)
     w = torch.ones(n, device=dev) if w is None else to_device(w, dev)
     distinct, clip = _extras(distinct, clip, dev)
     shift = _first_tile_shift(X, w, stats_row_block(d, n))
-    return _scan_state(X, y, w, distinct, clip, corr_matrix=corr_matrix,
-                       shift=shift), shift
+    return _scan_state(X, y, w, distinct, clip, hist_range, bins=bins,
+                       corr_matrix=corr_matrix, shift=shift), shift
 
 
 def stream_stats(X: np.ndarray, y: np.ndarray, w=None, *,
                  tile_rows: Optional[int] = None, distinct=None, clip=None,
-                 corr_matrix: bool = False, device: DeviceLike = None
-                 ) -> Tuple[_State, np.ndarray]:
+                 lo=None, hi=None, bins: int = 0, corr_matrix: bool = False,
+                 device: DeviceLike = None) -> Tuple[_State, np.ndarray]:
     """Streamed driver for host matrices: one tile of `tile_rows` rows on
     the device at a time, each tile's state fetched and merged on the host
     in float64. The Gram shift comes from the first tile. Still exactly one
@@ -338,6 +364,7 @@ def stream_stats(X: np.ndarray, y: np.ndarray, w=None, *,
     if corr_matrix and d > GRAM_MAX_D:
         raise ValueError(f"corr_matrix capped at {GRAM_MAX_D} columns")
     c = int(tile_rows or min(STREAM_TILE_ROWS, max(n, 1)))
+    hist_range = _hist_range(lo, hi, bins, dev)
     w = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
     distinct, clip = _extras(distinct, clip, dev)
     merged, shift = None, None
@@ -347,13 +374,14 @@ def stream_stats(X: np.ndarray, y: np.ndarray, w=None, *,
         wt = torch.as_tensor(w[a:a + c], device=dev)
         if shift is None:
             shift = _first_tile_shift(xt, wt, xt.shape[0])
-        st = _fetch_state(_scan_state(xt, yt, wt, distinct, clip,
-                                      corr_matrix=corr_matrix, shift=shift))
+        st = _fetch_state(_scan_state(
+            xt, yt, wt, distinct, clip, hist_range, bins=bins,
+            corr_matrix=corr_matrix, shift=shift))
         merged = st if merged is None else _merge_states_host(merged, st)
     return merged, shift.cpu().numpy()
 
 
-def _finalize(st: _State, shift) -> FusedStats:
+def _finalize(st: _State, shift, bins: int = 0) -> FusedStats:
     """Moment state -> FusedStats. Host numpy in f64: the state is
     [d] / [d, d] shaped, and f64 keeps the final divisions exact (the
     unbiased variance clamp and EPS-guarded correlation denominators of
@@ -387,24 +415,27 @@ def _finalize(st: _State, shift) -> FusedStats:
         label_variance=float(max(f8(st.lm2) / max(ycnt - 1.0, 1.0), 0.0)),
         label_min=float(f8(st.lmin)), label_max=float(f8(st.lmax)),
         corr_matrix=corr_matrix,
-        contingency=None if st.cont is None else f8(st.cont))
+        contingency=None if st.cont is None else f8(st.cont),
+        hist=None if st.hist is None else f8(st.hist).reshape(-1, bins + 1))
 
 
-def run_stats(X, y, w=None, *, distinct=None, clip=None,
-              corr_matrix: bool = False, driver: Optional[str] = None,
-              tile_rows: Optional[int] = None,
+def run_stats(X, y, w=None, *, distinct=None, clip=None, lo=None,
+              hi=None, bins: int = 0, corr_matrix: bool = False,
+              driver: Optional[str] = None, tile_rows: Optional[int] = None,
               device: DeviceLike = None) -> FusedStats:
     """One engine pass, finalized. `driver` in {"fused", "streamed"}
     forces a route; otherwise a host matrix larger than
     STREAM_THRESHOLD_BYTES streams and everything else takes the fused
-    route. The route, shape and wall of the pass land in `last_pass`."""
+    route. (lo, hi, bins) adds each column's fixed-range histogram
+    (`FusedStats.hist`). The route, shape and wall of the pass land in
+    `last_pass`."""
     n, d = X.shape
     if driver is None:
         driver = ("streamed" if isinstance(X, np.ndarray)
                   and X.nbytes > STREAM_THRESHOLD_BYTES else "fused")
     dev = resolve_device(device)
-    kw = dict(distinct=distinct, clip=clip, corr_matrix=corr_matrix,
-              device=dev)
+    kw = dict(distinct=distinct, clip=clip, lo=lo, hi=hi, bins=int(bins),
+              corr_matrix=corr_matrix, device=dev)
     t0 = time.perf_counter()
     if driver == "streamed":
         st, shift = stream_stats(np.asarray(X), np.asarray(y), w,
@@ -415,7 +446,7 @@ def run_stats(X, y, w=None, *, distinct=None, clip=None,
         c = stats_row_block(d, n)
     else:
         raise ValueError(f"unknown statistics driver {driver!r}")
-    out = _finalize(st, shift)
+    out = _finalize(st, shift, int(bins))
     last_pass.clear()
     last_pass.update(driver=driver, rows=int(n), cols=int(d),
                      tiles=-(-n // c), seconds=time.perf_counter() - t0)

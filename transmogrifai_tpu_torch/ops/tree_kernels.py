@@ -416,10 +416,12 @@ def _lane_channels(pay_t: torch.Tensor, lanes: int, derive_count: bool) -> int:
 def hist_folds_plain(Xb_t, pay_t, slot_t, *, n_slots: int, n_bins: int,
                      derive_count: bool = False) -> torch.Tensor:
     """Plain version of hist_folds: one scatter-add per (lane, channel) over
-    (slot, feature, bin) ids, with a spill segment for dropped rows (slot
-    outside [0, n_slots), bin outside [0, n_bins)) — the JAX package's
-    `_hist_segment_jnp`. It sums in the payload's dtype (float64 payloads
-    give the float64 sums the kernels' cells are checked against)."""
+    (slot, feature, bin) ids of the entries a histogram keeps — the JAX
+    package's `_hist_segment_jnp` without its spill segment: a dropped row
+    (slot outside [0, n_slots)) or a bin outside [0, n_bins) adds nothing.
+    The kept entries add in the same order, so the sums are the same. It
+    sums in the payload's dtype (float64 payloads give the float64 sums the
+    kernels' cells are checked against)."""
     F, N = Xb_t.shape
     Fo = slot_t.shape[0]
     C = pay_t.shape[0] // Fo
@@ -427,21 +429,24 @@ def hist_folds_plain(Xb_t, pay_t, slot_t, *, n_slots: int, n_bins: int,
     seg = n_slots * F * B
     bins = Xb_t.long()
     fb = torch.arange(F, device=Xb_t.device)[:, None] * B + bins   # [F, N]
-    bad_bin = (bins < 0) | (bins >= B)
+    good = (bins >= 0) & (bins < B)
+    bad_bins = not bool(good.all())
     out = []
     for k in range(Fo):
         pay_k = pay_t[k * C:(k + 1) * C]
         if derive_count:
             pay_k = torch.cat([pay_k, (pay_k[C - 1:C] > 0).to(pay_k.dtype)])
-        slot_k = slot_t[k]
-        slot_i = slot_k.long()
-        drop = (slot_k < 0) | (slot_i >= n_slots)
-        ids = torch.where(drop[None, :] | bad_bin, seg,
-                          slot_i[None, :] * (F * B) + fb).reshape(-1)
+        slot_i = slot_t[k].long()
+        rows = ((slot_t[k] >= 0) & (slot_i < n_slots)).nonzero()[:, 0]
+        keep = good[:, rows]
+
+        def kept(t):   # [F, rows] -> its kept entries, row-major
+            return t[keep] if bad_bins else t.reshape(-1)
+        ids = kept(slot_i[rows][None, :] * (F * B) + fb[:, rows])
         hist = torch.stack([
-            torch.zeros(seg + 1, dtype=pay_t.dtype, device=Xb_t.device)
-            .index_add_(0, ids, pay_c.expand(F, N).reshape(-1))[:seg]
-            for pay_c in pay_k])                                     # [Co, seg]
+            torch.zeros(seg, dtype=pay_t.dtype, device=Xb_t.device)
+            .index_add_(0, ids, kept(p[rows].expand(F, -1)))
+            for p in pay_k])                                         # [Co, seg]
         out.append(hist.reshape(-1, n_slots, F * B).transpose(0, 1)
                    .reshape(-1, F * B))
     return torch.cat(out)

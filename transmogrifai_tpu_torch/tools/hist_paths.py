@@ -334,53 +334,13 @@ def route_bins_read(node, f_lvl) -> int:
 
 
 def reference(name: str, args, kw):
-    """The float64 sums that the histogram kernels' f32 cells are held to,
-    in the plain version's layout (route_hist: with the plain route's node
-    ids). Route and table_lookup are exact already: their plain version."""
-    from transmogrifai_tpu_torch.ops import tree_kernels as TK
-    if name == "hist_folds":
-        return _hist64(args[0], args[1], args[2], kw["n_slots"],
-                       kw["n_bins"], kw.get("derive_count", False))
-    if name == "route_hist":
-        Xb_t, pay_t, node_t = args[:3]
-        new_node = TK.route_plain(Xb_t, node_t, *args[3:])
-        slots = node_t + float(kw["n_nodes"]) * (new_node - 2.0 * node_t)
-        return _hist64(Xb_t, pay_t, slots, kw["n_nodes"], kw["n_bins"],
-                       kw.get("derive_count", False)), new_node
+    """The float64 sums that the histogram kernels' f32 cells are held to:
+    the plain version on the float64 payload (route_hist: with the plain
+    route's node ids). Route and table_lookup are exact already: their
+    plain version."""
+    if name in ("hist_folds", "route_hist"):
+        args = (args[0], args[1].double()) + tuple(args[2:])
     return plain(name, args, kw)
-
-
-def _hist64(Xb_t, pay_t, slot_t, n_slots: int, n_bins: int,
-            derive_count: bool):
-    """hist_folds_plain's sums in float64, over the entries a histogram
-    keeps only: a dropped row (slot outside [0, n_slots)) or a bin outside
-    [0, n_bins) adds nothing, where the plain version scatters it into one
-    spill cell that it discards (which serialises its atomics on that
-    cell)."""
-    import torch
-    F, N = Xb_t.shape
-    Fo = slot_t.shape[0]
-    C = pay_t.shape[0] // Fo
-    seg = n_slots * F * n_bins
-    bins = Xb_t.long()
-    fb = torch.arange(F, device=Xb_t.device)[:, None] * n_bins + bins
-    good = (bins >= 0) & (bins < n_bins)
-    out = []
-    for k in range(Fo):
-        pay_k = pay_t[k * C:(k + 1) * C].double()
-        if derive_count:
-            pay_k = torch.cat([pay_k, (pay_k[C - 1:C] > 0).double()])
-        slot_i = slot_t[k].long()
-        rows = ((slot_t[k] >= 0) & (slot_i < n_slots)).nonzero()[:, 0]
-        keep = good[:, rows]
-        ids = (slot_i[rows][None, :] * (F * n_bins) + fb[:, rows])[keep]
-        hist = torch.stack([
-            torch.zeros(seg, dtype=torch.float64, device=Xb_t.device)
-            .index_add_(0, ids, p[rows].expand(F, -1)[keep])
-            for p in pay_k])                                   # [Co, seg]
-        out.append(hist.reshape(-1, n_slots, F * n_bins).transpose(0, 1)
-                   .reshape(-1, F * n_bins))
-    return torch.cat(out)
 
 
 def accuracy(name: str, got, want, args, kw) -> dict:

@@ -84,6 +84,15 @@ class FeatureType(metaclass=FeatureTypeMeta):
         return value
 
     @classmethod
+    def coercer(cls):
+        """A function of a raw value giving `cls(value).value`: `_convert`
+        itself where the wrapper adds nothing to it (the readers' per-cell
+        path builds no wrapper then)."""
+        if cls.__init__ is FeatureType.__init__ and not cls.is_non_nullable:
+            return cls._convert
+        return lambda value: cls(value).value
+
+    @classmethod
     def empty(cls) -> "FeatureType":
         return cls(None)
 

@@ -9,9 +9,10 @@ core/.../OpWorkflowCore.scala:52 and core/.../OpWorkflowModel.scala:59
 `Workflow(device=...)` is the one device switch of a whole workflow: the
 layer runner passes it to every stage that touches tensors and has no
 device of its own (None = CUDA; "cpu" runs the plain PyTorch versions of
-the kernels). Not ported yet: the RawFeatureFilter, workflow-level CV,
-splicing fitted stages into a new workflow, saving and loading, insights,
-the runner and serving.
+the kernels). `with_raw_feature_filter` drops unreliable raw features
+before the DAG is fitted (filters/raw_feature_filter.py). Not ported yet:
+workflow-level CV, splicing fitted stages into a new workflow, saving and
+loading, insights, the runner and serving.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ class Workflow:
         self._result_features: Tuple[Feature, ...] = ()
         self._reader: Optional[Reader] = None
         self._input_dataset: Optional[Dataset] = None
+        self._raw_feature_filter = None  # set via with_raw_feature_filter
+        self._blacklist: List[str] = []
 
     # -- configuration (reference OpWorkflow setters) ----------------------
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -53,6 +56,14 @@ class Workflow:
         self._input_dataset = ds
         return self
 
+    def with_raw_feature_filter(self, rff) -> "Workflow":
+        """Attach a RawFeatureFilter (reference
+        OpWorkflow.withRawFeatureFilter:523); applied to raw data before
+        fitting, its exclusions become the workflow blacklist. A filter
+        without a device of its own runs on the workflow's."""
+        self._raw_feature_filter = rff
+        return self
+
     @property
     def result_features(self) -> Tuple[Feature, ...]:
         return self._result_features
@@ -65,15 +76,24 @@ class Workflow:
         """Reference OpWorkflow.generateRawData:222."""
         raw = self.raw_features()
         if self._reader is not None:
-            return self._reader.generate_dataset(raw)
-        if self._input_dataset is not None:
+            ds = self._reader.generate_dataset(raw)
+        elif self._input_dataset is not None:
             ds = self._input_dataset
             missing = [f.name for f in raw if f.name not in ds]
             if missing:
                 raise ValueError(
                     f"Input dataset is missing raw feature columns: {missing}")
-            return ds
-        raise ValueError("Set a reader or an input dataset before training")
+        else:
+            raise ValueError(
+                "Set a reader or an input dataset before training")
+        rff = self._raw_feature_filter
+        if rff is not None:
+            if rff.device is None:
+                rff.device = self.device
+            result = rff.apply(ds, raw)
+            self._blacklist = list(result.dropped)
+            ds = result.cleaned
+        return ds
 
     # -- training ----------------------------------------------------------
     def train(self) -> "WorkflowModel":
@@ -84,8 +104,11 @@ class Workflow:
         validate_stages(dag)
         runner = LayerRunner(self.device)
         transformed, fitted_dag = runner.fit_dag(raw_data, dag)
-        model = WorkflowModel(result_features=self._result_features,
-                              dag=fitted_dag, runner=runner)
+        rff = self._raw_feature_filter
+        model = WorkflowModel(
+            result_features=self._result_features, dag=fitted_dag,
+            runner=runner, blacklist=self._blacklist,
+            rff_results=rff.results if rff is not None else None)
         model._train_data = transformed
         model._reader = self._reader
         return model
@@ -96,10 +119,13 @@ class WorkflowModel:
     layers in order."""
 
     def __init__(self, result_features: Sequence[Feature], dag: StagesDAG,
-                 runner: Optional[LayerRunner] = None):
+                 runner: Optional[LayerRunner] = None,
+                 blacklist: Sequence[str] = (), rff_results=None):
         self.result_features = tuple(result_features)
         self.dag = dag
         self.runner = runner or LayerRunner()
+        self.blacklist = list(blacklist)
+        self.rff_results = rff_results
         self._train_data: Optional[Dataset] = None
         self._reader: Optional[Reader] = None
 
@@ -204,15 +230,19 @@ class WorkflowModel:
         return sc.summary if sc is not None else None
 
     def summary(self) -> Dict[str, Any]:
-        """Reference OpWorkflowModel.summary: stages, model selection and
-        sanity-check results as JSON-able dicts."""
-        out: Dict[str, Any] = {"stages": [st.stage_name for st in self.stages]}
+        """Reference OpWorkflowModel.summary: stages, blacklist, model
+        selection, sanity-check and raw-feature-filter results as JSON-able
+        dicts."""
+        out: Dict[str, Any] = {"stages": [st.stage_name for st in self.stages],
+                               "blacklisted_features": self.blacklist}
         sel = self.selector_summary()
         if sel is not None:
             out["model_selection"] = sel.to_json()
         sc = self.sanity_checker_summary()
         if sc is not None:
             out["sanity_check"] = sc.to_json()
+        if self.rff_results is not None:
+            out["raw_feature_filter"] = self.rff_results.to_json()
         return out
 
     def summary_pretty(self) -> str:
@@ -225,4 +255,6 @@ class WorkflowModel:
         if sc is not None:
             lines.append(f"SanityChecker dropped {len(sc.dropped)} columns: "
                          f"{sc.dropped[:10]}")
+        if self.blacklist:
+            lines.append(f"RawFeatureFilter excluded: {self.blacklist}")
         return "\n".join(lines) if lines else "(no selector in workflow)"
