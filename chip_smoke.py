@@ -83,7 +83,7 @@ Phases, each of which fails the run on error:
 12. workflow-titanic — the port's example flow
              (examples/op_titanic_simple.py: a Text name hashed into 512
              bins, DSL arithmetic, pivot, fill + z-normalize, a lambda
-             map) on `titanic_named_records`: CPU against card at 20 000
+             map) on `titanic_named_records`: CPU against card at 8 000
              records (LR's 2 least regularised default grid points, RF
              10 trees at depth {3, 5}: the
              matrix and metadata identical, the same drops and winner,
@@ -142,7 +142,24 @@ Phases, each of which fails the run on error:
              on the inputs of its first launch there, against its plain
              version (rows of the kernels line, phase "workflow");
              then one statistics pass over the whole matrix, streamed,
-             against the fused route.
+             against the fused route;
+16. workflow-regression — op_boston's flow at user scale
+             (`housing_columns`: 1 000 000 rows, all 13 predictors of
+             HOUSING_COLUMNS, chas a PickList, rad an Integral, the Reals
+             2% missing): transmogrify, SanityChecker() and a 3-fold
+             RegressionModelSelector (linear regression's default grid on
+             the Gram route, RF 10 trees at depth {3, 6}, GBT 10 rounds at
+             depth 4) inside Workflow(device="cuda").with_workflow_cv()
+             .train(): each stage's and each fold's walls, each family's
+             sweep, the GLM route, peak memory, winner, CV RMSE, holdout
+             RMSE and R2 beside the label's spread; 100 000 new rows scored,
+             the model saved, loaded and scored again (identical), loaded
+             onto the CPU (10 000 rows within 1e-5 relative); every kernel
+             at each key of train() against its plain version (phase
+             "regression"); the leg at 20 000 rows on the CPU and twice on
+             the card: the matrix identical, the same winner, CV fold
+             metrics within 1e-3 relative or a tie witness in that cell's
+             fits, scores within 1e-5 relative or a tie witness.
 
 Float32 products stay in full f32: the run fails unless TF32 is off
 (`torch.backends.cuda.matmul.allow_tf32` False, float32 matmul precision
@@ -150,8 +167,9 @@ Float32 products stay in full f32: the run fails unless TF32 is off
 
 The last three lines of standard output are {"kernels": [...]} (each
 row's `launches` at its (kernel, F, S) key in the phase it names, a
-workflow, titanic or wide row's at its (kernel, F, S, C, Fo) key inside
-its phase's train(), and, for the tree, GLM and workflow rows,
+workflow, titanic, wide, events or regression row's at its (kernel, F,
+S, C, Fo) key inside its phase's train(), and, for the tree, GLM and
+workflow rows,
 `workflow_launches` at that key inside workflow-main's train()), the
 card's name and power limit, and
 {"ok": true, "device": {...}}. Exits
@@ -187,11 +205,16 @@ REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
 }
 GLM_EVAL_LANES = 8            # the streamed eval's grid chunk
 TITANIC_ROWS = 100_000        # workflow-titanic's main path (PERF.md §4)
+TITANIC_LEG_ROWS = 8_000      # its CPU-against-card leg (PERF.md §4)
 WIDE_ROWS = 1_000_000         # bench.py's wide_rows: workflow-wide's main path
 WIDE_LEG_ROWS = 20_000        # workflow-wide's CPU-against-card leg
 WIDE_SCORE_ROWS = 100_000     # new rows workflow-wide scores
 EVENTS_USERS = 200_000        # workflow-events' main path (PERF.md §4)
 EVENTS_LEG_USERS = 5_000      # workflow-events' CPU-against-card leg
+REGRESSION_ROWS = 1_000_000   # workflow-regression's main path (PERF.md §4)
+REGRESSION_LEG_ROWS = 20_000  # its CPU-and-card leg
+REGRESSION_SCORE_ROWS = 100_000   # new rows scored before and after save/load
+REGRESSION_CPU_LOAD_ROWS = 10_000  # rows the model loaded onto the CPU scores
 XGB_GRID = [dict(num_round=10, max_depth=d, eta=e, reg_lambda=lam,
                  max_bins=32)
             for d in (4, 6) for e in (0.05, 0.1, 0.2, 0.3) for lam in (1.0, 5.0)]
@@ -419,7 +442,8 @@ def kernel_rows(shapes: list, phase: str = "tree",
                    copy_ms=copy_ms, moved_bytes=moved,
                    check_s=check_s, timing_s=time.perf_counter() - t_timing,
                    key=capture_key(key, name, args, kw)
-                   if phase in ("workflow", "titanic", "wide", "events")
+                   if phase in ("workflow", "titanic", "wide", "events",
+                                "regression")
                    else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
@@ -1329,9 +1353,10 @@ def workflow_titanic_phase(rows: int, seed: int):
     fill_missing_with_mean + z_normalize, a lambda map, transmogrify,
     SanityChecker, the model selector) on `titanic_named_records`.
 
-    First, CPU against card at 20 000 records with `titanic_cut_selector`:
+    First, CPU against card at `TITANIC_LEG_ROWS` records with
+    `titanic_cut_selector`:
     the transmogrified matrix and its metadata bit-identical, the same
-    columns kept for the same reasons, the same winner, scores of 20 000
+    columns kept for the same reasons, the same winner, scores of as many
     new records within 1e-5 a row or, where the refits split a node
     differently, the first such node a tie (`split_witness`); the
     CPU-fitted workflow carried onto the card scores within 1e-5; where
@@ -1358,8 +1383,8 @@ def workflow_titanic_phase(rows: int, seed: int):
     from transmogrifai_tpu_torch.utils.uid import reset_uids
 
     t_phase = t0 = time.perf_counter()
-    small = titanic_named_records(20_000, seed + 11)
-    new = titanic_named_records(20_000, seed + 12)
+    small = titanic_named_records(TITANIC_LEG_ROWS, seed + 11)
+    new = titanic_named_records(TITANIC_LEG_ROWS, seed + 12)
     log(f"workflow-titanic: records made in "
         f"{time.perf_counter() - t0:.2f}s")
 
@@ -2182,6 +2207,418 @@ def workflow_events_phase(users: int, seed: int):
     return ok, capture_launches, rows_out
 
 
+# workflow-regression: op_boston's flow at user scale
+HOUSING_PREDICTORS = ("crim", "zn", "indus", "chas", "nox", "rm", "age",
+                      "dis", "rad", "tax", "ptratio", "b", "lstat")
+
+
+def housing_columns(n: int, seed: int) -> dict:
+    """op_boston's housing records as numpy columns, all 13 predictors of
+    `HOUSING_COLUMNS`: op_boston's `synthetic_housing` draws for crim, rm,
+    age, dis, tax, ptratio and lstat (vectorised), zn (73% zero, else 12.5
+    to 100 in steps of 2.5), indus, nox, b (396.9 less an exponential
+    tail), chas a PickList "0"/"1" (7% "1"), rad an Integral of the UCI
+    file's nine values; every Real 2% missing. medv, the RealNN response,
+    adds nox, chas, dis and zn terms to op_boston's and is clipped to [5,
+    50] as the file's is. Returns {name: (feature type name, float64 with
+    NaN, or objects)}."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    crim = rng.lognormal(-1.5, 1.8, n)
+    zn = np.where(rng.uniform(size=n) < 0.73, 0.0,
+                  2.5 * rng.integers(5, 41, n))
+    indus = rng.uniform(0.46, 27.74, n)
+    chas = rng.uniform(size=n) < 0.07
+    nox = rng.uniform(0.385, 0.871, n)
+    rm = np.clip(rng.normal(6.3, 0.7, n), 3.5, 8.8)
+    age = rng.uniform(2, 100, n)
+    dis = rng.lognormal(1.2, 0.5, n)
+    rad = rng.choice([1, 2, 3, 4, 5, 6, 7, 8, 24], n,
+                     p=[.04, .05, .08, .22, .23, .05, .03, .04, .26])
+    tax = rng.uniform(187, 711, n)
+    ptratio = rng.uniform(12.6, 22.0, n)
+    b = np.clip(396.9 - rng.exponential(30.0, n), 0.32, 396.9)
+    lstat = np.clip(rng.lognormal(2.4, 0.5, n), 1.7, 38)
+    medv = np.clip(
+        22.5 + 5.0 * (rm - 6.3) - 0.6 * lstat / 3.0 - 1.2 * np.log1p(crim)
+        - 0.3 * (ptratio - 18) - 6.0 * (nox - 0.55) + 2.5 * chas
+        - 1.0 * np.log(dis) + 0.02 * zn + rng.normal(0, 2.5, n), 5, 50)
+    reals = dict(crim=crim, zn=zn, indus=indus, nox=nox, rm=rm, age=age,
+                 dis=dis, tax=tax, ptratio=ptratio, b=b, lstat=lstat)
+    cols = {}
+    for name in HOUSING_PREDICTORS:
+        if name == "chas":
+            cols[name] = ("PickList",
+                          np.where(chas, "1", "0").astype(object))
+        elif name == "rad":
+            cols[name] = ("Integral", rad.astype(np.float64))
+        else:
+            v = reals[name].astype(np.float64)
+            v[rng.uniform(size=n) < 0.02] = np.nan
+            cols[name] = ("Real", v)
+    cols["medv"] = ("RealNN", medv.astype(np.float64))
+    return cols
+
+
+def regression_selector():
+    """workflow-regression's selector: RegressionModelSelector's 3-fold
+    CrossValidation (a DataSplitter's 10% holdout, RMSE) over linear
+    regression's default grid (8 points), random forests of 10 trees at
+    depth {3, 6} and Spark GBT of 10 rounds at depth 4 (workflow-wide's
+    cut of the tree grids)."""
+    from transmogrifai_tpu_torch.automl.selectors import (
+        RegressionModelSelector, default_grid_for)
+    from transmogrifai_tpu_torch.models.glm import OpLinearRegression
+    from transmogrifai_tpu_torch.models.trees import (
+        OpGBTRegressor, OpRandomForestRegressor)
+    return RegressionModelSelector.with_cross_validation(
+        num_folds=3, seed=42, models_and_parameters=[
+            (OpLinearRegression(), default_grid_for("OpLinearRegression")),
+            (OpRandomForestRegressor(), [
+                dict(num_trees=10, max_depth=d, min_instances_per_node=10)
+                for d in (3, 6)]),
+            (OpGBTRegressor(), [dict(max_iter=10, max_depth=4)])])
+
+
+def regression_workflow(cols: dict, device=None):
+    """(workflow, prediction) of op_boston's flow in the port over a
+    Dataset of `housing_columns`: the example's features (chas a PickList,
+    rad an Integral, the rest Reals) -> transmogrify -> SanityChecker() ->
+    `regression_selector()` -> Workflow(device).with_workflow_cv()."""
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.automl.preparators import SanityChecker
+    from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.examples import op_boston as EX
+    from transmogrifai_tpu_torch.workflow import Workflow
+    medv, feats = EX.housing_features(list(HOUSING_PREDICTORS))
+    checked = SanityChecker().set_input(medv, transmogrify(feats)) \
+        .get_output()
+    pred = regression_selector().set_input(medv, checked).get_output()
+    wf = Workflow(device=device).set_input_dataset(
+        wide_dataset(cols, Dataset, Column, T)).set_result_features(pred)
+    return wf.with_workflow_cv(), pred
+
+
+def regression_scores(model, pred, cols: dict):
+    """The predictions of `model` for the rows of `cols`, float64 [n]."""
+    import numpy as np
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    out = model.score(wide_dataset(cols, Dataset, Column, T)).data(pred.name)
+    return np.asarray(out, np.float64)[:, 0]
+
+
+@contextlib.contextmanager
+def record_sweep_levels(levels: list, store: list):
+    """Inside the block (nested in `record_refit_levels(levels)`), each
+    mask-fold sweep fit of a tree estimator moves the level records it
+    left in `levels` into a segment of its own in `store`, in call order:
+    {"model": its class name, "params": its param values, "levels": the
+    records}. A workflow-CV fold sweeps with one fold mask, so its tree
+    fits are one-lane calls too; what stays in `levels` is the refit's."""
+    from transmogrifai_tpu_torch.models import trees as M
+    originals = {cls: cls.__dict__["mask_fit_scores"]
+                 for cls in (M._ForestBase, M._GBTBase, M._XGBBase)}
+
+    def wrap(original):
+        def run(self, *args, **kw):
+            n = len(levels)
+            try:
+                return original(self, *args, **kw)
+            finally:
+                store.append(dict(model=type(self).__name__,
+                                  params=self.param_values(),
+                                  levels=levels[n:]))
+                del levels[n:]
+        return run
+    for cls, fn in originals.items():
+        setattr(cls, "mask_fit_scores", wrap(fn))
+    try:
+        yield store
+    finally:
+        for cls, fn in originals.items():
+            setattr(cls, "mask_fit_scores", fn)
+
+
+def sweep_segment(segments: list, cell: dict, fold: int):
+    """The segment of `record_sweep_levels` that fitted `cell` (a
+    validation result: model name and grid) in its `fold`-th sweep."""
+    hits = [sg for sg in segments if sg["model"] == cell["model_name"]
+            and all(sg["params"].get(k) == v
+                    for k, v in cell["grid"].items())]
+    return hits[fold] if fold < len(hits) else None
+
+
+def regression_leg_run(cols: dict, new: dict, device) -> dict:
+    """One run of workflow-regression's leg: `regression_workflow(cols,
+    device)` trained with its refit levels recorded, then scored on
+    `new`."""
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    reset_uids()
+    wf, pred = regression_workflow(cols, device=device)
+    t0 = time.perf_counter()
+    with record_refit_levels([]) as levels, \
+            record_sweep_levels(levels, []) as sweeps:
+        model = wf.train()
+    return dict(model=model, pred=pred, levels=levels, sweeps=sweeps, wf=wf,
+                train_s=time.perf_counter() - t0,
+                scored=regression_scores(model, pred, new))
+
+
+def rel_diff(a, b) -> float:
+    """The largest |a - b| relative to max(1, |b|), elementwise."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
+
+
+def compare_regression_runs(a: dict, b: dict) -> dict:
+    """Two trained runs of the regression flow side by side: the
+    transmogrified matrix and metadata, the SanityChecker's drops, the
+    winner, each workflow-CV cell's fold metrics (relative difference),
+    the scores (absolute and relative to max(1, |score|)), and where the
+    refits split a node differently, the first such node's
+    `split_witness`. A fold metric further apart than 1e-3 relative gets
+    the witness of the first node its own sweep fits split differently
+    (`record_sweep_levels`): a tied split, resolved by f32 noise one way
+    on one run and the other way on the other, explains it."""
+    import numpy as np
+    am, bm = a["model"], b["model"]
+    vec, checked = vector_names(am)
+    ax, bx = am._train_data.column(vec), bm._train_data.column(vec)
+    asc, bsc = am.sanity_checker_summary(), bm.sanity_checker_summary()
+    asel, bsel = am.selector_summary(), bm.selector_summary()
+    acv = [v for v in asel.validation_results if v.get("workflow_cv")]
+    bcv = [v for v in bsel.validation_results if v.get("workflow_cv")]
+    names = am._train_data.column(checked).metadata.column_names()
+    cells, apart = {}, []
+    for x, y in zip(acv, bcv):
+        if (x["model_name"], x["grid"]) != (y["model_name"], y["grid"]):
+            continue
+        key = f"{x['model_name']} {x['grid']}"
+        cells[key] = rel_diff(x["fold_metrics"], y["fold_metrics"])
+        for f, (p, q) in enumerate(zip(x["fold_metrics"],
+                                       y["fold_metrics"])):
+            d = rel_diff(p, q)
+            if d <= 1e-3:
+                continue
+            sa = sweep_segment(a["sweeps"], x, f)
+            sb = sweep_segment(b["sweeps"], y, f)
+            first = None if sa is None or sb is None else \
+                first_divergence(sa["levels"], sb["levels"])
+            apart.append(dict(cell=key, fold=f, rel_diff=d,
+                              witness=None if first is None else
+                              split_witness(sa["levels"], sb["levels"],
+                                            *first,
+                                            sa["params"]["max_depth"],
+                                            names)))
+    first = first_divergence(a["levels"], b["levels"])
+    witness = None if first is None else split_witness(
+        a["levels"], b["levels"], *first,
+        asel.best_grid.get("max_depth", 0), names)
+    return dict(
+        width=int(bx.data.shape[1]),
+        matrix_identical=ax.data.tobytes() == bx.data.tobytes(),
+        metadata_identical=ax.metadata.to_json() == bx.metadata.to_json(),
+        same_drops=(asc.dropped == bsc.dropped
+                    and list(asc.drop_reasons) == list(bsc.drop_reasons)),
+        winner=[[asel.best_model_name, asel.best_grid],
+                [bsel.best_model_name, bsel.best_grid]],
+        same_winner=(asel.best_model_name, asel.best_grid)
+        == (bsel.best_model_name, bsel.best_grid),
+        cv_cells=len(acv), same_cells=len(cells) == len(acv) == len(bcv) > 0,
+        max_cell_rel_diff=max(cells.values()) if cells else None,
+        cell_rel_diffs={k: v for k, v in cells.items() if v},
+        cells_apart=apart,
+        max_score_diff=float(np.abs(a["scored"] - b["scored"]).max()),
+        max_score_rel_diff=rel_diff(a["scored"], b["scored"]),
+        scored_rows=len(a["scored"]), witness=witness)
+
+
+def regression_runs_agree(cmp: dict) -> bool:
+    """compare_regression_runs' verdict: identical matrix, metadata and
+    drops, the same winner, every CV fold metric within 1e-3 relative or,
+    further apart, a tie at the first node its sweep fits split
+    differently, and the scores within 1e-5 relative or a tie at the first
+    node the refits split differently."""
+    return (cmp["matrix_identical"] and cmp["metadata_identical"]
+            and cmp["same_drops"] and cmp["same_winner"]
+            and cmp["same_cells"]
+            and all(c["witness"] is not None and c["witness"]["tie"]
+                    for c in cmp["cells_apart"])
+            and (cmp["max_score_rel_diff"] <= 1e-5
+                 or (cmp["witness"] is not None and cmp["witness"]["tie"])))
+
+
+def workflow_regression_phase(rows: int, seed: int):
+    """op_boston's flow at user scale (`housing_columns`, all 13
+    predictors): transmogrify -> SanityChecker() -> `regression_selector()`
+    inside Workflow(device="cuda").with_workflow_cv().train(): every fold
+    refits the transmogrify and SanityChecker stages on its train rows and
+    sweeps linear regression (the Gram route), the forests and the GBT on
+    its matrix with the fold as one mask; the winner is refit on all rows.
+
+    The leg at `REGRESSION_LEG_ROWS` rows, once on the CPU and twice on the
+    card (C1: the histogram kernels flush float atomics in no fixed
+    order): the matrix identical, the same winner, each workflow-CV fold
+    metric within 1e-3 relative or, further apart, explained by a tie at
+    the first node that cell's sweep fits split differently (a forest's
+    per-node feature subsets follow the node ids, so a tie between
+    complementary one-hot columns, which mirrors the children, grows
+    another forest below it), the scores of new rows within 1e-5 relative
+    or a tie witness (`compare_regression_runs`).
+
+    The main path: `rows` rows on the card. Launch counters are reset just
+    before train() and read just after: every kernel must have launched.
+    Each stage's wall, each fold's during-DAG refit, transform and sweep
+    with each family's sweep, the train wall, the GLM route (it must be
+    the Gram route), peak device memory, the winner, its CV RMSE, the
+    holdout RMSE and R2 beside the label's standard deviation (R2 must be
+    above 0). Then `REGRESSION_SCORE_ROWS` new rows scored, the model saved
+    to a temporary directory (wall, bytes), loaded and scored again: the
+    scores identical; loaded again with device="cpu", its scores of
+    `REGRESSION_CPU_LOAD_ROWS` rows within 1e-5 relative of the card's.
+    Each kernel at every (kernel, F, S, C, Fo) key of train() on the inputs
+    of its first launch against its plain version (rows of the kernels
+    line, phase "regression"). Returns (ok, launches by capture key,
+    kernel rows)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+
+    t_phase = t0 = time.perf_counter()
+    small = housing_columns(REGRESSION_LEG_ROWS, seed + 41)
+    small_new = housing_columns(REGRESSION_LEG_ROWS, seed + 42)
+    runs = [regression_leg_run(small, small_new, dev)
+            for dev in ("cpu", None, None)]
+    c1 = compare_regression_runs(runs[1], runs[2])
+    cmp = compare_regression_runs(runs[0], runs[1])
+    leg = dict(rows=REGRESSION_LEG_ROWS, cpu_vs_card=cmp, card_vs_card=c1,
+               train_s=[r["train_s"] for r in runs],
+               cpu_stage_walls_s=stage_walls(runs[0]["model"]),
+               cpu_fold_walls_s=runs[0]["wf"].workflow_cv_walls)
+    leg_s = time.perf_counter() - t0
+    log(f"workflow-regression leg ({leg_s:.2f}s): " + json.dumps(leg))
+    leg_ok = regression_runs_agree(cmp) and regression_runs_agree(c1)
+    del runs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cols = housing_columns(rows, seed + 43)
+    new = housing_columns(REGRESSION_SCORE_ROWS, seed + 44)
+    data_s = time.perf_counter() - t0
+    reset_uids()
+    wf, pred = regression_workflow(cols)
+    selector = pred.origin_stage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, capture_launches = {}, collections.Counter()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    with capture_kernel_inputs(captured, capture_launches):
+        model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = dict(TK.launches)
+    shape_launches = dict(TK.shape_launches)
+    capture_launches = dict(capture_launches)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sel = model.selector_summary()
+    sc = model.sanity_checker_summary()
+    vec, _ = vector_names(model)
+    width = int(model._train_data.data(vec).shape[1])
+    label_std = float(np.std(cols["medv"][1]))
+    cv_cells = [v for v in sel.validation_results if v.get("workflow_cv")]
+    best = min(cv_cells, key=lambda v: v["mean_metric"])
+    families = sorted({v["model_name"] for v in cv_cells})
+    telemetry = selector.validator.last_streamed_telemetry or {}
+    glm_routes = sorted({r for (m, _), r in wf.workflow_cv_routes.items()
+                         if m == 0})
+    walls = stage_walls(model)
+    model._train_data = None
+    del cols
+
+    t0 = time.perf_counter()
+    scored = regression_scores(model, pred, new)
+    score_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="regression-model-")
+    try:
+        path = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        artifact = {f: os.path.getsize(os.path.join(path, f))
+                    for f in sorted(os.listdir(path))}
+        t0 = time.perf_counter()
+        loaded = WorkflowModel.load(path, device="cuda")
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rescored = regression_scores(loaded, pred, new)
+        rescore_s = time.perf_counter() - t0
+        on_cpu = WorkflowModel.load(path, device="cpu")
+        few = {k: (t, v[:REGRESSION_CPU_LOAD_ROWS])
+               for k, (t, v) in new.items()}
+        cpu_scored = regression_scores(on_cpu, pred, few)
+    finally:
+        shutil.rmtree(tmp)
+    reload_identical = bool(np.array_equal(scored, rescored))
+    cpu_load_rel = rel_diff(cpu_scored, scored[:REGRESSION_CPU_LOAD_ROWS])
+    cpu_load_abs = float(np.abs(
+        cpu_scored - scored[:REGRESSION_CPU_LOAD_ROWS]).max())
+    main_s = time.perf_counter() - t_phase - leg_s
+    rows_out = kernel_rows([captured_shape(key, *captured[key],
+                                           prefix="workflow-regression")
+                            for key in sorted(captured)], phase="regression")
+    del captured, loaded, on_cpu
+    torch.cuda.empty_cache()
+    res = dict(
+        rows=rows, phase_s=time.perf_counter() - t_phase, leg_s=leg_s,
+        main_s=main_s, data_s=data_s, train_s=train_s,
+        stage_walls_s=walls, fold_walls_s=wf.workflow_cv_walls,
+        family_sweep_s_final=selector.validator.family_walls,
+        selector_walls_s=selector.walls, glm_routes=glm_routes,
+        glm_kernel=telemetry.get("kernel"),
+        glm_telemetry=telemetry, width=width, flagged=len(sc.dropped),
+        winner=[sel.best_model_name, sel.best_grid],
+        winner_cv_rmse=best["mean_metric"],
+        cv_cells={f"{v['model_name']} {v['grid']}": v["mean_metric"]
+                  for v in cv_cells},
+        holdout_rmse=sel.holdout_evaluation.get("rmse"),
+        holdout_r2=sel.holdout_evaluation.get("r2"),
+        label_std=label_std, score_s=score_s,
+        score_rows=REGRESSION_SCORE_ROWS, save_s=save_s, load_s=load_s,
+        rescore_s=rescore_s, artifact_bytes=artifact,
+        reload_identical=reload_identical,
+        cpu_load_rows=REGRESSION_CPU_LOAD_ROWS,
+        cpu_load_max_abs_diff=cpu_load_abs,
+        cpu_load_max_rel_diff=cpu_load_rel,
+        peak_device_gb_train=train_peak_gb,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, shape_launches=shape_launches,
+        capture_launches=capture_launches)
+    log("workflow-regression: " + json.dumps(res))
+    by_shape = collections.Counter()
+    for key, n in capture_launches.items():
+        by_shape[launch_key(key)] += n
+    ok = (leg_ok and all(n > 0 for n in launches.values())
+          and set(launches) == set(TK.KERNELS)
+          and {r["key"] for r in rows_out} == set(capture_launches)
+          and dict(by_shape) == shape_launches
+          and families == ["OpGBTRegressor", "OpLinearRegression",
+                           "OpRandomForestRegressor"]
+          and len(cv_cells) == 11
+          and glm_routes == ["streamed"] and res["glm_kernel"] == "gram"
+          and scored.shape == (REGRESSION_SCORE_ROWS,)
+          and bool(np.isfinite(scored).all())
+          and reload_identical and cpu_load_rel <= 1e-5
+          and sel.holdout_evaluation["r2"] > 0.0)
+    return ok, capture_launches, rows_out
+
+
 @contextlib.contextmanager
 def record_refit_levels(store: list):
     """Inside the block, every one-lane call of the tree fit's level split
@@ -2743,6 +3180,14 @@ def main() -> int:
                  if not r.pop("ok")]
     rows += wf_rows
     counts["workflow"] = wf_captures
+    torch.cuda.empty_cache()
+    reg_ok, counts["regression"], reg_rows = workflow_regression_phase(
+        REGRESSION_ROWS, SEED)
+    if not reg_ok:
+        failures.append("workflow-regression")
+    failures += [f"kernel {r['name']} ({r['shape']})" for r in reg_rows
+                 if not r.pop("ok")]
+    rows += reg_rows
     for r in rows:
         key = r.pop("key")
         r["launches"] = counts[r["phase"]].get(key, 0)

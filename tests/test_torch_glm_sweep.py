@@ -235,8 +235,15 @@ def test_unported_options_raise():
     with pytest.raises(TypeError, match="RowSource"):
         PGS.sweep_glm_streamed_rounds(object(), None, None, m, r, r,
                                       loss="logistic")
-    with pytest.raises(NotImplementedError, match="squared-loss"):
-        PGS.sweep_glm_streamed(X, y, w, m, r, r, loss="squared")
+    # the squared loss is ported (the Gram route's slice): the legacy
+    # route fits it as the JAX package's does
+    B, b0 = PGS.sweep_glm_streamed(X, y, w, m, r, r, loss="squared")
+    jB, jb0 = JGS.sweep_glm_streamed(*(a.numpy() for a in (X, y, w, m)),
+                                     r, r, loss="squared")
+    np.testing.assert_allclose(B.numpy(), np.asarray(jB), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(b0.numpy(), np.asarray(jb0), rtol=1e-4,
+                               atol=1e-5)
 
 
 # -- the validator's GLM routes ------------------------------------------------
@@ -379,8 +386,9 @@ def test_unported_problem_types_raise():
     with pytest.raises(NotImplementedError, match="no ported sweep route"):
         val.validate([(PLR(device="cpu"), [{}])], X, y,
                      problem_type="multiclass")
+    # regression metrics are ported; the multiclass ones are not
     with pytest.raises(NotImplementedError, match="not ported"):
-        PV._metric_fn("regression", "rmse")
+        PV._metric_fn("multiclass", "error")
 
 
 # -- checkpoints -----------------------------------------------------------------

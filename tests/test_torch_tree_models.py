@@ -171,7 +171,7 @@ def test_multiclass_forest_and_boosting_raise():
 
 def test_default_grids_equal_the_reference():
     names = sorted(PS._models_by_name())
-    assert len(names) == 10
+    assert len(names) == 12
     for name in names:
         assert PS.default_grid_for(name) == JS.default_grid_for(name), name
 

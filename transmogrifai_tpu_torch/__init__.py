@@ -20,6 +20,12 @@ The package exports the JAX package's top-level names (the feature types,
 and `Workflow`. Event logs come in through the aggregate, conditional and
 joined readers (readers/), and `Workflow.with_raw_feature_filter` drops
 unreliable raw features before `transmogrify()` (filters/).
+`RegressionModelSelector` sweeps linear regression (its Gram route on large
+data), generalized linear regression, random forests and boosted trees on
+regression labels (examples/op_boston.py); `Workflow.with_workflow_cv()`
+refits the stages that feed the selector inside each fold; and
+`WorkflowModel.save(path)` / `WorkflowModel.load(path, device=...)` write
+and read the JAX package's model format (workflow/io.py).
 
 The package imports torch and numpy only, never jax or transmogrifai_tpu.
 Entry points run on the GPU unless the caller asks for the CPU
@@ -45,6 +51,8 @@ without CUDA they raise instead of running on the CPU.
         .set_result_features(pred).train()
     scores = model.score()
 """
+
+__version__ = "0.4.0"
 
 from . import types  # noqa: E402
 from .types import *  # noqa: E402,F401,F403 — feature type hierarchy

@@ -7,7 +7,12 @@ set, train/holdout evaluation, ModelSelectorSummary metadata; SelectedModel
 :216) and ModelSelectorSummary.scala. The sweep is the port's
 `Validator.validate` (folds as weight masks on the device); the
 selector's `device` (None = CUDA) fills the device of its validator,
-evaluators and candidate estimators where those have none.
+evaluators and candidate estimators where those have none. A
+workflow-level CV (Workflow.with_workflow_cv) narrows `models` to its
+winner before the fit and leaves its sweep in
+`_extra_validation_results`, which the summary lists first.
+`SelectedModel.save_args()` is plain numpy and JSON; `from_save_args`
+rebuilds the wrapped best model on a device.
 """
 from __future__ import annotations
 
@@ -133,6 +138,23 @@ class SelectedModel(PredictionModel):
         )
         return d
 
+    @classmethod
+    def from_save_args(cls, args: Dict[str, Any],
+                       device: DeviceLike = None) -> "SelectedModel":
+        """Reference ModelSelector.scala:235-240: the wrapped best model is
+        rebuilt from its own class and args (the JAX package's or the
+        port's), it and the selected model on `device`."""
+        from ..stages.registry import build_stage
+        best = build_stage(args["best_model_class"],
+                           args["best_model_args"], device=device)
+        return cls(
+            best_model=best,
+            summary=ModelSelectorSummary.from_json(args["summary"]),
+            label_map={int(k): int(v) for k, v in
+                       (args.get("label_map") or {}).items()} or None,
+            operation_name=args.get("operation_name", "modelSelector"),
+            uid=args.get("uid"), device=device)
+
 
 class ModelSelector(PredictorEstimator):
     """Estimator2(RealNN label, OPVector features) -> Prediction running the
@@ -222,12 +244,15 @@ class ModelSelector(PredictorEstimator):
             best_model_name=best.name,
             best_model_type=type(best.estimator).__name__,
             best_grid=best.best_grid,
-            validation_results=[
-                {"model_name": v.model_name, "model_uid": v.model_uid,
-                 "grid": v.grid, "metric_name": v.metric_name,
-                 "fold_metrics": v.fold_metrics,
-                 "mean_metric": v.mean_metric, "route": v.route}
-                for v in best.validated],
+            validation_results=(
+                # a workflow-level CV's sweep (in-fold DAG refits,
+                # Workflow._run_workflow_cv) comes first
+                list(getattr(self, "_extra_validation_results", []))
+                + [{"model_name": v.model_name, "model_uid": v.model_uid,
+                    "grid": v.grid, "metric_name": v.metric_name,
+                    "fold_metrics": v.fold_metrics,
+                    "mean_metric": v.mean_metric, "route": v.route}
+                   for v in best.validated]),
             train_evaluation=train_eval,
             holdout_evaluation=holdout_eval,
         )

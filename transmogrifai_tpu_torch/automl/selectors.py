@@ -1,17 +1,20 @@
-"""Binary model-selector preset + default hyperparameter grids (counterpart
-of automl/selectors.py).
+"""Binary and regression model-selector presets + default hyperparameter
+grids (counterpart of automl/selectors.py).
 
 Reference: core/.../impl/classification/BinaryClassificationModelSelector.scala
 (:59-61 default model types, :67-110 grids),
+regression/RegressionModelSelector.scala,
 selector/DefaultSelectorParams.scala:35-56.
 
-The port has OpLogisticRegression, OpLinearSVC and the eight tree
-families (random forest, decision tree, Spark GBT and XGBoost, each a
-classifier and a regressor), so the binary defaults (LR, RF, GBT, SVC) all
-resolve. Asking for any other model type raises NotImplementedError naming
-it: a type is never dropped in silence, which would run a smaller sweep
-than the reference. The multiclass and regression selectors are not
-ported yet.
+The port has OpLogisticRegression, OpLinearSVC, OpLinearRegression,
+OpGeneralizedLinearRegression and the eight tree families (random forest,
+decision tree, Spark GBT and XGBoost, each a classifier and a regressor),
+so the binary defaults (LR, RF, GBT, SVC) and the regression defaults
+(LinReg, RF, GBT) all resolve. Asking for any other model type raises
+NotImplementedError naming it: a type is never dropped in silence, which
+would run a smaller sweep than the reference. The multiclass selector
+(with DataCutter, softmax, the MLP and naive Bayes) is not ported yet and
+raises naming itself.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from ..evaluators.evaluators import Evaluator, Evaluators
 from ..models.base import PredictorEstimator
 from ..stages.params import ParamMap, param_grid
 from .selector import ModelSelector
-from .tuning.splitters import DataBalancer, Splitter
+from .tuning.splitters import DataBalancer, DataSplitter, Splitter
 from .tuning.validators import CrossValidation, TrainValidationSplit, Validator
 
 
@@ -58,6 +61,9 @@ def _models_by_name() -> Dict[str, type]:
     from ..models import glm, trees
     return {"OpLogisticRegression": glm.OpLogisticRegression,
             "OpLinearSVC": glm.OpLinearSVC,
+            "OpLinearRegression": glm.OpLinearRegression,
+            "OpGeneralizedLinearRegression":
+                glm.OpGeneralizedLinearRegression,
             "OpRandomForestClassifier": trees.OpRandomForestClassifier,
             "OpRandomForestRegressor": trees.OpRandomForestRegressor,
             "OpGBTClassifier": trees.OpGBTClassifier,
@@ -78,6 +84,12 @@ def default_grid_for(name: str) -> List[ParamMap]:
     if name == "OpLinearSVC":
         return param_grid(reg_param=D.REGULARIZATION,
                           max_iter=D.MAX_ITER_LIN)
+    if name == "OpLinearRegression":
+        return param_grid(reg_param=D.REGULARIZATION,
+                          elastic_net_param=D.ELASTIC_NET,
+                          max_iter=D.MAX_ITER_LIN)
+    if name == "OpGeneralizedLinearRegression":
+        return param_grid(family=D.DIST_FAMILY, reg_param=D.REGULARIZATION)
     if name in ("OpRandomForestClassifier", "OpRandomForestRegressor"):
         return param_grid(max_depth=D.MAX_DEPTH,
                           min_instances_per_node=D.MIN_INSTANCES_PER_NODE,
@@ -126,17 +138,17 @@ def _resolve_models(model_types: Sequence[str], problem_type: str,
     return out
 
 
-class BinaryClassificationModelSelector:
-    """Reference BinaryClassificationModelSelector.scala (defaults :59-61:
-    LR/RF/GBT/SVC on; NB/DT/XGB off). `device` (None = CUDA) is where the
-    selector's sweep, refit and evaluation run; a Workflow's device fills
-    it when it is None. The reference's `parallelism` (the thread count of
-    its sequential validation route, which the port does not have) is not
-    taken."""
+class _SelectorFactory:
+    """The presets' shared constructors. `device` (None = CUDA) is where
+    the selector's sweep, refit and evaluation run; a Workflow's device
+    fills it when it is None. The reference's `parallelism` (the thread
+    count of its sequential validation route, which the port runs one fit
+    at a time) is not taken."""
 
     problem_type = "binary"
-    default_model_types = ("OpLogisticRegression", "OpRandomForestClassifier",
-                           "OpGBTClassifier", "OpLinearSVC")
+    default_model_types: Tuple[str, ...] = ()
+    default_evaluator = staticmethod(Evaluators.BinaryClassification.au_pr)
+    default_splitter = staticmethod(lambda seed: DataBalancer(seed=seed))
 
     @classmethod
     def with_cross_validation(cls, splitter: Optional[Splitter] = None,
@@ -146,7 +158,7 @@ class BinaryClassificationModelSelector:
                               model_types: Optional[Sequence[str]] = None,
                               models_and_parameters=None,
                               device: DeviceLike = None) -> ModelSelector:
-        ev = evaluator or Evaluators.BinaryClassification.au_pr()
+        ev = evaluator or cls.default_evaluator()
         validator = CrossValidation(ev, num_folds=num_folds, seed=seed,
                                     stratify=stratify)
         return cls._build(validator, splitter, seed, model_types,
@@ -161,7 +173,7 @@ class BinaryClassificationModelSelector:
                                     models_and_parameters=None,
                                     device: DeviceLike = None
                                     ) -> ModelSelector:
-        ev = evaluator or Evaluators.BinaryClassification.au_pr()
+        ev = evaluator or cls.default_evaluator()
         validator = TrainValidationSplit(ev, train_ratio=train_ratio,
                                          seed=seed, stratify=stratify)
         return cls._build(validator, splitter, seed, model_types,
@@ -171,10 +183,46 @@ class BinaryClassificationModelSelector:
     def _build(cls, validator: Validator, splitter: Optional[Splitter],
                seed: int, model_types, models_and_parameters,
                device: DeviceLike) -> ModelSelector:
-        split = splitter if splitter is not None else DataBalancer(seed=seed)
+        split = splitter if splitter is not None \
+            else cls.default_splitter(seed)
         models = _resolve_models(
             model_types if model_types is not None else cls.default_model_types,
             cls.problem_type, models_and_parameters, seed, device)
-        return ModelSelector(validator, split, models,
-                             operation_name=f"{cls.problem_type}ModelSelector",
-                             device=device)
+        sel = ModelSelector(validator, split, models,
+                            operation_name=f"{cls.problem_type}ModelSelector",
+                            device=device)
+        sel.problem_type = cls.problem_type
+        return sel
+
+
+class BinaryClassificationModelSelector(_SelectorFactory):
+    """Reference BinaryClassificationModelSelector.scala (defaults :59-61:
+    LR/RF/GBT/SVC on; NB/DT/XGB off)."""
+
+    problem_type = "binary"
+    default_model_types = ("OpLogisticRegression", "OpRandomForestClassifier",
+                           "OpGBTClassifier", "OpLinearSVC")
+
+
+class RegressionModelSelector(_SelectorFactory):
+    """Reference RegressionModelSelector.scala (defaults: LinReg/RF/GBT on;
+    the metric RMSE; a DataSplitter's 10% holdout)."""
+
+    problem_type = "regression"
+    default_model_types = ("OpLinearRegression", "OpRandomForestRegressor",
+                           "OpGBTRegressor")
+    default_evaluator = staticmethod(Evaluators.Regression.rmse)
+    default_splitter = staticmethod(lambda seed: DataSplitter(seed=seed))
+
+
+class MultiClassificationModelSelector:
+    """Reference MultiClassificationModelSelector.scala: not ported yet
+    (it needs DataCutter, softmax GLMs and boosting, the MLP and naive
+    Bayes, and wider histogram channels)."""
+
+    @classmethod
+    def with_cross_validation(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "MultiClassificationModelSelector is not ported yet")
+
+    with_train_validation_split = with_cross_validation

@@ -7,23 +7,27 @@ weight masks over one device-resident feature matrix: no data moves
 between folds. Three routes, picked per estimator as the reference picks
 them:
 
-- streamed (`_validate_streamed`): large binary GLM sweeps (logistic
-  regression, linear SVC) fit every (fold x grid) lane through shared
-  passes over X, with per-lane retirement (ops/glm_sweep.py); each fold's
-  grid chunk is then scored by one product and one lane-batched metric
-  call;
+- streamed (`_validate_streamed`): large GLM sweeps fit every (fold x
+  grid) lane through shared passes over X: logistic regression and the
+  linear SVC with per-lane retirement, linear regression from one Gram
+  pass (ops/glm_sweep.py); each fold's grid chunk is then scored by one
+  product and one lane-batched metric call;
 - vmapped (`_validate_vmapped`): smaller GLM sweeps fit the (fold x grid
   chunk) lanes in one lane-batched solve (ops/glm.py);
 - mask folds (`_validate_mask_folds`): tree sweeps bin the matrix once per
   `max_bins` value and fit all folds of a grid point in one fold-fused
-  call.
+  call;
+- sequential (`_validate_sequential`): every other estimator (generalized
+  linear regression) and every estimator under a custom evaluator: one
+  `fit_arrays` a fold on its training rows, the evaluator on the held-out
+  rows' Prediction column.
 
 At 2M rows and more, in-sweep AuPR/AuROC come from the lane-batched
-binned-counts kernel instead of a sort per lane. GLM cells can be
-checkpointed (`checkpoint_path`), and the streamed route also per
-retirement round. The sequential route (host-side evaluator calls on
-prediction columns), the squared-loss Gram route, multiclass sweeps and
-mesh sharding arrive in later slices.
+binned-counts kernel instead of a sort per lane; regression metrics are
+lane-batched sums. GLM cells can be checkpointed (`checkpoint_path`), and
+the streamed route also per retirement round. `validate(..., masks=)`
+takes the folds from outside (workflow-level CV runs one fold at a time).
+Multiclass sweeps and mesh sharding arrive in later slices.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 from ...device import DeviceLike, resolve_device, to_device
 from ...evaluators.evaluators import Evaluator
 from ...models.base import PredictorEstimator
+from ...models.prediction import make_prediction_column
 from ...ops import glm_sweep as GS
 from ...ops import metrics_ops as M
 from ...stages.params import ParamMap
@@ -96,7 +101,11 @@ _RANK_METRICS = {"au_pr": M.au_pr, "au_roc": M.au_roc}
 
 def _lanes_metric_fn(metric: str, problem_type: str, rank_bins):
     """(scores [L, n], labels [n], w_lanes [L, n]) -> [L] metric values
-    when the metric has a lane-batched binned kernel, else None."""
+    when the metric has a lane-batched form (the binned rank kernel, the
+    regression sums), else None."""
+    if problem_type == "regression":
+        return lambda s, y, wl: getattr(M.regression_metrics(s, y, wl),
+                                        metric)
     if not (rank_bins and problem_type == "binary"):
         return None
     if metric == "au_pr":
@@ -110,12 +119,17 @@ def _metric_fn(problem_type: str, metric: str,
                rank_bins: Optional[int] = None) -> Callable:
     """(scores [n], labels, weights, margin_threshold) -> scalar for one
     lane. Binary scores are margins (monotone in probability, so rank
-    metrics match). This slice ports the binary rank metrics; the
-    thresholded, multiclass and regression metrics come later."""
-    if problem_type != "binary" or metric not in _RANK_METRICS:
+    metrics match); regression scores are the predictions. The port has
+    the binary rank metrics and every regression metric; the thresholded
+    and multiclass in-sweep metrics come later."""
+    if problem_type == "regression":
+        if metric not in M.RegressionMetrics._fields:
+            raise ValueError(f"unknown regression metric {metric!r}")
+    elif problem_type != "binary" or metric not in _RANK_METRICS:
         raise NotImplementedError(
             f"in-sweep metric {metric!r} ({problem_type}) is not ported "
-            f"yet; this slice has the binary {sorted(_RANK_METRICS)}")
+            f"yet; the port has the binary {sorted(_RANK_METRICS)} and the "
+            f"regression {list(M.RegressionMetrics._fields)}")
     lanes = _lanes_metric_fn(metric, problem_type, rank_bins)
     if lanes is not None:
         return lambda s, y, w, thr: lanes(s[None], y, w[None])[0]
@@ -203,7 +217,13 @@ class Validator:
         the winner, configured with its grid. X [n, d], y [n] and w [n]
         may be numpy arrays or tensors; `masks` overrides
         self.fold_masks(y)."""
+        if problem_type not in ("binary", "regression"):
+            raise NotImplementedError(
+                f"{problem_type} sweeps have no ported sweep route yet: "
+                "they come with the multiclass slice")
         dev = resolve_device(self.device)
+        if getattr(self.evaluator, "device", None) is None:
+            self.evaluator.device = self.device
         y_host = y.cpu().numpy() if isinstance(y, torch.Tensor) \
             else np.asarray(y)
         if masks is None:
@@ -216,6 +236,10 @@ class Validator:
             ).hexdigest()[:12]
         metric = self.evaluator.default_metric
         larger = self.evaluator.is_larger_better()
+        # a user's metric (Evaluators.custom) has no device form: every
+        # candidate takes the sequential route, the only one that calls
+        # evaluator.evaluate on host columns
+        device_metric = getattr(self.evaluator, "device_metric", True)
         Xd = to_device(X, dev, label="sweep")
         yd = torch.as_tensor(y_host, dtype=torch.float32, device=dev)
         wd = torch.ones_like(yd) if w is None else \
@@ -228,7 +252,11 @@ class Validator:
             t0 = time.perf_counter()
             if not grids:
                 grids = [dict()]
-            if self._streamable(est, grids, problem_type, Xd, md.shape[0]):
+            if not device_metric:
+                validated.extend(self._validate_sequential(
+                    est, grids, Xd, y_host, w, masks))
+            elif self._streamable(est, grids, problem_type, Xd,
+                                  md.shape[0]):
                 validated.extend(self._validate_streamed(
                     est, grids, Xd, yd, wd, md, metric, problem_type))
             elif self._vmappable(est, grids, problem_type):
@@ -237,12 +265,10 @@ class Validator:
             elif (getattr(est, "supports_mask_folds", False)
                   and problem_type in getattr(est, "problem_types", ())):
                 validated.extend(self._validate_mask_folds(
-                    est, grids, Xd, yd, wd, md, metric))
+                    est, grids, Xd, yd, wd, md, metric, problem_type))
             else:
-                raise NotImplementedError(
-                    f"{type(est).__name__} ({problem_type}) has no ported "
-                    "sweep route yet: the sequential route comes in a "
-                    "later slice")
+                validated.extend(self._validate_sequential(
+                    est, grids, Xd, y_host, w, masks))
             name = type(est).__name__
             self.family_walls[name] = (self.family_walls.get(name, 0.0)
                                        + time.perf_counter() - t0)
@@ -460,13 +486,25 @@ class Validator:
     def _streamed_fit(self, est, fit_kwargs, X, y, w, masks, regs_p,
                       alphas_p, keys, pending):
         """Fit every pending (fold x grid) lane through the streamed
-        route: the host-driven round loop with per-lane retirement
+        route: the squared loss from one Gram pass; the IRLS losses
+        through the host-driven round loop with per-lane retirement
         (round-granular checkpointing when a checkpoint path is set), or,
         with TMOG_GLM_ROUNDS=0, the legacy single-program global-max
         route. Returns (B [F, Gp, d], b0 [F, Gp] tensors in RAW units,
         telemetry, round checkpoint or None — the CALLER clears it only
         after the cells land in the JSONL checkpoint)."""
-        L = int(masks.shape[0]) * len(pending)
+        F = int(masks.shape[0])
+        L = F * len(pending)
+        if fit_kwargs["loss"] == "squared":
+            fk = {k: v for k, v in fit_kwargs.items() if k != "loss"}
+            B, b0, giters = GS.sweep_glm_squared_gram(
+                X, y, w, masks, regs_p, alphas_p, fk.pop("max_iter"),
+                fk.pop("tol"), **fk)
+            return B, b0, {"route": "streamed", "kernel": "gram",
+                           "glm_rounds": 1, "data_passes": 1,
+                           "lane_passes": F, "padded_lane_passes": F,
+                           "lanes_total": L, "lanes_retired": L,
+                           "gram_solve_iters": int(giters)}, None
         if GS.env_on("TMOG_GLM_ROUNDS"):
             rc, rkey, state = self._round_checkpoint(keys, pending,
                                                      fit_kwargs)
@@ -534,13 +572,14 @@ class Validator:
         return self._validated(est, grids, metric, results, "streamed")
 
     # -- mask-fold tree route ------------------------------------------------
-    def _validate_mask_folds(self, est, grids, X, y, w, masks,
-                             metric) -> List[ValidatedModel]:
+    def _validate_mask_folds(self, est, grids, X, y, w, masks, metric,
+                             problem_type) -> List[ValidatedModel]:
         """Tree-family sweep with folds as weight masks: the feature matrix
         is quantile-binned ONCE per max_bins value on the device, then each
         grid point fits all folds at once against it, with the folds'
-        training masks as sample weights, and scores the held-out rows."""
-        fold_metrics = _lane_metrics(metric, "binary",
+        training masks as sample weights, and scores the held-out rows
+        (margins of a classifier, a regressor's predictions)."""
+        fold_metrics = _lane_metrics(metric, problem_type,
                                      self._rank_bins(X.shape[0]),
                                      self._margin_threshold(est))
         w_eval = (1.0 - masks) * w[None, :]
@@ -561,6 +600,45 @@ class Validator:
                                fold_metrics(scores, y, w_eval).cpu()]
             del ctx  # free the binned matrix before the next group
         return self._validated(est, grids, metric, results, "mask_folds")
+
+
+    # -- sequential route ----------------------------------------------------
+    def _validate_sequential(self, est, grids, X, y, w, masks
+                             ) -> List[ValidatedModel]:
+        """One `fit_arrays` a (grid point, fold) on the fold's training
+        rows, scored by the evaluator on the held-out rows' Prediction
+        column (reference OpValidator's per-fold fits): the route of
+        estimators without a lane-batched fit and of custom evaluators.
+        X is the sweep's device tensor; y, w and masks are host arrays."""
+        metric = self.evaluator.default_metric
+        y = np.asarray(y, np.float32)
+        w = np.ones_like(y) if w is None else \
+            (w.cpu().numpy() if isinstance(w, torch.Tensor)
+             else np.asarray(w, np.float32))
+        masks = np.asarray(masks)
+        ckpt, keys, results = self._cell_bookkeeping(
+            est, grids, X, y, metric, masks.shape[0],
+            path=self._sweep_path("sequential"))
+        for gi, g in enumerate(grids):
+            if gi in results:
+                continue
+            est_g = est.copy(**g)
+            fold_vals: List[float] = []
+            for f in range(masks.shape[0]):
+                tr = masks[f] > 0
+                va = ~tr
+                model = est_g.fit_arrays(
+                    X[torch.as_tensor(tr, device=X.device)], y[tr], w[tr])
+                pred, raw, prob = model.predict_arrays(
+                    X[torch.as_tensor(va, device=X.device)])
+                col = make_prediction_column(pred, raw, prob)
+                fold_vals.append(float(self.evaluator.evaluate(
+                    y[va], col, w[va])))
+            results[gi] = fold_vals
+            if ckpt is not None:
+                ckpt.record(keys[gi], type(est).__name__, g, fold_vals,
+                            metric)
+        return self._validated(est, grids, metric, results, "sequential")
 
 
 class CrossValidation(Validator):

@@ -1,10 +1,13 @@
 """Carry fitted parameters across from the JAX package.
 
 Each takes plain numpy arrays, lists and dicts — what the JAX package's
-`TreeEnsembleModel.save_args()`, `LinearBinaryModel.save_args()`, `Tree`
-fields and fitted workflow stages hold — so this module imports nothing of
-the JAX package. With them both packages score the same fitted model or
-the same fitted workflow (`workflow_model_from_jax`).
+`TreeEnsembleModel.save_args()`, `LinearBinaryModel.save_args()`,
+`LinearRegressionModel.save_args()`, `Tree` fields and fitted workflow
+stages hold — so this module imports nothing of the JAX package. With them
+both packages score the same fitted model or the same fitted workflow
+(`workflow_model_from_jax`). A fitted stage is rebuilt as a saved one is
+loaded (stages/registry.build_stage), so whatever a saved model may hold
+carries across.
 """
 from __future__ import annotations
 
@@ -68,25 +71,8 @@ def stage_state(stage) -> Dict[str, Any]:
 
 
 def _fitted_stage(state: Dict[str, Any], device: DeviceLike):
-    from .automl.selector import ModelSelectorSummary, SelectedModel
     from .stages.registry import build_stage
-    args = dict(state["args"])
-    if state["class"] == "SelectedModel":
-        best = args["best_model_args"]
-        make = {"LinearBinaryModel": linear_model_from_jax,
-                "TreeEnsembleModel": tree_model_from_jax}.get(
-                    args["best_model_class"])
-        if make is None:
-            raise NotImplementedError(
-                f"{args['best_model_class']} is not ported yet")
-        return SelectedModel(
-            make(best, device=device),
-            ModelSelectorSummary.from_json(args["summary"]),
-            label_map={int(k): int(v) for k, v in
-                       (args.get("label_map") or {}).items()} or None,
-            operation_name=args.get("operation_name", "modelSelector"),
-            device=device)
-    stage = build_stage(state["class"], args)
+    stage = build_stage(state["class"], dict(state["args"]), device=device)
     if state.get("metadata") is not None and hasattr(stage, "set_metadata"):
         stage.set_metadata(VectorMetadata.from_json(state["metadata"]))
     return stage
@@ -107,8 +93,8 @@ def workflow_model_from_jax(result_features: Sequence[Feature],
     (the class names must agree): each port estimator is replaced by the
     port's fitted counterpart of the JAX stage — vectorizer fills and
     vocabularies with their metadata, the SanityChecker's kept indices, the
-    selector's best model through `linear_model_from_jax` /
-    `tree_model_from_jax` — wired to the port's features. `blacklist` and
+    selector's best model (SelectedModel.from_save_args) — wired to the
+    port's features, on `device`. `blacklist` and
     `rff_results` (the JAX WorkflowModel's `blacklist` and its
     `rff_results.to_json()`) carry a RawFeatureFilter's outcome across."""
     from .filters.raw_feature_filter import RawFeatureFilterResults

@@ -1,7 +1,8 @@
-"""Binary-classification evaluator (counterpart of evaluators/evaluators.py).
+"""Binary-classification, regression and custom evaluators (counterpart of
+evaluators/evaluators.py).
 
 Reference: core/.../evaluators/{OpBinaryClassificationEvaluator.scala:56,
-Evaluators.scala:40}. `evaluate_all(labels, pred_col, w)` computes the
+OpRegressionEvaluator.scala:61, Evaluators.scala:40}. `evaluate_all(labels, pred_col, w)` computes the
 metric bundle of a Prediction column (models/prediction.py): AuROC, AuPR,
 and precision / recall / F1 / error / confusion counts at the threshold
 (probability `threshold` for probabilistic models, margin 0 for margin
@@ -9,8 +10,11 @@ models such as the linear SVC), plus the threshold curves. `evaluate`
 returns the default metric of a Prediction column or of a score array;
 validators rank models by it. A Prediction column's metrics run on the
 evaluator's `device` (None = CUDA; the model selector and the workflow
-fill it with theirs); a score array's where it lies.
-The multiclass, regression and bin-score evaluators are not ported yet.
+fill it with theirs); a score array's where it lies. `RegressionEvaluator`
+reports RMSE, MSE, MAE and R2 of a regression Prediction column on its
+device; `Evaluators.custom` wraps a user's metric function, which
+validators can only call on host columns (their sequential route).
+The multiclass and bin-score evaluators are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 
 from ..data.dataset import Column
 from ..device import DeviceLike, resolve_device
-from ..models.prediction import positive_score_of, probability_of
+from ..models.prediction import (positive_score_of, prediction_of,
+                                 probability_of)
 from ..ops import metrics_ops as M
 
 _SMALLER_BETTER = {"error", "rmse", "mse", "mae", "log_loss", "brier_score"}
@@ -42,6 +47,10 @@ class Evaluator:
     def evaluate_all(self, labels, pred_col: Column, w=None
                      ) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def evaluate(self, labels, pred_col: Column, w=None) -> float:
+        """The default metric of a Prediction column."""
+        return self.evaluate_all(labels, pred_col, w)[self.default_metric]
 
     def is_larger_better(self, metric: Optional[str] = None) -> bool:
         return (metric or self.default_metric) not in _SMALLER_BETTER
@@ -152,8 +161,79 @@ class BinaryClassificationEvaluator(Evaluator):
         }
 
 
+class RegressionEvaluator(Evaluator):
+    """RMSE/MSE/MAE/R2 (reference OpRegressionEvaluator.scala:61)."""
+
+    name = "regEval"
+    default_metric = "rmse"
+
+    def __init__(self, metric: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(metric, device)
+        if self.default_metric not in M.RegressionMetrics._fields:
+            raise ValueError(
+                f"unknown regression metric {self.default_metric!r}; "
+                f"there are {list(M.RegressionMetrics._fields)}")
+
+    def evaluate_all(self, labels, pred_col: Column, w=None
+                     ) -> Dict[str, Any]:
+        dev = resolve_device(self.device)
+        pred = torch.as_tensor(np.asarray(prediction_of(pred_col),
+                                          np.float32), device=dev)
+        y = torch.as_tensor(np.asarray(labels, np.float32), device=dev)
+        wt = None if w is None else \
+            torch.as_tensor(np.asarray(w, np.float32), device=dev)
+        m = M.regression_metrics(pred, y, wt)
+        return {k: float(v) for k, v in m._asdict().items()}
+
+
+class CustomEvaluator(Evaluator):
+    """A user's metric (reference Evaluators.*.custom):
+    `evaluate_fn(labels, pred_col, w) -> float` under a name and a
+    direction. No kernel computes it, so validators run every candidate
+    through their sequential route, the one that calls `evaluate` on host
+    columns."""
+
+    name = "customEval"
+    device_metric = False
+
+    def __init__(self, metric_name: str, larger_better: bool, evaluate_fn,
+                 device: DeviceLike = None):
+        super().__init__(metric_name, device)
+        self.larger_better = bool(larger_better)
+        self._fn = evaluate_fn
+
+    @property
+    def metric_key(self) -> str:
+        """Checkpoint identity: the metric's name and a fingerprint of the
+        function's bytecode, so an edited function never replays cells of
+        the old one."""
+        import hashlib
+        try:
+            code = self._fn.__code__
+            fp = hashlib.sha1(code.co_code + repr(code.co_consts).encode()
+                              ).hexdigest()[:10]
+        except AttributeError:      # a callable object
+            fp = type(self._fn).__name__
+        return f"{self.default_metric}@{fp}"
+
+    def evaluate_all(self, labels, pred_col: Column, w=None
+                     ) -> Dict[str, Any]:
+        return {self.default_metric: float(self._fn(labels, pred_col, w))}
+
+    def is_larger_better(self, metric: Optional[str] = None) -> bool:
+        return self.larger_better
+
+
 class Evaluators:
     """Factory namespace (reference Evaluators.scala:40)."""
+
+    @staticmethod
+    def custom(metric_name: str, larger_better: bool,
+               evaluate_fn) -> CustomEvaluator:
+        """Reference Evaluators.*.custom(metricName, isLargerBetter,
+        evaluateFn); `evaluate_fn(labels, pred_col, w) -> float`."""
+        return CustomEvaluator(metric_name, larger_better, evaluate_fn)
 
     class BinaryClassification:
         @staticmethod
@@ -167,3 +247,20 @@ class Evaluators:
             return BinaryClassificationEvaluator(metric="au_roc")
 
         auROC = au_roc
+
+    class Regression:
+        @staticmethod
+        def rmse() -> RegressionEvaluator:
+            return RegressionEvaluator(metric="rmse")
+
+        @staticmethod
+        def mse() -> RegressionEvaluator:
+            return RegressionEvaluator(metric="mse")
+
+        @staticmethod
+        def mae() -> RegressionEvaluator:
+            return RegressionEvaluator(metric="mae")
+
+        @staticmethod
+        def r2() -> RegressionEvaluator:
+            return RegressionEvaluator(metric="r2")

@@ -64,3 +64,15 @@ class FeatureGeneratorStage(PipelineStage):
         d.update(name=self.feature_name, type=self.feature_type.type_name(),
                  is_response=self.is_response)
         return d
+
+    @classmethod
+    def from_save_args(cls, args: Dict[str, Any]) -> "FeatureGeneratorStage":
+        """A rebuilt generator extracts by field name from dict records (or
+        attributes of objects): the user's extract function does not travel,
+        as in the reference; scoring reads the named columns."""
+        name = args["name"]
+        return cls(name=name, feature_type=FeatureType.from_name(args["type"]),
+                   extract_fn=lambda rec: rec.get(name)
+                   if isinstance(rec, dict) else getattr(rec, name, None),
+                   is_response=bool(args.get("is_response", False)),
+                   uid=args.get("uid"))

@@ -1,14 +1,18 @@
-"""GLM-family binary predictors (counterpart of models/glm.py): logistic
-regression and the linear SVC.
+"""GLM-family predictors (counterpart of models/glm.py): logistic
+regression and the linear SVC (binary), linear and generalized linear
+regression.
 
 Reference wrappers: core/.../impl/classification/{OpLogisticRegression,
-OpLinearSVC}.scala. Param names mirror the Spark params the reference
+OpLinearSVC}.scala, core/.../impl/regression/{OpLinearRegression,
+OpGeneralizedLinearRegression}.scala. Param names mirror the Spark params the reference
 grids over (DefaultSelectorParams.scala:35-56). Fits run through the
 lane-batched ops/glm solvers, so the model selector fits (fold x grid)
 lanes in one call (`batched_fit_fn`) or streams them
-(`streamed_loss`, ops/glm_sweep.py). This slice ports the binary
-problems; softmax (multiclass) logistic regression, naive Bayes, linear
-and generalized linear regression come in later slices.
+(`streamed_loss`, ops/glm_sweep.py; linear regression's squared loss
+takes its Gram route). Generalized linear regression has no lane-batched
+fit: the selector sweeps it through the validator's sequential route.
+Softmax (multiclass) logistic regression and naive Bayes come with the
+multiclass slice.
 """
 from __future__ import annotations
 
@@ -58,6 +62,34 @@ class LinearBinaryModel(PredictionModel):
         return d
 
 
+class LinearRegressionModel(PredictionModel):
+    """Linear predictor with the identity or the log link (generalized
+    linear regression's poisson and gamma families). The products run on
+    the model's device; results are numpy."""
+
+    def __init__(self, beta: np.ndarray, intercept: float,
+                 link: str = "identity",
+                 operation_name: str = "linReg", uid: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(operation_name, uid=uid, device=device)
+        self.beta = np.array(beta, np.float32)
+        self.intercept = float(intercept)
+        self.link = link
+
+    def predict_arrays(self, X):
+        dev = resolve_device(self.device)
+        eta = (to_device(X, dev, label="predict")
+               @ torch.as_tensor(self.beta, device=dev) + self.intercept)
+        pred = torch.exp(eta) if self.link == "log" else eta
+        return pred.cpu().numpy().astype(np.float32), None, None
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        d.update(beta=self.beta.tolist(), intercept=self.intercept,
+                 link=self.link)
+        return d
+
+
 def _weights(y: torch.Tensor, w) -> torch.Tensor:
     return torch.ones_like(y) if w is None else \
         torch.as_tensor(w, dtype=torch.float32, device=y.device)
@@ -85,6 +117,14 @@ def _batched_svc(max_iter, fit_intercept, standardize):
         return G.fit_linear_svc(X, y, w, reg, max_iter=max_iter,
                                 fit_intercept=fit_intercept,
                                 standardize=standardize)
+    return fit_one
+
+
+def _batched_linear(max_iter, fit_intercept, standardize):
+    def fit_one(X, y, w, reg, alpha):
+        return G.fit_linear(X, y, w, reg, alpha, max_iter=max_iter,
+                            fit_intercept=fit_intercept,
+                            standardize=standardize)
     return fit_one
 
 
@@ -200,3 +240,95 @@ class OpLinearSVC(PredictorEstimator):
                                  probabilistic=False,
                                  operation_name=self.operation_name,
                                  device=self.device)
+
+
+class OpLinearRegression(PredictorEstimator):
+    """Reference OpLinearRegression (impl/regression/, 186 LoC)."""
+
+    problem_types = ("regression",)
+    supports_grid_vmap = True
+    produces_probabilities = False
+    # the squared loss's curvature is 1, so large sweeps take the Gram
+    # route (ops/glm_sweep.sweep_glm_squared_gram): one pass over X for
+    # every fold's moments, then the grid solves from them
+    streamed_loss = "squared"
+
+    @classmethod
+    def _declare_params(cls):
+        return [
+            Param("reg_param", "regularization strength", 0.0),
+            Param("elastic_net_param", "L1 ratio", 0.0),
+            Param("max_iter", "iterations", 50),
+            Param("tol", "termination tolerance", 1e-6),
+            Param("fit_intercept", "fit intercept", True),
+            Param("standardization", "standardize features", True),
+            Param("solver", "auto|normal|l-bfgs (ignored; Newton used)",
+                  "auto"),
+        ]
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("linReg", uid=uid, device=device, **params)
+
+    def fit_arrays(self, X, y, w=None) -> LinearRegressionModel:
+        dev = resolve_device(self.device)
+        yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        beta, b0 = G.fit_linear(
+            to_device(X, dev, label="fit"), yd, _weights(yd, w),
+            float(self.get_param("reg_param")),
+            float(self.get_param("elastic_net_param")),
+            max_iter=int(self.get_param("max_iter")),
+            tol=float(self.get_param("tol")),
+            fit_intercept=bool(self.get_param("fit_intercept")),
+            standardize=bool(self.get_param("standardization")))
+        return self.model_from_params(beta.cpu().numpy(), float(b0))
+
+    def batched_fit_fn(self):
+        fit_one = _batched_linear(int(self.get_param("max_iter")),
+                                  bool(self.get_param("fit_intercept")),
+                                  bool(self.get_param("standardization")))
+        return fit_one, ("reg_param", "elastic_net_param")
+
+    def model_from_params(self, beta, b0) -> LinearRegressionModel:
+        return LinearRegressionModel(np.asarray(beta), float(b0),
+                                     operation_name=self.operation_name,
+                                     device=self.device)
+
+
+class OpGeneralizedLinearRegression(PredictorEstimator):
+    """Reference OpGeneralizedLinearRegression (198 LoC): family/link
+    GLR by IRLS."""
+
+    problem_types = ("regression",)
+    produces_probabilities = False
+
+    @classmethod
+    def _declare_params(cls):
+        return [
+            Param("family", "gaussian|poisson|gamma", "gaussian",
+                  lambda v: v in G.GLR_FAMILIES),
+            Param("reg_param", "L2 strength", 0.0),
+            Param("max_iter", "IRLS iterations", 25),
+            Param("fit_intercept", "fit intercept", True),
+        ]
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("glr", uid=uid, device=device, **params)
+
+    def fit_arrays(self, X, y, w=None) -> LinearRegressionModel:
+        dev = resolve_device(self.device)
+        family = self.get_param("family")
+        y = np.asarray(y, np.float32)
+        if family in ("poisson", "gamma"):
+            y = np.maximum(y, np.float32(1e-6 if family == "gamma" else 0.0))
+        yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        beta, b0 = G.fit_glr(
+            to_device(X, dev, label="fit"), yd, _weights(yd, w),
+            float(self.get_param("reg_param")), family=family,
+            max_iter=int(self.get_param("max_iter")),
+            fit_intercept=bool(self.get_param("fit_intercept")))
+        return LinearRegressionModel(
+            beta.cpu().numpy(), float(b0),
+            link="log" if family in ("poisson", "gamma") else "identity",
+            operation_name=self.operation_name, device=self.device)

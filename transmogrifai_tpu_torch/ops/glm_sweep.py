@@ -12,8 +12,11 @@ The JAX package has no Pallas kernel here: its einsums, matmuls and
 batched solves are plain XLA products, so they are plain PyTorch products
 (f32; TF32 stays off, `device.resolve_device`).
 
-Routes, as in the reference, for the IRLS losses (logistic, squared
-hinge):
+Routes, as in the reference. The squared loss (linear regression) takes
+`sweep_glm_squared_gram`: its curvature is identically 1, so one pass over
+X gathers each fold's weighted Gram and moments, and the whole grid solves
+from them (ops/glm.ridge_gram_solve, prox_newton_gram). For the IRLS
+losses (logistic, squared hinge):
 1. `sweep_glm_round` + the host driver `sweep_glm_streamed_rounds`: rounds
    of K iterations with a per-lane delta; after each round the host
    retires the converged lanes (coefficients frozen, the per-lane solvers'
@@ -29,9 +32,9 @@ The reference pads each round's lanes to a power-of-two bucket
 so a round here runs exactly its active lanes; the padded lanes of the
 reference are inert (zero fold weights), so the results are the same.
 `streamed_route_ok` keeps the bucket in its memory guard, so the port
-picks the route the reference picks. The squared-loss Gram fast path, the
-mesh-sharded drivers, the tileplane `RowSource` and the across-time
-`warm_seed` are not ported.
+picks the route the reference picks. The mesh-sharded drivers (the Gram
+route's too), the tileplane `RowSource` and the across-time `warm_seed`
+are not ported.
 
 Fold masks enter as weights (mask * w), exactly like the per-lane solvers.
 Standardization: the per-lane solvers standardize with each lane's own
@@ -132,9 +135,8 @@ def _residual_curvature(loss: str) -> Callable:
             gap = torch.clamp(1.0 - ypm * eta, min=0.0)
             return -gap * ypm, (gap > 0.0).to(eta.dtype)
     elif loss == "squared":
-        raise NotImplementedError(
-            "the squared-loss Gram route (OpLinearRegression) is not "
-            "ported yet")
+        def rc(eta, y):
+            return eta - y[:, None], torch.ones_like(eta)
     else:
         raise ValueError(f"unknown streamed loss {loss!r}")
     return rc
@@ -355,6 +357,82 @@ def sweep_glm_streamed(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         b0 = b0 - (B * scan.mean[None, :]).sum(1)
     B = B[:, :d]  # drop inert padded columns on the tiled path
     return B.reshape(F, Gn, d), b0.reshape(F, Gn)
+
+
+# -- squared-loss sufficient-statistics route ---------------------------------
+
+def sweep_glm_squared_gram(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                           fold_masks: torch.Tensor, regs, alphas,
+                           max_iter=50, tol=1e-6, *,
+                           fit_intercept: bool = True,
+                           standardize: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Squared-loss (fold x grid) sweep from ONE pass over X.
+
+    The pass accumulates each fold's weighted Gram [F, d, d] (the same
+    pairwise-product blocks as the IRLS routes' Hessians), X^T W_f y,
+    X^T W_f 1 and the sums, standardizing each block on the fly with the
+    global-weight column moments (one stats pass first: raw-moment
+    standardization would cancel in f32 for large-mean columns). The grid
+    then solves from the cached moments: ridge lanes in closed form,
+    elastic-net lanes by proximal Newton started at the ridge solution of
+    the same L2. Lanes are fold-major, l = f * G + g. Returns (B [F, G, d]
+    f32 in RAW feature units, b0 [F, G], the proximal solve's
+    iterations)."""
+    n, d = X.shape
+    dev = X.device
+    f32 = torch.float32
+    F = fold_masks.shape[0]
+    regs = torch.as_tensor(regs, dtype=f32, device=dev)
+    alphas = torch.as_tensor(alphas, dtype=f32, device=dev)
+    Gn = regs.shape[0]
+    tiled, d_work, bt, pairs = _tiling(d)
+    dp = d_work - d
+    if standardize:
+        mean, std = glm_standardize_stats(X, w)
+    else:
+        mean = torch.zeros(d, dtype=f32, device=dev)
+        std = torch.ones(d, dtype=f32, device=dev)
+    mean_p, std_p = Fn.pad(mean, (0, dp)), Fn.pad(std, (0, dp), value=1.0)
+    wsum_f = torch.clamp(fold_masks @ w, min=EPS)               # [F]
+    c = min(_ROW_BLOCK_WIDE if tiled else _row_block(d_work), n)
+    hess_blocks, assemble, hA = _gram_fns(tiled, d_work, F, bt, pairs, dev)
+    cA = torch.zeros((F, d_work), dtype=f32, device=dev)
+    sxA = torch.zeros((F, d_work), dtype=f32, device=dev)
+    syA = torch.zeros(F, dtype=f32, device=dev)
+    for x_blk, y_blk, w_blk, m_blk in _blocked(X, y, w, fold_masks, c):
+        xf = x_blk.to(f32)
+        if dp:
+            xf = Fn.pad(xf, (0, dp))
+        xf = (xf - mean_p) / std_p
+        wlf = m_blk.T * w_blk[:, None]                  # [c, F]
+        wy = wlf * y_blk[:, None]                       # [c, F]
+        hess_blocks(hA, xf, wlf)
+        cA.addmm_(wy.T, xf)
+        sxA.addmm_(wlf.T, xf)
+        syA += wy.sum(0)
+    Gm_f = assemble(hA)                                 # [F, d_work, d_work]
+
+    # each fold's moments along the fold-major lane axis l = f * Gn + g
+    l1 = (regs * alphas).repeat(F)                      # [L]
+    l2 = (regs * (1.0 - alphas)).repeat(F)              # [L]
+    Gm = Gm_f.repeat_interleave(Gn, dim=0)
+    cm = cA.repeat_interleave(Gn, dim=0)
+    sx = sxA.repeat_interleave(Gn, dim=0)
+    sy = syA.repeat_interleave(Gn)
+    sw = wsum_f.repeat_interleave(Gn)
+    beta_r, b0_r = G.ridge_gram_solve(Gm, cm, sx, sy, sw, l2,
+                                      fit_intercept=fit_intercept)
+    beta_p, b0_p, iters = G.prox_newton_gram(
+        Gm, cm, sx, sy, sw, l1, l2, beta_r, b0_r, max_iter, tol,
+        fit_intercept=fit_intercept)
+    is_l1 = l1 > 0.0
+    B = torch.where(is_l1[:, None], beta_p, beta_r)
+    b0 = torch.where(is_l1, b0_p, b0_r)
+    B = B / std_p[None, :]
+    b0 = b0 - (B * mean_p[None, :]).sum(1)
+    B = B[:, :d]
+    return B.reshape(F, Gn, d), b0.reshape(F, Gn), iters
 
 
 # -- round kernel + host retirement driver (IRLS losses) ---------------------

@@ -1,4 +1,5 @@
-"""Binary rank metrics in PyTorch (counterpart of ops/metrics_ops.py).
+"""Binary rank metrics and regression metrics in PyTorch (counterpart of
+ops/metrics_ops.py).
 
 `au_pr` / `au_roc` are sort-based with exact tie handling (metrics taken at
 threshold boundaries only), matching Spark MLlib's
@@ -7,6 +8,8 @@ fold of a sweep cell at once from a score histogram: one `hist_folds`
 launch over all lanes (the lane is the slot axis), no sort. Every function
 takes row weights, so fold masks cost nothing. `binary_metrics` adds the thresholded metrics
 (precision, recall, F1, error, confusion counts) the evaluators report.
+`regression_metrics` gives RMSE, MSE, MAE and R2, weighted, for one lane or
+for lanes along the leading axes.
 """
 from __future__ import annotations
 
@@ -146,3 +149,28 @@ def binary_metrics(scores: torch.Tensor, labels: torch.Tensor,
         au_roc=au_roc(scores, labels, w), au_pr=au_pr(scores, labels, w),
         precision=precision, recall=recall, f1=f1, error=error,
         tp=tp, tn=tn, fp=fp, fn=fn)
+
+
+class RegressionMetrics(NamedTuple):
+    rmse: torch.Tensor
+    mse: torch.Tensor
+    mae: torch.Tensor
+    r2: torch.Tensor
+
+
+def regression_metrics(pred: torch.Tensor, labels: torch.Tensor,
+                       w: Optional[torch.Tensor] = None) -> RegressionMetrics:
+    """Weighted RMSE, MSE, MAE and R2 of predictions against labels. The
+    rows are the last axis: `pred` or `w` [L, n] give [L] metrics, one a
+    lane (the sweep's folds or grid points), with labels [n] shared."""
+    if w is None:
+        w = torch.ones_like(pred)
+    tot = torch.clamp(w.sum(-1), min=EPS)
+    err = pred - labels
+    ss_res = (w * err * err).sum(-1)
+    mse = ss_res / tot
+    mae = (w * torch.abs(err)).sum(-1) / tot
+    ybar = (w * labels).sum(-1) / tot
+    ss_tot = (w * (labels - ybar[..., None]) ** 2).sum(-1)
+    r2 = 1.0 - ss_res / torch.clamp(ss_tot, min=EPS)
+    return RegressionMetrics(rmse=torch.sqrt(mse), mse=mse, mae=mae, r2=r2)

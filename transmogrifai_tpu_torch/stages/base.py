@@ -145,6 +145,14 @@ class PipelineStage(HasParams):
         included (reference OpPipelineStageWriter ctor-arg capture)."""
         d = {"operation_name": self.operation_name, "uid": self.uid}
         d.update(self.param_values())
+        # a contract pinned on the instance (Estimator.fit narrowing the
+        # fitted model to its estimator's types) survives save and load
+        if "input_types" in self.__dict__:
+            d["pinned_input_types"] = [
+                None if t is None else t.type_name()
+                for t in self.input_types]
+            d["pinned_is_sequence"] = bool(self.is_sequence)
+            d["pinned_fixed_arity"] = int(self.fixed_arity)
         return d
 
     @classmethod
@@ -373,3 +381,12 @@ class TorchTransformer(Transformer):
 
     def get_torch_fn(self) -> Optional[Callable]:
         return self._fn
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        if self._fn is not None:
+            # a function passed to the constructor does not travel: load
+            # needs the stage in custom_stages (subclasses that build their
+            # function from params do not set this)
+            d["lambda"] = True
+        return d

@@ -1,18 +1,26 @@
-"""Stage class registry (counterpart of stages/registry.py).
+"""Stage class registry + save-arg (de)serialization (counterpart of
+stages/registry.py).
 
-Reference: features/.../stages/OpPipelineStageReader.scala:52 — stages are
-rebuilt from their class name and constructor args. The port uses the
-registry to rebuild a fitted workflow from another package's stage state
-(convert.workflow_model_from_jax): each stage's class name and
-`save_args()` select and build the port's class of the same name. Saving
-and loading a workflow to disk (workflow/io.py of the JAX package) is not
-ported yet, so the registry holds no array packing.
+Reference: features/.../stages/OpPipelineStageWriter.scala:52 /
+OpPipelineStageReader.scala:52 — stages are rebuilt from their class name
+and constructor args. Every stage class exposes `save_args()` (plain
+numpy and JSON, never a tensor) and the classmethod `from_save_args`; the
+registry maps class names to the port's classes, so a stage saved by
+either package rebuilds as the port's class of the same name. Saving a
+workflow (workflow/io.py) hoists the arrays of save_args into one npz
+store with `pack_args`, and loading puts them back with `unpack_args`;
+`build_stage` places the rebuilt stage on a device. The same path carries
+a fitted JAX workflow across in memory (convert.workflow_model_from_jax).
 """
 from __future__ import annotations
 
 import importlib
 import inspect
 from typing import Any, Dict, Optional
+
+import numpy as np
+
+from ..device import DeviceLike
 
 # Modules scanned for PipelineStage subclasses.
 _STAGE_MODULES = [
@@ -60,9 +68,62 @@ def resolve_stage_class(name: str) -> type:
     return reg[name]
 
 
-def build_stage(class_name: str, args: Dict[str, Any]):
-    """Instantiate a stage from its class name + save_args."""
-    return resolve_stage_class(class_name).from_save_args(args)
+# -- array packing ---------------------------------------------------------
+
+def pack_args(obj: Any, store: Dict[str, np.ndarray], prefix: str) -> Any:
+    """Recursively replace ndarrays with {"__ndarray__": key} refs, hoisting
+    the arrays into `store` (saved as one npz next to the JSON graph)."""
+    if isinstance(obj, np.ndarray):
+        key = f"{prefix}.{len(store)}"
+        store[key] = obj
+        return {"__ndarray__": key}
+    if isinstance(obj, np.generic):
+        return obj.item()
+    if isinstance(obj, dict):
+        return {str(k): pack_args(v, store, prefix) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [pack_args(v, store, prefix) for v in obj]
+    return obj
+
+
+def unpack_args(obj: Any, store: Dict[str, np.ndarray]) -> Any:
+    if isinstance(obj, dict):
+        if set(obj.keys()) == {"__ndarray__"}:
+            return store[obj["__ndarray__"]]
+        return {k: unpack_args(v, store) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [unpack_args(v, store) for v in obj]
+    return obj
+
+
+def build_stage(class_name: str, args: Dict[str, Any],
+                device: DeviceLike = None):
+    """Instantiate a stage from its class name + save_args, on `device`
+    (None: the default, CUDA), with the input contract its estimator
+    pinned on it."""
+    cls = resolve_stage_class(class_name)
+    if class_name == "SelectedModel":
+        stage = cls.from_save_args(args, device=device)
+    else:
+        stage = cls.from_save_args(args)
+        stage.device = device
+    _apply_pinned_contract(stage, args)
+    return stage
+
+
+def _apply_pinned_contract(stage, args: Dict[str, Any]) -> None:
+    """Restore an instance-level contract saved by PipelineStage.save_args
+    (Estimator.fit pins fitted models to their estimator's types)."""
+    pinned = args.get("pinned_input_types")
+    if pinned is None:
+        return
+    from ..types import FeatureType
+    stage.input_types = tuple(
+        None if n is None else FeatureType.from_name(n) for n in pinned)
+    if "pinned_is_sequence" in args:
+        stage.is_sequence = bool(args["pinned_is_sequence"])
+    if "pinned_fixed_arity" in args:
+        stage.fixed_arity = int(args["pinned_fixed_arity"])
 
 
 def default_from_save_args(cls: type, args: Dict[str, Any]):

@@ -5,17 +5,18 @@ Reference: core/.../utils/stages/FitStagesUtil.scala — ``computeDAG:173``
 layers stages by max distance-to-result so that independent stages land in
 the same layer, are fitted together, and their transforms run in one pass
 (``fitAndTransformLayer:254``; the port's layer runner runs a layer's torch
-functions together on the device, workflow/fitting.py). The DAG cut for
-workflow-level CV (``cutDAG:305``) is not ported yet.
+functions together on the device, workflow/fitting.py). ``cut_dag``
+(``cutDAG:305``) splits the DAG around the model selector for
+workflow-level CV.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..features.feature import Feature
 from ..features.generator import FeatureGeneratorStage
-from ..stages.base import PipelineStage
+from ..stages.base import Estimator, PipelineStage
 
 
 @dataclass
@@ -137,3 +138,76 @@ def validate_stages(dag: StagesDAG) -> None:
         if out in names and names[out] != st.uid:
             raise ValueError(f"Two stages produce output column '{out}'")
         names[out] = st.uid
+
+
+@dataclass
+class CutDAG:
+    """DAG split around a model selector (reference FitStagesUtil.cutDAG:305)."""
+
+    before: StagesDAG     # stages whose output does not depend on the selector
+    during: StagesDAG     # stages feeding the selector (refit per CV fold)
+    after: StagesDAG      # selector + downstream
+    model_selector: Optional[PipelineStage]
+
+
+def cut_dag(dag: StagesDAG) -> CutDAG:
+    """Split layers at the model selector for workflow-level CV: the
+    selector's ancestors in and after the first layer that holds one of
+    them that is an estimator are 'during' (refit in each fold: they see
+    fitted statistics, so fitting them on all rows would leak the
+    validation rows); the rest before the selector's layer are 'before';
+    the selector's layer and those after it are 'after'. Two selectors
+    raise, as in the reference."""
+    from ..automl.selector import ModelSelector
+
+    selector = None
+    for st in dag.stages:
+        if isinstance(st, ModelSelector):
+            if selector is not None:
+                raise ValueError(
+                    "Multiple ModelSelectors in one workflow not supported "
+                    "(matches reference restriction)")
+            selector = st
+    if selector is None:
+        return CutDAG(before=dag, during=StagesDAG([]), after=StagesDAG([]),
+                      model_selector=None)
+
+    anc: Set[str] = set()
+
+    def mark(f: Feature) -> None:
+        st = f.origin_stage
+        if st is None or isinstance(st, FeatureGeneratorStage):
+            return
+        if st.uid in anc:
+            return
+        anc.add(st.uid)
+        for p in st.input_features:
+            mark(p)
+
+    for p in selector.input_features:
+        mark(p)
+
+    before_layers: List[List[PipelineStage]] = []
+    during_layers: List[List[PipelineStage]] = []
+    after_layers: List[List[PipelineStage]] = []
+    est_seen = False
+    sel_seen = False
+    for layer in dag.layers:
+        if any(st.uid == selector.uid for st in layer):
+            sel_seen = True
+        if sel_seen:
+            after_layers.append(list(layer))
+            continue
+        if not est_seen and any(isinstance(st, Estimator) and st.uid in anc
+                                for st in layer):
+            est_seen = True
+        b = [st for st in layer if not (st.uid in anc and est_seen)]
+        d = [st for st in layer if st.uid in anc and est_seen]
+        if b:
+            before_layers.append(b)
+        if d:
+            during_layers.append(d)
+    return CutDAG(before=StagesDAG(before_layers),
+                  during=StagesDAG(during_layers),
+                  after=StagesDAG(after_layers),
+                  model_selector=selector)

@@ -20,6 +20,7 @@ score without labels.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -223,18 +224,32 @@ class LayerRunner:
             ds = self.apply_layer(ds, layer, sinks)  # type: ignore[arg-type]
         return ds
 
-    def fit_dag(self, ds: Dataset, dag: StagesDAG
+    def fit_dag(self, ds: Dataset, dag: StagesDAG,
+                prefitted: Optional[Dict[str, Transformer]] = None
                 ) -> Tuple[Dataset, StagesDAG]:
         """Train path (reference fitAndTransformDAG:213): per layer — fit all
         estimators, then apply the layer's transformers (originals + freshly
-        fitted models) in one pass."""
+        fitted models) in one pass. `prefitted` maps stage uid -> an
+        already-fitted transformer (Workflow.with_model_stages, reference
+        OpWorkflow.withModelStages:457): an estimator of that uid reuses a
+        copy of it, wired to this DAG's features, instead of refitting."""
+        prefitted = prefitted or {}
         fitted_layers: List[List[Transformer]] = []
         self.walls = []
         for layer in dag.layers:
             fitted: List[Transformer] = []
             for st in layer:
                 self._bind(st)
-                if isinstance(st, Estimator):
+                prev = prefitted.get(st.uid) \
+                    if isinstance(st, Estimator) else None
+                if prev is not None:
+                    # a copy: the source model's DAG still holds prev, and
+                    # rewiring it in place would corrupt that model
+                    prev = copy.deepcopy(prev)
+                    prev.set_input(*st.input_features)
+                    prev.set_output_name(st.output_name())
+                    fitted.append(prev)
+                elif isinstance(st, Estimator):
                     data = _ensure_input_columns(ds, st)
                     fitted.append(self._timed(st.stage_name, "fit",
                                               lambda: st.fit(data)))

@@ -3,19 +3,24 @@ workflow/workflow.py).
 
 Reference: core/.../OpWorkflow.scala:59 (setResultFeatures:85 reconstructs
 the stage DAG from feature lineage; train:332 / fitStages:368),
-core/.../OpWorkflowCore.scala:52 and core/.../OpWorkflowModel.scala:59
-(score:254, scoreAndEvaluate:291, evaluate:319, summaryPretty:205).
+core/.../OpWorkflowCore.scala:52 (withWorkflowCV:104) and
+core/.../OpWorkflowModel.scala:59 (score:254, scoreAndEvaluate:291,
+evaluate:319, summaryPretty:205, save:219).
 
 `Workflow(device=...)` is the one device switch of a whole workflow: the
 layer runner passes it to every stage that touches tensors and has no
 device of its own (None = CUDA; "cpu" runs the plain PyTorch versions of
 the kernels). `with_raw_feature_filter` drops unreliable raw features
-before the DAG is fitted (filters/raw_feature_filter.py). Not ported yet:
-workflow-level CV, splicing fitted stages into a new workflow, saving and
-loading, insights, the runner and serving.
+before the DAG is fitted (filters/raw_feature_filter.py).
+`with_workflow_cv` refits the stages that feed the model selector inside
+each fold; `with_model_stages` reuses a fitted model's stages;
+`WorkflowModel.save` / `load` (workflow/io.py) write and read the JAX
+package's format. Not ported yet: insights, the runner and serving.
 """
 from __future__ import annotations
 
+import json
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,10 +30,31 @@ from ..device import DeviceLike
 from ..evaluators.evaluators import Evaluator
 from ..features.feature import Feature
 from ..readers.readers import KEY_COLUMN, Reader
-from ..stages.base import Transformer
+from ..stages.base import PipelineStage, Transformer
 from ..types import Prediction
-from .dag import StagesDAG, collect_raw_features, compute_dag, validate_stages
+from .dag import (StagesDAG, collect_raw_features, compute_dag, cut_dag,
+                  validate_stages)
 from .fitting import LayerRunner
+
+
+def _copy_dag(dag: StagesDAG) -> StagesDAG:
+    """Fresh unfitted copies of every stage, wiring (inputs, output names,
+    uids) preserved — each fold of a workflow-level CV refits these."""
+    layers = []
+    for layer in dag.layers:
+        row = []
+        for st in layer:
+            c = st.copy()
+            c.uid = st.uid
+            c.set_output_name(st.output_name())
+            row.append(c)
+        layers.append(row)
+    return StagesDAG(layers=layers)
+
+
+def _grid_key(g: Dict[str, Any]) -> str:
+    return json.dumps({k: g[k] for k in sorted(g)}, sort_keys=True,
+                      default=str)
 
 
 class Workflow:
@@ -41,6 +67,12 @@ class Workflow:
         self._input_dataset: Optional[Dataset] = None
         self._raw_feature_filter = None  # set via with_raw_feature_filter
         self._blacklist: List[str] = []
+        self._prefitted: Optional[Dict[str, Transformer]] = None
+        self._workflow_cv = False
+        # the last workflow-level CV: the route of each (model, grid) cell
+        # and each fold's walls (during-DAG refit, transform, sweep)
+        self.workflow_cv_routes: Dict[tuple, str] = {}
+        self.workflow_cv_walls: List[Dict[str, Any]] = []
 
     # -- configuration (reference OpWorkflow setters) ----------------------
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -62,6 +94,23 @@ class Workflow:
         fitting, its exclusions become the workflow blacklist. A filter
         without a device of its own runs on the workflow's."""
         self._raw_feature_filter = rff
+        return self
+
+    def with_model_stages(self, model: "WorkflowModel") -> "Workflow":
+        """Splice a fitted model's stages into this workflow (reference
+        OpWorkflow.withModelStages:457): on the next train(), an estimator
+        whose uid matches a fitted stage reuses it instead of refitting."""
+        self._prefitted = {st.uid: st for st in model.stages}
+        return self
+
+    def with_workflow_cv(self) -> "Workflow":
+        """Leakage-free workflow-level CV (reference OpWorkflowCore
+        .withWorkflowCV:104): every estimator between the first fitted
+        statistic and the model selector is refit inside each fold, so no
+        fold's validation rows reach the vectorizers' or the sanity
+        checker's statistics. A workflow without a selector trains as
+        without it."""
+        self._workflow_cv = True
         return self
 
     @property
@@ -103,7 +152,12 @@ class Workflow:
         dag = compute_dag(self._result_features)
         validate_stages(dag)
         runner = LayerRunner(self.device)
-        transformed, fitted_dag = runner.fit_dag(raw_data, dag)
+        if self._workflow_cv:
+            cut = cut_dag(dag)
+            if cut.model_selector is not None:
+                self._run_workflow_cv(raw_data, cut, runner)
+        transformed, fitted_dag = runner.fit_dag(raw_data, dag,
+                                                 prefitted=self._prefitted)
         rff = self._raw_feature_filter
         model = WorkflowModel(
             result_features=self._result_features, dag=fitted_dag,
@@ -112,6 +166,112 @@ class Workflow:
         model._train_data = transformed
         model._reader = self._reader
         return model
+
+    def _run_workflow_cv(self, raw_data: Dataset, cut, runner: LayerRunner
+                         ) -> None:
+        """Reference ModelSelector.findBestEstimator:112 + OpValidator
+        .applyDAG:228: per fold, refit the in-CV ('during') DAG on the
+        fold's train rows only, transform ALL rows with those fold-fitted
+        stages, then run the (model x grid) sweep through the validator's
+        device routes with the fold as one weight mask over the
+        fold-fitted matrix (streamed / vmapped GLM lanes, mask-fold trees):
+        no host fit loop. Each fold gets its own matrix, because its
+        vocabularies and fills may differ. The winning configuration
+        replaces the selector's candidate list before the full fit; the
+        whole sweep goes into the selector summary."""
+        from ..models.base import _as_labels, _as_matrix
+
+        sel = cut.model_selector
+        runner._bind(sel)
+        sel._bind_device()
+        ds1, _ = runner.fit_dag(raw_data, cut.before)
+        label_name, vec_name = sel.input_names()
+        y = _as_labels(ds1.column(label_name))
+        masks = sel.validator.fold_masks(y)
+        evaluator = sel.validator.evaluator
+        metric = evaluator.default_metric
+        larger = evaluator.is_larger_better()
+        problem_type = getattr(sel, "problem_type", "binary")
+
+        cells: Dict[tuple, List[float]] = {}
+        self.workflow_cv_routes = {}
+        self.workflow_cv_walls = []
+        grid_keys = {}
+        for mi, (est, grids) in enumerate(sel.models):
+            for g in (grids or [dict()]):
+                grid_keys[(est.uid, _grid_key(g))] = (mi, _grid_key(g))
+        for f in range(masks.shape[0]):
+            tr = np.flatnonzero(masks[f] > 0)
+            va = np.flatnonzero(masks[f] <= 0)
+            t0 = time.perf_counter()
+            # fresh copies a fold, so the real stages stay unfitted for
+            # the full fit; fit_dag transforms the train rows, the
+            # validation rows go through the same fitted stages
+            fold_runner = LayerRunner(self.device)
+            ds_tr, fitted_during = fold_runner.fit_dag(
+                ds1.take(tr), _copy_dag(cut.during))
+            t1 = time.perf_counter()
+            ds_va = fold_runner.apply_dag(ds1.take(va), fitted_during)
+            Xtr = _as_matrix(ds_tr.column(vec_name))
+            Xva = _as_matrix(ds_va.column(vec_name))
+            Xf = np.empty((len(y), Xtr.shape[1]), Xtr.dtype)
+            Xf[tr] = Xtr
+            Xf[va] = Xva
+            del ds_tr, ds_va, Xtr, Xva
+            t2 = time.perf_counter()
+            candidates = [(est, [dict(g) for g in (grids or [dict()])])
+                          for est, grids in sel.models]
+            fold_best = sel.validator.validate(
+                candidates, Xf, y, problem_type=problem_type,
+                masks=masks[f:f + 1])
+            for v in fold_best.validated:
+                key = grid_keys[(v.model_uid, _grid_key(v.grid))]
+                cells.setdefault(key, []).append(float(v.fold_metrics[0]))
+                self.workflow_cv_routes[key] = v.route
+            self.workflow_cv_walls.append(dict(
+                fold=f, refit_s=t1 - t0, transform_s=t2 - t1,
+                sweep_s=time.perf_counter() - t2,
+                family_sweep_s=dict(sel.validator.family_walls)))
+        means = {k: float(np.mean(v)) for k, v in cells.items()}
+        # a degenerate fold's NaN metric never wins by comparison
+        fallback = -np.inf if larger else np.inf
+        rank = {k: (v if np.isfinite(v) else fallback)
+                for k, v in means.items()}
+        best_key = (max if larger else min)(rank, key=rank.get)
+        mi, _ = best_key
+        winner_est, winner_grids = sel.models[mi]
+        best_grid = next(g for g in (winner_grids or [dict()])
+                         if _grid_key(g) == best_key[1])
+        sel._extra_validation_results = [
+            {"model_name": type(sel.models[k[0]][0]).__name__,
+             "model_uid": sel.models[k[0]][0].uid,
+             "grid": dict(next(g for g in (sel.models[k[0]][1] or [dict()])
+                               if _grid_key(g) == k[1])),
+             "metric_name": metric, "fold_metrics": v,
+             "mean_metric": means[k], "workflow_cv": True}
+            for k, v in cells.items()]
+        sel.models = [(winner_est.copy(**best_grid), [dict(best_grid)])]
+
+    def compute_data_up_to(self, feature: Feature) -> Dataset:
+        """Materialize the DAG only up to `feature` (reference
+        OpWorkflow.computeDataUpTo / runner Features run type)."""
+        sub = Workflow(self.device).set_result_features(feature)
+        if self._reader is not None:
+            sub.set_reader(self._reader)
+        if self._input_dataset is not None:
+            sub.set_input_dataset(self._input_dataset)
+        out, _ = LayerRunner(self.device).fit_dag(
+            sub.generate_raw_data(), compute_dag((feature,)))
+        return out
+
+    def load_model(self, path: str,
+                   custom_stages: Optional[Dict[str, PipelineStage]] = None,
+                   device: DeviceLike = None) -> "WorkflowModel":
+        """A saved model (workflow/io.py), its stages on `device` (None:
+        this workflow's)."""
+        from .io import load_model
+        return load_model(path, custom_stages=custom_stages,
+                          device=self.device if device is None else device)
 
 
 class WorkflowModel:
@@ -258,3 +418,20 @@ class WorkflowModel:
         if self.blacklist:
             lines.append(f"RawFeatureFilter excluded: {self.blacklist}")
         return "\n".join(lines) if lines else "(no selector in workflow)"
+
+    # -- persistence (reference OpWorkflowModel.save:219) ------------------
+    def save(self, path: str, overwrite: bool = True) -> None:
+        """One op-model.json and one arrays.npz, the JAX package's format
+        (workflow/io.py)."""
+        from .io import save_model
+        save_model(self, path, overwrite=overwrite)
+
+    @staticmethod
+    def load(path: str,
+             custom_stages: Optional[Dict[str, PipelineStage]] = None,
+             device: DeviceLike = None) -> "WorkflowModel":
+        """A saved model of either package, every fitted stage on `device`
+        (None: CUDA); `custom_stages` by uid for stages whose function does
+        not travel (lambda stages)."""
+        from .io import load_model
+        return load_model(path, custom_stages=custom_stages, device=device)
