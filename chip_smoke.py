@@ -70,7 +70,7 @@ Phases, each of which fails the run on error:
              and the top operations;
 11. workflow-small — the user's flow (FeatureBuilder -> transmogrify ->
              SanityChecker -> BinaryClassificationModelSelector ->
-             Workflow.train() -> score()) on 100 000 titanic-shaped
+             Workflow.train() -> score()) on 50 000 titanic-shaped
              records through ListReader, on the CPU (plain versions) and
              twice on the card: identical matrix and metadata, the same
              drops and winner, cells within 5e-3, the scores' AuPR within
@@ -100,7 +100,7 @@ Phases, each of which fails the run on error:
              feature of each date, map, geolocation and structured text
              group (Email, URL, Phone, Base64, Geolocation, DateList,
              PickListMap, a DateMap through to_unit_circle_map;
-             `wide_columns`): at 20 000 rows with a cut grid twice on the
+             `wide_columns`): at 8 000 rows with a cut grid twice on the
              card (C1: the largest |dp| between the runs, identical
              matrices, the same winner, the largest CV-cell difference, a
              tie witness where the refits split apart) and on the CPU
@@ -127,7 +127,7 @@ Phases, each of which fails the run on error:
              of the score snapshot: each reader's wall and rows, the
              filter's drops and reasons, walls, winner and holdout AuPR
              against the prevalence, every kernel at each key of train()
-             against its plain version (phase "events"); the leg at 5 000
+             against its plain version (phase "events"); the leg at 2 500
              users on the CPU and on the card: readers, drops, reasons,
              matrix and winner identical, scores within 1e-5 or a tie;
 15. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
@@ -159,7 +159,27 @@ Phases, each of which fails the run on error:
              "regression"); the leg at 20 000 rows on the CPU and twice on
              the card: the matrix identical, the same winner, CV fold
              metrics within 1e-3 relative or a tie witness in that cell's
-             fits, scores within 1e-5 relative or a tie witness.
+             fits, scores within 1e-5 relative or a tie witness;
+17. workflow-multiclass — a Covertype-shaped flow (`covertype_columns`:
+             581 012 rows, UCI Covertype's published counts of its 7 cover
+             types, 10 quantitative columns 1% missing, wilderness area and
+             soil type PickLists of 4 and 40) through transmogrify,
+             SanityChecker() and a 3-fold MultiClassificationModelSelector
+             (DataCutter, the multiclass error; LR's default grid as
+             softmax lanes, RF 10 trees at depth {3, 6} with K + 2 = 9
+             histogram channels a lane, softmax XGBoost 10 rounds at depth
+             4 as 7 class lanes a fold, naive Bayes) inside
+             Workflow().train(): walls, each family's sweep, the routes,
+             peak memory, winner, CV and holdout error against the majority
+             class; 100 000 new rows scored, saved, loaded and scored again
+             (identical), loaded onto the CPU (10 000 rows within 1e-5); the
+             port's op_iris on the card (K = 3: C = 5); every kernel at each
+             key of the two train()s against its plain version (phases
+             "multiclass" and "iris"); the leg at 20 000 rows on the CPU
+             and twice on the card: the matrix identical, the same winner,
+             CV fold metrics within 1e-3 or a tie witness in that fold's
+             lanes, the scores (predicted class, probabilities) within 1e-5
+             relative or a tie witness.
 
 Float32 products stay in full f32: the run fails unless TF32 is off
 (`torch.backends.cuda.matmul.allow_tf32` False, float32 matmul precision
@@ -167,8 +187,9 @@ Float32 products stay in full f32: the run fails unless TF32 is off
 
 The last three lines of standard output are {"kernels": [...]} (each
 row's `launches` at its (kernel, F, S) key in the phase it names, a
-workflow, titanic, wide, events or regression row's at its (kernel, F,
-S, C, Fo) key inside its phase's train(), and, for the tree, GLM and
+workflow, titanic, wide, events, regression, multiclass or iris row's at
+its (kernel, F, S, C, Fo) key inside its phase's train(), and, for the
+tree, GLM and
 workflow rows,
 `workflow_launches` at that key inside workflow-main's train()), the
 card's name and power limit, and
@@ -207,14 +228,21 @@ GLM_EVAL_LANES = 8            # the streamed eval's grid chunk
 TITANIC_ROWS = 100_000        # workflow-titanic's main path (PERF.md §4)
 TITANIC_LEG_ROWS = 8_000      # its CPU-against-card leg (PERF.md §4)
 WIDE_ROWS = 1_000_000         # bench.py's wide_rows: workflow-wide's main path
-WIDE_LEG_ROWS = 20_000        # workflow-wide's CPU-against-card leg
+WIDE_LEG_ROWS = 8_000         # workflow-wide's CPU-against-card leg
 WIDE_SCORE_ROWS = 100_000     # new rows workflow-wide scores
 EVENTS_USERS = 200_000        # workflow-events' main path (PERF.md §4)
-EVENTS_LEG_USERS = 5_000      # workflow-events' CPU-against-card leg
+EVENTS_LEG_USERS = 2_500      # workflow-events' CPU-against-card leg
 REGRESSION_ROWS = 1_000_000   # workflow-regression's main path (PERF.md §4)
 REGRESSION_LEG_ROWS = 20_000  # its CPU-and-card leg
 REGRESSION_SCORE_ROWS = 100_000   # new rows scored before and after save/load
 REGRESSION_CPU_LOAD_ROWS = 10_000  # rows the model loaded onto the CPU scores
+COVERTYPE_ROWS = 581_012      # UCI Covertype's rows: workflow-multiclass
+COVERTYPE_CLASS_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367,
+                          20_510)     # its published counts of cover types
+COVERTYPE_CLASS_SEED = 1999   # seeds the classes' means and category shares
+COVERTYPE_LEG_ROWS = 20_000   # its CPU-and-card leg
+COVERTYPE_SCORE_ROWS = 100_000    # new rows scored before and after save/load
+COVERTYPE_CPU_LOAD_ROWS = 10_000  # rows the model loaded onto the CPU scores
 XGB_GRID = [dict(num_round=10, max_depth=d, eta=e, reg_lambda=lam,
                  max_bins=32)
             for d in (4, 6) for e in (0.05, 0.1, 0.2, 0.3) for lam in (1.0, 5.0)]
@@ -443,7 +471,7 @@ def kernel_rows(shapes: list, phase: str = "tree",
                    check_s=check_s, timing_s=time.perf_counter() - t_timing,
                    key=capture_key(key, name, args, kw)
                    if phase in ("workflow", "titanic", "wide", "events",
-                                "regression")
+                                "regression", "multiclass", "iris")
                    else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
@@ -1179,7 +1207,7 @@ def wide_vector(FB, transmogrify, Defaults):
 
 
 def workflow_small_phase(seed: int) -> bool:
-    """The user's flow on 100 000 titanic-shaped records through ListReader
+    """The user's flow on 50 000 titanic-shaped records through ListReader
     (FeatureBuilder -> transmogrify -> SanityChecker -> 3-fold
     BinaryClassificationModelSelector over OpLogisticRegression's default
     grid, and OpXGBoostClassifier, OpRandomForestClassifier (10 trees) and
@@ -1212,7 +1240,7 @@ def workflow_small_phase(seed: int) -> bool:
     from transmogrifai_tpu_torch.utils.uid import reset_uids
     from transmogrifai_tpu_torch.workflow import Workflow
 
-    rows = titanic_records(100_000, seed + 3)
+    rows = titanic_records(50_000, seed + 3)
     new = titanic_records(20_000, seed + 4)
 
     def score(model, pred):
@@ -1610,7 +1638,7 @@ def group_widths(model) -> dict:
 
 
 def wide_leg_run(cols: dict, new: dict, device) -> dict:
-    """One run of workflow-wide's 20 000-row leg: `wide_workflow(cols,
+    """One run of workflow-wide's leg: `wide_workflow(cols,
     device, leg=True)` trained with its refit levels recorded, then scored
     on `new`."""
     from transmogrifai_tpu_torch.utils.uid import reset_uids
@@ -2373,7 +2401,17 @@ def rel_diff(a, b) -> float:
     return float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
 
 
-def compare_regression_runs(a: dict, b: dict) -> dict:
+def fold_levels(levels: list, fold: int, n_folds: int) -> list:
+    """The records of `levels` (`record_refit_levels(all_lanes=True)`) of
+    fold `fold`'s lanes: a sweep fit's lanes are its folds, or, for a
+    softmax fit, fold-major groups of class trees."""
+    return [r for r in levels
+            if r.get("lanes", 1) == 1
+            or r["lane"] // max(r["lanes"] // n_folds, 1) == fold]
+
+
+def compare_regression_runs(a: dict, b: dict, workflow_cv: bool = True,
+                            n_folds: int = 1) -> dict:
     """Two trained runs of the regression flow side by side: the
     transmogrified matrix and metadata, the SanityChecker's drops, the
     winner, each workflow-CV cell's fold metrics (relative difference),
@@ -2389,8 +2427,10 @@ def compare_regression_runs(a: dict, b: dict) -> dict:
     ax, bx = am._train_data.column(vec), bm._train_data.column(vec)
     asc, bsc = am.sanity_checker_summary(), bm.sanity_checker_summary()
     asel, bsel = am.selector_summary(), bm.selector_summary()
-    acv = [v for v in asel.validation_results if v.get("workflow_cv")]
-    bcv = [v for v in bsel.validation_results if v.get("workflow_cv")]
+    acv = [v for v in asel.validation_results
+           if v.get("workflow_cv") or not workflow_cv]
+    bcv = [v for v in bsel.validation_results
+           if v.get("workflow_cv") or not workflow_cv]
     names = am._train_data.column(checked).metadata.column_names()
     cells, apart = {}, []
     for x, y in zip(acv, bcv):
@@ -2403,14 +2443,18 @@ def compare_regression_runs(a: dict, b: dict) -> dict:
             d = rel_diff(p, q)
             if d <= 1e-3:
                 continue
-            sa = sweep_segment(a["sweeps"], x, f)
-            sb = sweep_segment(b["sweeps"], y, f)
-            first = None if sa is None or sb is None else \
-                first_divergence(sa["levels"], sb["levels"])
+            # a workflow-CV fold sweeps alone (its f-th sweep); a plain
+            # CV sweep fits every fold as lanes of one call
+            sa = sweep_segment(a["sweeps"], x, f if workflow_cv else 0)
+            sb = sweep_segment(b["sweeps"], y, f if workflow_cv else 0)
+            la, lb = ((None, None) if sa is None or sb is None
+                      else (sa["levels"], sb["levels"]) if workflow_cv
+                      else (fold_levels(sa["levels"], f, n_folds),
+                            fold_levels(sb["levels"], f, n_folds)))
+            first = None if la is None else first_divergence(la, lb)
             apart.append(dict(cell=key, fold=f, rel_diff=d,
                               witness=None if first is None else
-                              split_witness(sa["levels"], sb["levels"],
-                                            *first,
+                              split_witness(la, lb, *first,
                                             sa["params"]["max_depth"],
                                             names)))
     first = first_divergence(a["levels"], b["levels"])
@@ -2619,21 +2663,372 @@ def workflow_regression_phase(rows: int, seed: int):
     return ok, capture_launches, rows_out
 
 
+COVERTYPE_INTEGRALS = ("elevation", "aspect", "slope", "hillshade9am",
+                       "hillshadeNoon", "hillshade3pm")
+COVERTYPE_REALS = ("horizontalDistanceToHydrology",
+                   "verticalDistanceToHydrology",
+                   "horizontalDistanceToRoadways",
+                   "horizontalDistanceToFirePoints")
+# per quantitative column: (overall mean, spread of the class means, the
+# within-class std, lower clip, upper clip), in the order of the two tuples
+_COVERTYPE_NUMERIC = (
+    (2960, 250, 160, 1859, 3858), (156, 40, 110, 0, 360),
+    (14, 4, 7, 0, 66), (220, 90, 190, 0, 1397), (230, 30, 150, 0, 254),
+    (142, 25, 38, 0, 254), (270, 80, 210, 0, 1397), (46, 20, 58, -173, 601),
+    (2350, 700, 1400, 0, 7117), (1980, 500, 1300, 0, 7173))
+
+
+def covertype_columns(n: int, seed: int) -> dict:
+    """Covertype-shaped records (Blackard & Dean 1999, UCI Covertype) as
+    numpy columns, synthesised from `seed`: the 10 quantitative columns
+    (elevation, aspect, slope and the three hillshades Integral; the
+    distances to hydrology, roadways and fire points Real), each 1%
+    missing; wilderness area a PickList of 4 values and soil type one of
+    40; the cover type (1..7, a RealNN) at the published class counts
+    (`COVERTYPE_CLASS_COUNTS`, scaled to `n`). Each class has its own
+    Gaussian means of the numerics and its own category shares of the two
+    PickLists, drawn once from `COVERTYPE_CLASS_SEED` so that every call
+    draws its rows (from `seed`) from the same classes. Returns {name:
+    (feature type name, float64 with NaN, or objects)}."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    classes = np.random.default_rng(COVERTYPE_CLASS_SEED)
+    share = np.array(COVERTYPE_CLASS_COUNTS, np.float64)
+    counts = np.floor(n * share / share.sum()).astype(np.int64)
+    counts[np.argsort(-(n * share / share.sum() - counts))[
+        :n - counts.sum()]] += 1
+    label = rng.permutation(np.repeat(np.arange(7), counts))
+    cols = {}
+    for name, (mean, spread, std, lo, hi) in zip(
+            COVERTYPE_INTEGRALS[:3] + COVERTYPE_REALS[:2]
+            + COVERTYPE_INTEGRALS[3:] + COVERTYPE_REALS[2:],
+            _COVERTYPE_NUMERIC):
+        means = mean + spread * classes.standard_normal(7)
+        v = np.clip(means[label] + std * rng.standard_normal(n), lo, hi)
+        kind = "Integral" if name in COVERTYPE_INTEGRALS else "Real"
+        if kind == "Integral":
+            v = np.round(v)
+        v[rng.uniform(size=n) < 0.01] = np.nan
+        cols[name] = (kind, v)
+    for name, k, conc in (("wildernessArea", 4, 0.7), ("soilType", 40, 0.3)):
+        probs = classes.dirichlet(np.full(k, conc), size=7)
+        cum = probs.cumsum(1)
+        idx = (rng.uniform(size=n)[:, None] > cum[label]).sum(1)
+        idx = np.minimum(idx, k - 1)
+        names = np.array([f"{name[:4]}{i + 1}" for i in range(k)], object)
+        cols[name] = ("PickList", names[idx])
+    cols["coverType"] = ("RealNN", (label + 1).astype(np.float64))
+    return cols
+
+
+def covertype_features():
+    """(coverType response, predictors) of `covertype_columns` with the
+    port's FeatureBuilder."""
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder as FB
+    label = FB.RealNN("coverType").as_response()
+    feats = [getattr(FB, kind)(name).as_predictor() for name, kind in
+             [(n, "Integral") for n in COVERTYPE_INTEGRALS]
+             + [(n, "Real") for n in COVERTYPE_REALS]
+             + [("wildernessArea", "PickList"), ("soilType", "PickList")]]
+    return label, feats
+
+
+def multiclass_selector():
+    """workflow-multiclass's selector: MultiClassificationModelSelector's
+    3-fold CrossValidation (DataCutter, the multiclass error) over
+    logistic regression's default grid (8 points, softmax on the vmapped
+    route), random forests of 10 trees at depth {3, 6}, XGBoost of 10
+    rounds at depth 4 (softmax: 7 class lanes a fold) and naive Bayes."""
+    from transmogrifai_tpu_torch.automl.selectors import (
+        MultiClassificationModelSelector, default_grid_for)
+    from transmogrifai_tpu_torch.models.glm import (
+        OpLogisticRegression, OpNaiveBayes)
+    from transmogrifai_tpu_torch.models.trees import (
+        OpRandomForestClassifier, OpXGBoostClassifier)
+    return MultiClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=42, models_and_parameters=[
+            (OpLogisticRegression(), default_grid_for("OpLogisticRegression")),
+            (OpRandomForestClassifier(), [
+                dict(num_trees=10, max_depth=d, min_instances_per_node=10)
+                for d in (3, 6)]),
+            (OpXGBoostClassifier(), [dict(num_round=10, max_depth=4,
+                                          eta=0.3)]),
+            (OpNaiveBayes(), default_grid_for("OpNaiveBayes"))])
+
+
+def multiclass_workflow(cols: dict, device=None):
+    """(workflow, prediction) of the Covertype flow in the port over a
+    Dataset of `covertype_columns`: transmogrify -> SanityChecker() ->
+    `multiclass_selector()` -> Workflow(device)."""
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.automl.preparators import SanityChecker
+    from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.workflow import Workflow
+    label, feats = covertype_features()
+    checked = SanityChecker().set_input(label, transmogrify(feats)) \
+        .get_output()
+    pred = multiclass_selector().set_input(label, checked).get_output()
+    wf = Workflow(device=device).set_input_dataset(
+        wide_dataset(cols, Dataset, Column, T)).set_result_features(pred)
+    return wf, pred
+
+
+def multiclass_scores(model, pred, cols: dict):
+    """The scores of `model` for the rows of `cols`: float64 [n, 8], the
+    predicted cover type and the 7 class probabilities (the raw scores, a
+    model's own logits or vote sums, are left out)."""
+    import numpy as np
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.models.prediction import (prediction_of,
+                                                           probability_of)
+    col = model.score(wide_dataset(cols, Dataset, Column, T)).column(
+        pred.name)
+    return np.concatenate([prediction_of(col)[:, None], probability_of(col)],
+                          axis=1).astype(np.float64)
+
+
+def multiclass_leg_run(cols: dict, new: dict, device) -> dict:
+    """One run of workflow-multiclass's leg: `multiclass_workflow(cols,
+    device)` trained with every tree fit's levels recorded, lane by lane
+    (`record_refit_levels(all_lanes=True)`, the sweep's in segments), then
+    scored on `new`."""
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    reset_uids()
+    wf, pred = multiclass_workflow(cols, device=device)
+    t0 = time.perf_counter()
+    with record_refit_levels([], all_lanes=True) as levels, \
+            record_sweep_levels(levels, []) as sweeps:
+        model = wf.train()
+    return dict(model=model, pred=pred, levels=levels, sweeps=sweeps, wf=wf,
+                train_s=time.perf_counter() - t0,
+                scored=multiclass_scores(model, pred, new))
+
+
+def workflow_multiclass_phase(rows: int, seed: int):
+    """Multiclass at user scale: the Covertype-shaped flow
+    (`covertype_columns`, 581 012 rows, 7 cover types) through
+    transmogrify -> SanityChecker() -> `multiclass_selector()` inside
+    Workflow(device="cuda").train(); then the port's op_iris example on
+    the card.
+
+    The leg at `COVERTYPE_LEG_ROWS` rows, once on the CPU and twice on the
+    card: the matrix identical, the same drops and winner, each CV fold
+    metric (the error) within 1e-3 or, further apart, explained by a tie
+    at the first node that cell's fold lanes split differently, the scores
+    of new rows within 1e-5 relative or a tie witness in the refit
+    (`compare_regression_runs(workflow_cv=False)`).
+
+    The main path: `rows` rows on the card. Launch counters are reset just
+    before train() and read just after: every kernel must have launched.
+    Each stage's wall, each family's sweep, the train wall, peak device
+    memory, the winner, its CV error, the holdout error and top-1
+    accuracy beside the majority class's share, the label map (1..7 cut
+    to 0..6, predictions mapped back to 1..7). Then
+    `COVERTYPE_SCORE_ROWS` new rows scored, the model saved, loaded and
+    scored again (identical), loaded with device="cpu" (its scores of
+    `COVERTYPE_CPU_LOAD_ROWS` rows within 1e-5 relative of the card's);
+    the accuracy on the new rows must beat the majority class's share.
+    Then op_iris.main([]) on the card (its winner, CV error and launches).
+    Each kernel at every (kernel, F, S, C, Fo) key of the two train()s on
+    the inputs of its first launch against its plain version (rows of the
+    kernels line, phases "multiclass" and "iris": a forest's K = 7 lanes
+    carry C = 9 channels, iris's K = 3 C = 5). Returns (ok, launches by
+    capture key of each phase, kernel rows)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch.examples import op_iris
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+
+    t_phase = t0 = time.perf_counter()
+    small = covertype_columns(COVERTYPE_LEG_ROWS, seed + 51)
+    small_new = covertype_columns(COVERTYPE_LEG_ROWS, seed + 52)
+    runs = [multiclass_leg_run(small, small_new, dev)
+            for dev in ("cpu", None, None)]
+    c1 = compare_regression_runs(runs[1], runs[2], workflow_cv=False,
+                                 n_folds=3)
+    cmp = compare_regression_runs(runs[0], runs[1], workflow_cv=False,
+                                  n_folds=3)
+    leg = dict(rows=COVERTYPE_LEG_ROWS, cpu_vs_card=cmp, card_vs_card=c1,
+               train_s=[r["train_s"] for r in runs],
+               cpu_stage_walls_s=stage_walls(runs[0]["model"]),
+               cpu_family_sweep_s=runs[0]["pred"].origin_stage
+               .validator.family_walls)
+    leg_s = time.perf_counter() - t0
+    log(f"workflow-multiclass leg ({leg_s:.2f}s): " + json.dumps(leg))
+    leg_ok = regression_runs_agree(cmp) and regression_runs_agree(c1)
+    del runs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cols = covertype_columns(rows, seed + 53)
+    new = covertype_columns(COVERTYPE_SCORE_ROWS, seed + 54)
+    data_s = time.perf_counter() - t0
+    reset_uids()
+    wf, pred = multiclass_workflow(cols)
+    selector = pred.origin_stage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, capture_launches = {}, collections.Counter()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    with capture_kernel_inputs(captured, capture_launches):
+        model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = dict(TK.launches)
+    shape_launches = dict(TK.shape_launches)
+    capture_launches = dict(capture_launches)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sel = model.selector_summary()
+    sc = model.sanity_checker_summary()
+    vec, _ = vector_names(model)
+    width = int(model._train_data.data(vec).shape[1])
+    labels = cols["coverType"][1]
+    majority = float(np.bincount(labels.astype(np.int64)).max() / len(labels))
+    cells = sel.validation_results
+    best = min(cells, key=lambda v: v["mean_metric"])
+    families = sorted({v["model_name"] for v in cells})
+    walls = stage_walls(model)
+    label_map = model.selected_model().label_map
+    model._train_data = None
+    del cols
+
+    t0 = time.perf_counter()
+    scored = multiclass_scores(model, pred, new)
+    score_s = time.perf_counter() - t0
+    new_labels = new["coverType"][1]
+    new_acc = float((scored[:, 0] == new_labels).mean())
+    tmp = tempfile.mkdtemp(prefix="multiclass-model-")
+    try:
+        path = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        artifact = {f: os.path.getsize(os.path.join(path, f))
+                    for f in sorted(os.listdir(path))}
+        t0 = time.perf_counter()
+        loaded = WorkflowModel.load(path, device="cuda")
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rescored = multiclass_scores(loaded, pred, new)
+        rescore_s = time.perf_counter() - t0
+        on_cpu = WorkflowModel.load(path, device="cpu")
+        few = {k: (t, v[:COVERTYPE_CPU_LOAD_ROWS])
+               for k, (t, v) in new.items()}
+        cpu_scored = multiclass_scores(on_cpu, pred, few)
+    finally:
+        shutil.rmtree(tmp)
+    reload_identical = bool(np.array_equal(scored, rescored))
+    cpu_load_rel = rel_diff(cpu_scored, scored[:COVERTYPE_CPU_LOAD_ROWS])
+    main_s = time.perf_counter() - t_phase - leg_s
+    del loaded, on_cpu
+    torch.cuda.empty_cache()
+
+    # the port's op_iris example on the card (K = 3)
+    iris_captured, iris_launches = {}, collections.Counter()
+    reset_uids()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    with capture_kernel_inputs(iris_captured, iris_launches):
+        iris = op_iris.main([])
+    iris_s = time.perf_counter() - t0
+    iris_launches = dict(iris_launches)
+    iris_sel = iris.selector_summary()
+    iris_ok = (iris_sel.best_model_name in ("OpLogisticRegression",
+                                            "OpRandomForestClassifier")
+               and len(iris_sel.validation_results) == 26
+               and iris_sel.holdout_evaluation.get("error", 1.0) <= 0.2
+               and all(n > 0 for n in iris_launches.values())
+               and any(" C=5 " in k + " " for k in iris_launches))
+
+    rows_out = kernel_rows([captured_shape(key, *captured[key],
+                                           prefix="workflow-multiclass")
+                            for key in sorted(captured)], phase="multiclass")
+    rows_out += kernel_rows([captured_shape(key, *iris_captured[key],
+                                            prefix="op_iris")
+                             for key in sorted(iris_captured)], phase="iris")
+    del captured, iris_captured
+    torch.cuda.empty_cache()
+    res = dict(
+        rows=rows, phase_s=time.perf_counter() - t_phase, leg_s=leg_s,
+        main_s=main_s, data_s=data_s, train_s=train_s,
+        stage_walls_s=walls,
+        family_sweep_s=selector.validator.family_walls,
+        selector_walls_s=selector.walls, width=width,
+        flagged=len(sc.dropped),
+        winner=[sel.best_model_name, sel.best_grid],
+        winner_cv_error=best["mean_metric"],
+        cv_cells={f"{v['model_name']} {v['grid']}": v["mean_metric"]
+                  for v in cells},
+        routes=sorted({(v["model_name"], v["route"]) for v in cells}),
+        label_map=label_map,
+        data_prep=sel.data_prep_results,
+        holdout_error=sel.holdout_evaluation.get("error"),
+        holdout_top1=sel.holdout_evaluation.get("top_1_accuracy"),
+        majority_share=majority, new_rows_accuracy=new_acc,
+        score_s=score_s, score_rows=COVERTYPE_SCORE_ROWS, save_s=save_s,
+        load_s=load_s, rescore_s=rescore_s, artifact_bytes=artifact,
+        reload_identical=reload_identical,
+        cpu_load_rows=COVERTYPE_CPU_LOAD_ROWS,
+        cpu_load_max_rel_diff=cpu_load_rel,
+        peak_device_gb_train=train_peak_gb,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, shape_launches=shape_launches,
+        capture_launches=capture_launches,
+        iris=dict(s=iris_s, winner=[iris_sel.best_model_name,
+                                    iris_sel.best_grid],
+                  holdout_error=iris_sel.holdout_evaluation.get("error"),
+                  launches=iris_launches))
+    log("workflow-multiclass: " + json.dumps(res, default=str))
+    by_shape = collections.Counter()
+    for key, n in capture_launches.items():
+        by_shape[launch_key(key)] += n
+    ok = (leg_ok and iris_ok and all(n > 0 for n in launches.values())
+          and set(launches) == set(TK.KERNELS)
+          and {r["key"] for r in rows_out}
+          == set(capture_launches) | set(iris_launches)
+          and dict(by_shape) == shape_launches
+          and any(" C=9 " in k + " " for k in capture_launches)
+          and families == ["OpLogisticRegression", "OpNaiveBayes",
+                           "OpRandomForestClassifier", "OpXGBoostClassifier"]
+          and len(cells) == 12
+          and scored.shape == (COVERTYPE_SCORE_ROWS, 8)
+          and bool(np.isfinite(scored).all())
+          and set(np.unique(scored[:, 0])) <= set(range(1, 8))
+          and reload_identical and cpu_load_rel <= 1e-5
+          and label_map == {c: c - 1 for c in range(1, 8)}
+          and new_acc > majority)
+    return ok, (capture_launches, iris_launches), rows_out
+
+
 @contextlib.contextmanager
-def record_refit_levels(store: list):
+def record_refit_levels(store: list, all_lanes: bool = False):
     """Inside the block, every one-lane call of the tree fit's level split
     (the refit: the sweep fits its folds as lanes) leaves its histograms,
     split arguments and the split it chose in `store`, in call order
-    (round by round, level by level)."""
+    (round by round, level by level). With `all_lanes`, every call does,
+    each of its lanes as a record of its own (lane-major within the call;
+    `lane` and `lanes` say which): a sweep's folds and a softmax fit's
+    class trees."""
     from transmogrifai_tpu_torch.ops import trees as T
     original = T._level_split
 
     def run(full, B, split_kw, feature_mask, level_mask):
         out = original(full, B, split_kw, feature_mask, level_mask)
-        if full.shape[0] == 1:
-            store.append(dict(full=full.clone(), split_kw=dict(split_kw),
-                              masks=(feature_mask, level_mask),
-                              split=[t[0].cpu() for t in out[:3]]))
+        lanes = full.shape[0]
+        if lanes == 1 or all_lanes:
+            for k in range(lanes):
+                masks = tuple(m[k:k + 1] if m is not None and m.dim() == 3
+                              else m for m in (feature_mask, level_mask))
+                store.append(dict(full=full[k:k + 1].clone(),
+                                  split_kw=dict(split_kw), masks=masks,
+                                  split=[t[k].cpu() for t in out[:3]],
+                                  lane=k, lanes=lanes))
         return out
     T._level_split = run
     try:
@@ -3188,6 +3583,14 @@ def main() -> int:
     failures += [f"kernel {r['name']} ({r['shape']})" for r in reg_rows
                  if not r.pop("ok")]
     rows += reg_rows
+    torch.cuda.empty_cache()
+    mc_ok, (counts["multiclass"], counts["iris"]), mc_rows = \
+        workflow_multiclass_phase(COVERTYPE_ROWS, SEED)
+    if not mc_ok:
+        failures.append("workflow-multiclass")
+    failures += [f"kernel {r['name']} ({r['shape']})" for r in mc_rows
+                 if not r.pop("ok")]
+    rows += mc_rows
     for r in rows:
         key = r.pop("key")
         r["launches"] = counts[r["phase"]].get(key, 0)

@@ -186,14 +186,26 @@ def test_batched_fit_fn_axes_and_model_from_params():
     assert m.probabilistic and m.device == "cpu"
     assert not OpLinearSVC(device="cpu").model_from_params(
         np.ones(3), 0.0).probabilistic
-    with pytest.raises(NotImplementedError, match="softmax"):
-        lr.batched_fit_fn(n_classes=3)
+    # three classes swap in the softmax lanes under the same signature
+    fit3, axes3 = lr.batched_fit_fn(n_classes=3)
+    assert axes3 == axes
+    X, y, _ = _data(n=120, seed=3)
+    y3 = torch.from_numpy(np.where(X[:, 0] > 0.5, 2.0, y)).float()
+    B, b0 = fit3(torch.from_numpy(X), y3, torch.ones(2, 120),
+                 torch.tensor([0.1, 0.01]), torch.tensor([0.0, 0.5]))
+    assert B.shape == (2, X.shape[1], 3) and b0.shape == (2, 3)
+    assert type(lr.model_from_params(B[0].numpy(), b0[0].numpy())
+                ).__name__ == "SoftmaxModel"
 
 
 def test_multiclass_raises_and_cuda_is_the_default(monkeypatch):
     X, y, _ = _data(n=300, seed=7)
-    with pytest.raises(NotImplementedError, match="multiclass"):
-        OpLogisticRegression(device="cpu").fit_arrays(X, np.where(y > 0, 2, 0))
+    # multiclass logistic regression fits softmax; the SVC stays binary
+    y3 = np.where(y > 0, 2, 0)
+    m = OpLogisticRegression(device="cpu").fit_arrays(X, y3)
+    assert type(m).__name__ == "SoftmaxModel" and m.B.shape[1] == 3
+    with pytest.raises(ValueError, match="binary"):
+        OpLinearSVC(device="cpu").fit_arrays(X, y3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for est in (OpLogisticRegression(), OpLinearSVC()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -383,12 +383,14 @@ def test_joint_lr_and_xgb_sweep_picks_the_same_winner(monkeypatch):
 def test_unported_problem_types_raise():
     X, y, _ = _data(n=300, seed=14)
     val = PV.CrossValidation(PE.BinaryClassification.au_pr(), device="cpu")
-    with pytest.raises(NotImplementedError, match="no ported sweep route"):
+    with pytest.raises(ValueError, match="unknown problem type"):
         val.validate([(PLR(device="cpu"), [{}])], X, y,
-                     problem_type="multiclass")
-    # regression metrics are ported; the multiclass ones are not
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PV._metric_fn("multiclass", "error")
+                     problem_type="ranking")
+    # every binary, multiclass and regression metric is ported; a metric
+    # of another problem type is not an in-sweep metric
+    assert callable(PV._metric_fn("multiclass", "error", n_classes=3))
+    with pytest.raises(ValueError, match="no in-sweep multiclass metric"):
+        PV._metric_fn("multiclass", "au_pr")
 
 
 # -- checkpoints -----------------------------------------------------------------

@@ -350,8 +350,10 @@ def test_regression_selector_defaults():
     assert type(sel.splitter) is DataSplitter
     for name in ("OpLinearRegression", "OpGeneralizedLinearRegression"):
         assert PS.default_grid_for(name) == JS.default_grid_for(name)
-    with pytest.raises(NotImplementedError, match="MultiClassification"):
-        PS.MultiClassificationModelSelector.with_cross_validation()
+    # the multiclass selector is ported: its defaults resolve
+    multi = PS.MultiClassificationModelSelector.with_cross_validation(
+        device="cpu")
+    assert multi.problem_type == "multiclass" and len(multi.models) == 2
 
 
 @pytest.mark.parametrize("family", [None, "poisson"])

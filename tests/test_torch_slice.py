@@ -135,11 +135,13 @@ def test_train_validation_split_and_unported_routes():
                         X, y)
     assert len(best.validated[0].fold_metrics) == 1
     assert 0.5 < best.best_metric <= 1.0
-    with pytest.raises(NotImplementedError, match="multiclass"):
-        OpXGBoostClassifier(device="cpu").fit_arrays(X, np.where(y > 0, 2, 0))
-    with pytest.raises(NotImplementedError, match="no ported sweep route"):
+    # softmax boosting has no scalar prior: a base_score raises
+    with pytest.raises(ValueError, match="base_score"):
+        OpXGBoostClassifier(device="cpu", base_score=0.5).fit_arrays(
+            X, np.where(y > 0, 2, 0))
+    with pytest.raises(ValueError, match="unknown problem type"):
         tvs.validate([(OpXGBoostClassifier(device="cpu"), GRIDS[:1])], X, y,
-                     problem_type="multiclass")
+                     problem_type="ranking")
 
 
 def test_fit_on_cuda_raises_without_a_card(monkeypatch):

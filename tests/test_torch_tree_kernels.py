@@ -60,6 +60,10 @@ def _check_hist(got, want, exact):
     (777, 6, 9, 3, 4, 2, True, False),      # Fo > 1, dropped slots
     (2100, 4, 17, 5, 8, 2, False, True),    # integer payloads: exact
     (640, 3, 7, 2, 2, 3, True, True),       # derive_count on 3 channels
+    # a K-class forest's lanes: K class sums, the weight and the count
+    (700, 4, 9, 2, 2, 4, True, False),      # K = 3: C = 5
+    (650, 3, 9, 3, 1, 8, True, True),       # K = 7: C = 9
+    (600, 3, 7, 1, 4, 11, True, False),     # K = 10: C = 12
 ])
 def test_hist_folds_matches_pallas_and_twin(n, f, b, folds, n_slots, C,
                                             derive, int_payload):
@@ -144,6 +148,68 @@ def test_route_hist_matches_pallas_and_twin(n, f, b, folds, n_nodes,
                                  PH.route_hist(*args, **kw)):
         np.testing.assert_array_equal(new_node.numpy(), np.asarray(want_node))
         _check_hist(hist, want_hist, exact=int_payload)
+
+
+@pytest.mark.parametrize("C,folds,n_nodes", [(4, 2, 2), (8, 3, 4),
+                                               (11, 1, 2)])
+def test_route_hist_any_channel_count_matches_pallas(C, folds, n_nodes):
+    """route_hist at C + 1 = 5, 9 and 12 channels a lane (K = 3, 7, 10)."""
+    n, f, b = 640, 4, 9
+    Xb_t, node, f_lvl, t_lvl, m_lvl = _route_inputs(n, f, b, folds, n_nodes,
+                                                    seed=C)
+    _, pay, _ = _hist_inputs(n, f, b, folds, n_nodes, C, seed=C + 1)
+    hist, new_node = TK.route_hist(
+        *_port(Xb_t, pay, node, f_lvl, t_lvl, m_lvl), n_nodes=n_nodes,
+        n_bins=b, derive_count=True)
+    assert hist.shape == (folds * n_nodes * (C + 1), f * b)
+    args = [jnp.asarray(a) for a in (Xb_t, pay, node, f_lvl, t_lvl, m_lvl)]
+    want_hist, want_node = PH.route_hist(*args, interpret=True,
+                                         n_nodes=n_nodes, n_bins=b,
+                                         derive_count=True)
+    np.testing.assert_array_equal(new_node.numpy(), np.asarray(want_node))
+    _check_hist(hist, want_hist, exact=False)
+
+
+@pytest.mark.parametrize("C,derive", [(4, True), (8, True), (12, False),
+                                      (101, True)])
+def test_channel_groups_reassemble_the_lane_layout(C, derive):
+    """A lane wider than a kernel lane is launched as channel groups, each
+    a lane of its own (the count made a real channel, the last group
+    zero-padded): the plain versions on the grouped inputs, put back in
+    the lane's layout, equal the plain versions on the lane, for the
+    histograms and the node ids; the planner plans the grouped launch."""
+    n, f, b, folds, S = 500, 3, 7, 2, 4
+    Xb_t, node, f_lvl, t_lvl, m_lvl = _route_inputs(n, f, b, folds, S,
+                                                    seed=C)
+    _, pay, slot = _hist_inputs(n, f, b, folds, S, C, seed=C + 3)
+    Xb_t, pay, slot, node, f_lvl, t_lvl, m_lvl = _port(
+        Xb_t, pay, slot, node, f_lvl, t_lvl, m_lvl)
+    Co = C + int(derive)
+    groups, width = TK.channel_groups(Co)
+    assert width <= TK._GROUP_CHANNELS and groups * width >= Co
+    assert groups * width - Co < groups
+    gpay, gslot, g2, w2 = TK._grouped(pay, slot, folds, C, derive)
+    assert (g2, w2) == (groups, width)
+    want = TK.hist_folds_plain(Xb_t, pay, slot, n_slots=S, n_bins=b,
+                               derive_count=derive)
+    got = TK._ungrouped(TK.hist_folds_plain(Xb_t, gpay, gslot, n_slots=S,
+                                            n_bins=b),
+                        folds, groups, width, S, Co)
+    assert torch.equal(got, want)
+    gpay, gnode, _, _ = TK._grouped(pay, node, folds, C, derive)
+    tables = [t.repeat_interleave(groups, dim=0) for t in (f_lvl, t_lvl,
+                                                           m_lvl)]
+    ghist, gnew = TK.route_hist_plain(Xb_t, gpay, gnode, *tables,
+                                      n_nodes=S, n_bins=b)
+    whist, wnew = TK.route_hist_plain(Xb_t, pay, node, f_lvl, t_lvl, m_lvl,
+                                      n_nodes=S, n_bins=b,
+                                      derive_count=derive)
+    assert torch.equal(TK._ungrouped(ghist, folds, groups, width, S, Co),
+                       whist)
+    assert torch.equal(gnew[::groups], wnew)
+    plan = TK.plan_hist(64, S, Co, 33, folds, 10_000, 132)
+    assert plan == TK.plan_hist(64, S, width, 33, folds * groups, 10_000,
+                                132)
 
 
 @pytest.mark.parametrize("folds,M,n", [(4, 16, 517), (1, 64, 2000),

@@ -72,12 +72,16 @@ class _ReferenceDraws:
     def node_masks(self, t):
         if max(1, int(round(self.frac * self.F))) >= self.F:
             return None
-        state = [self.trees[t][1]]
+        # drawn once a tree, level by level as the reference splits its key
+        state, masks = self.__dict__.setdefault("_masks", {}).setdefault(
+            t, ([self.trees[t][1]], []))
 
         def level(d):   # levels are asked for in order, 0 first
-            state[0], sub = jax.random.split(state[0])
-            return torch.from_numpy(np.array(
-                JT._feature_mask(sub, 1 << d, self.F, self.frac)))
+            while len(masks) <= d:
+                state[0], sub = jax.random.split(state[0])
+                masks.append(torch.from_numpy(np.array(JT._feature_mask(
+                    sub, 1 << len(masks), self.F, self.frac))))
+            return masks[d]
         return level
 
 
@@ -161,17 +165,29 @@ def test_unknown_ensemble_mode_raises():
 
 
 def test_multiclass_forest_and_boosting_raise():
+    """Multiclass forests and softmax boosting fit; what still raises is
+    what the reference refuses: a base_score for softmax boosting, and a
+    multiclass sweep of Spark's binary GBT."""
     X, y, _ = _data(300)
     y3 = (y + (X[:, 1] > 1)).astype(np.float32)
-    for est in (PM.OpRandomForestClassifier(device="cpu", num_trees=2),
-                PM.OpXGBoostClassifier(device="cpu", num_round=2)):
-        with pytest.raises(NotImplementedError, match="multiclass slice"):
-            est.fit_arrays(X, y3)
+    rf = PM.OpRandomForestClassifier(device="cpu", num_trees=2).fit_arrays(
+        X, y3)
+    assert rf.leaf.shape[-1] == 3 and rf.predict_arrays(X)[2].shape == (300, 3)
+    xgb = PM.OpXGBoostClassifier(device="cpu", num_round=2).fit_arrays(X, y3)
+    assert type(xgb).__name__ == "SoftmaxEnsembleModel"
+    with pytest.raises(ValueError, match="base_score"):
+        PM.OpXGBoostClassifier(device="cpu", num_round=2,
+                               base_score=0.3).fit_arrays(X, y3)
+    gbt = PM.OpGBTClassifier(device="cpu")
+    with pytest.raises(ValueError, match="binary"):
+        gbt.mask_fit_scores(gbt.mask_sweep_context(torch.from_numpy(X)),
+                            torch.from_numpy(y3), torch.ones(300),
+                            torch.ones(2, 300), n_classes=3, multiclass=True)
 
 
 def test_default_grids_equal_the_reference():
     names = sorted(PS._models_by_name())
-    assert len(names) == 12
+    assert len(names) == 13
     for name in names:
         assert PS.default_grid_for(name) == JS.default_grid_for(name), name
 

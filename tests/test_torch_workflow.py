@@ -298,8 +298,10 @@ def test_default_model_types_raise():
         model_types=["OpLogisticRegression", "OpGBTClassifier"],
         device="cpu")
     assert len(split.models) == 2
-    with pytest.raises(NotImplementedError, match="OpNaiveBayes"):
-        PBCMS.with_cross_validation(model_types=["OpNaiveBayes"])
+    # naive Bayes is ported (binary and multiclass)
+    nb = PBCMS.with_cross_validation(model_types=["OpNaiveBayes"],
+                                     device="cpu")
+    assert [type(e).__name__ for e, _ in nb.models] == ["OpNaiveBayes"]
     with pytest.raises(NotImplementedError,
                        match="OpMultilayerPerceptronClassifier"):
         PBCMS.with_cross_validation(

@@ -26,6 +26,10 @@ regression labels (examples/op_boston.py); `Workflow.with_workflow_cv()`
 refits the stages that feed the selector inside each fold; and
 `WorkflowModel.save(path)` / `WorkflowModel.load(path, device=...)` write
 and read the JAX package's model format (workflow/io.py).
+`MultiClassificationModelSelector` cuts the labels with `DataCutter` and
+sweeps softmax logistic regression, random forests (K + 2 histogram
+channels a lane), softmax XGBoost (each round's class trees as lanes of
+one growth) and naive Bayes on the multiclass error (examples/op_iris.py).
 
 The package imports torch and numpy only, never jax or transmogrifai_tpu.
 Entry points run on the GPU unless the caller asks for the CPU

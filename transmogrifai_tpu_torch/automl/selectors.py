@@ -1,20 +1,20 @@
-"""Binary and regression model-selector presets + default hyperparameter
-grids (counterpart of automl/selectors.py).
+"""Binary, multiclass and regression model-selector presets + default
+hyperparameter grids (counterpart of automl/selectors.py).
 
 Reference: core/.../impl/classification/BinaryClassificationModelSelector.scala
 (:59-61 default model types, :67-110 grids),
+MultiClassificationModelSelector.scala,
 regression/RegressionModelSelector.scala,
 selector/DefaultSelectorParams.scala:35-56.
 
-The port has OpLogisticRegression, OpLinearSVC, OpLinearRegression,
-OpGeneralizedLinearRegression and the eight tree families (random forest,
-decision tree, Spark GBT and XGBoost, each a classifier and a regressor),
-so the binary defaults (LR, RF, GBT, SVC) and the regression defaults
-(LinReg, RF, GBT) all resolve. Asking for any other model type raises
-NotImplementedError naming it: a type is never dropped in silence, which
-would run a smaller sweep than the reference. The multiclass selector
-(with DataCutter, softmax, the MLP and naive Bayes) is not ported yet and
-raises naming itself.
+The port has OpLogisticRegression (binary and softmax), OpLinearSVC,
+OpNaiveBayes, OpLinearRegression, OpGeneralizedLinearRegression and the
+eight tree families (random forest, decision tree, Spark GBT and XGBoost,
+each a classifier and a regressor), so the binary defaults (LR, RF, GBT,
+SVC), the multiclass defaults (LR, RF) and the regression defaults
+(LinReg, RF, GBT) all resolve. Asking for any other model type (the MLP)
+raises NotImplementedError naming it: a type is never dropped in silence,
+which would run a smaller sweep than the reference.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from ..evaluators.evaluators import Evaluator, Evaluators
 from ..models.base import PredictorEstimator
 from ..stages.params import ParamMap, param_grid
 from .selector import ModelSelector
-from .tuning.splitters import DataBalancer, DataSplitter, Splitter
+from .tuning.splitters import DataBalancer, DataCutter, DataSplitter, Splitter
 from .tuning.validators import CrossValidation, TrainValidationSplit, Validator
 
 
@@ -61,6 +61,7 @@ def _models_by_name() -> Dict[str, type]:
     from ..models import glm, trees
     return {"OpLogisticRegression": glm.OpLogisticRegression,
             "OpLinearSVC": glm.OpLinearSVC,
+            "OpNaiveBayes": glm.OpNaiveBayes,
             "OpLinearRegression": glm.OpLinearRegression,
             "OpGeneralizedLinearRegression":
                 glm.OpGeneralizedLinearRegression,
@@ -84,6 +85,8 @@ def default_grid_for(name: str) -> List[ParamMap]:
     if name == "OpLinearSVC":
         return param_grid(reg_param=D.REGULARIZATION,
                           max_iter=D.MAX_ITER_LIN)
+    if name == "OpNaiveBayes":
+        return param_grid(smoothing=D.NB_SMOOTHING)
     if name == "OpLinearRegression":
         return param_grid(reg_param=D.REGULARIZATION,
                           elastic_net_param=D.ELASTIC_NET,
@@ -215,14 +218,12 @@ class RegressionModelSelector(_SelectorFactory):
     default_splitter = staticmethod(lambda seed: DataSplitter(seed=seed))
 
 
-class MultiClassificationModelSelector:
-    """Reference MultiClassificationModelSelector.scala: not ported yet
-    (it needs DataCutter, softmax GLMs and boosting, the MLP and naive
-    Bayes, and wider histogram channels)."""
+class MultiClassificationModelSelector(_SelectorFactory):
+    """Reference MultiClassificationModelSelector.scala (defaults: LR and RF
+    on; the metric the multiclass error; a DataCutter's label cutting and
+    10% holdout)."""
 
-    @classmethod
-    def with_cross_validation(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "MultiClassificationModelSelector is not ported yet")
-
-    with_train_validation_split = with_cross_validation
+    problem_type = "multiclass"
+    default_model_types = ("OpLogisticRegression", "OpRandomForestClassifier")
+    default_evaluator = staticmethod(Evaluators.MultiClassification.error)
+    default_splitter = staticmethod(lambda seed: DataCutter(seed=seed))

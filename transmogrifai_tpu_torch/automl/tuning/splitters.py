@@ -3,8 +3,8 @@ automl/tuning/splitters.py, the same numpy draws bit for bit).
 
 Reference: core/.../impl/tuning/Splitter.scala:47 (reserveTestFraction 0.1),
 DataSplitter.scala:62 (regression), DataBalancer.scala:73 (binary up/down
-sampling to a target minority fraction, maxTrainingSample cap). The
-multiclass DataCutter is not ported yet.
+sampling to a target minority fraction, maxTrainingSample cap),
+DataCutter.scala:76 (multiclass label cutting).
 
 Splits are index/weight computations on the host label vector: balancing
 emits a kept-row index set and per-row sample weights, which the model
@@ -150,3 +150,53 @@ class DataBalancer(Splitter):
         d.update(sample_fraction=self.sample_fraction,
                  max_training_sample=self.max_training_sample)
         return d
+
+
+class DataCutter(Splitter):
+    """Multiclass label cutter (reference DataCutter.scala:76): keep at most
+    ``max_label_categories`` labels, each with at least
+    ``min_label_fraction`` of the rows; drop the rows of other labels and
+    relabel the kept ones contiguously (`PreparedData.label_map`)."""
+
+    def __init__(self, seed: int = 42, reserve_test_fraction: float = 0.1,
+                 max_label_categories: int = 100,
+                 min_label_fraction: float = 0.0):
+        super().__init__(seed=seed, reserve_test_fraction=reserve_test_fraction)
+        if not 0.0 <= min_label_fraction < 0.5:
+            raise ValueError("min_label_fraction must be in [0, 0.5)")
+        self.max_label_categories = int(max_label_categories)
+        self.min_label_fraction = float(min_label_fraction)
+
+    def prepare(self, y: np.ndarray) -> PreparedData:
+        labels, counts = np.unique(y[~np.isnan(y)], return_counts=True)
+        frac_ok = counts / len(y) >= self.min_label_fraction
+        kept = labels[frac_ok]
+        kept_counts = counts[frac_ok]
+        if len(kept) > self.max_label_categories:
+            order = np.argsort(-kept_counts)[: self.max_label_categories]
+            kept = kept[np.sort(order)]
+        kept_set = set(float(v) for v in kept)
+        dropped = [float(v) for v in labels if float(v) not in kept_set]
+        label_map = {int(v): i for i, v in enumerate(sorted(kept_set))}
+        idx = np.flatnonzero(np.isin(y, list(kept_set)))
+        summary = {
+            "labels_kept": sorted(kept_set),
+            "labels_dropped": dropped,
+            "labels_dropped_total": len(dropped),
+        }
+        return PreparedData(indices=idx, weights=np.ones(len(idx), np.float32),
+                            summary=summary, label_map=label_map)
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        d.update(max_label_categories=self.max_label_categories,
+                 min_label_fraction=self.min_label_fraction)
+        return d
+
+
+def splitter_from_args(d: Dict[str, Any]) -> Splitter:
+    """The splitter a `save_args()` dict describes (either package's)."""
+    kinds = {c.__name__: c for c in (Splitter, DataSplitter, DataBalancer,
+                                     DataCutter)}
+    args = dict(d)
+    return kinds[args.pop("kind")](**args)

@@ -18,16 +18,21 @@ them:
   `max_bins` value and fit all folds of a grid point in one fold-fused
   call;
 - sequential (`_validate_sequential`): every other estimator (generalized
-  linear regression) and every estimator under a custom evaluator: one
-  `fit_arrays` a fold on its training rows, the evaluator on the held-out
-  rows' Prediction column.
+  linear regression, naive Bayes) and every estimator under a custom
+  evaluator: one `fit_arrays` a fold on its training rows, the evaluator
+  on the held-out rows' Prediction column.
+
+Binary sweeps score margins (rank metrics, or the thresholded metrics at
+the evaluator's threshold as a margin); multiclass sweeps score [n, c]
+class scores, whose argmax feeds the confusion-matrix metrics; the
+streamed route stays binary and regression only, as in the reference.
 
 At 2M rows and more, in-sweep AuPR/AuROC come from the lane-batched
 binned-counts kernel instead of a sort per lane; regression metrics are
 lane-batched sums. GLM cells can be checkpointed (`checkpoint_path`), and
 the streamed route also per retirement round. `validate(..., masks=)`
 takes the folds from outside (workflow-level CV runs one fold at a time).
-Multiclass sweeps and mesh sharding arrive in later slices.
+Mesh sharding arrives in a later slice.
 """
 from __future__ import annotations
 
@@ -97,6 +102,7 @@ SWEEP_LANE_BUDGET_BYTES = 12e9
 STREAMED_SWEEP_MIN_ROWS = 200_000
 
 _RANK_METRICS = {"au_pr": M.au_pr, "au_roc": M.au_roc}
+PROBLEM_TYPES = ("binary", "multiclass", "regression")
 
 
 def _lanes_metric_fn(metric: str, problem_type: str, rank_bins):
@@ -116,35 +122,46 @@ def _lanes_metric_fn(metric: str, problem_type: str, rank_bins):
 
 
 def _metric_fn(problem_type: str, metric: str,
-               rank_bins: Optional[int] = None) -> Callable:
-    """(scores [n], labels, weights, margin_threshold) -> scalar for one
-    lane. Binary scores are margins (monotone in probability, so rank
-    metrics match); regression scores are the predictions. The port has
-    the binary rank metrics and every regression metric; the thresholded
-    and multiclass in-sweep metrics come later."""
-    if problem_type == "regression":
-        if metric not in M.RegressionMetrics._fields:
-            raise ValueError(f"unknown regression metric {metric!r}")
-    elif problem_type != "binary" or metric not in _RANK_METRICS:
-        raise NotImplementedError(
-            f"in-sweep metric {metric!r} ({problem_type}) is not ported "
-            f"yet; the port has the binary {sorted(_RANK_METRICS)} and the "
-            f"regression {list(M.RegressionMetrics._fields)}")
+               rank_bins: Optional[int] = None,
+               n_classes: int = 2) -> Callable:
+    """(scores, labels, weights, margin_threshold) -> scalar for one lane.
+    Binary scores [n] are margins (monotone in probability, so rank metrics
+    match), and the thresholded metrics cut them at the margin equivalent
+    of the evaluator's threshold; multiclass scores are [n, c] class
+    scores, their argmax (invariant to softmax) the predicted class of the
+    confusion-matrix metrics; regression scores are the predictions."""
+    fields = {"binary": M.BinaryMetrics._fields,
+              "multiclass": M.MultiMetrics._fields,
+              "regression": M.RegressionMetrics._fields}.get(problem_type)
+    if fields is None:
+        raise ValueError(f"unknown problem type {problem_type!r}; one of "
+                         f"{PROBLEM_TYPES}")
+    if metric not in fields:
+        raise ValueError(f"no in-sweep {problem_type} metric {metric!r}; "
+                         f"there are {list(fields)}")
+    if problem_type == "multiclass":
+        return lambda s, y, w, thr: getattr(M.multiclass_metrics(
+            torch.argmax(s, dim=1), y, n_classes, w), metric)
     lanes = _lanes_metric_fn(metric, problem_type, rank_bins)
     if lanes is not None:
         return lambda s, y, w, thr: lanes(s[None], y, w[None])[0]
-    exact = _RANK_METRICS[metric]
-    return lambda s, y, w, thr: exact(s, y, w)
+    if metric in _RANK_METRICS:
+        exact = _RANK_METRICS[metric]
+        return lambda s, y, w, thr: exact(s, y, w)
+    return lambda s, y, w, thr: getattr(
+        M.binary_metrics(s, y, w, threshold=thr), metric)
 
 
-def _lane_metrics(metric: str, problem_type: str, rank_bins, thr: float):
-    """(scores [L, n], labels [n], w_lanes [L, n]) -> [L] metric values:
-    one lane-batched kernel call where the metric has one, else the
-    one-lane metric per lane."""
+def _lane_metrics(metric: str, problem_type: str, rank_bins, thr: float,
+                  n_classes: int = 2):
+    """(scores [L, n] or [L, n, c], labels [n], w_lanes [L, n]) -> [L]
+    metric values: one lane-batched kernel call where the metric has one,
+    else the one-lane metric per lane."""
     lanes = _lanes_metric_fn(metric, problem_type, rank_bins)
     if lanes is not None:
         return lanes
-    mfn = _metric_fn(problem_type, metric, rank_bins=rank_bins)
+    mfn = _metric_fn(problem_type, metric, rank_bins=rank_bins,
+                     n_classes=n_classes)
     return lambda s, y, wl: torch.stack(
         [mfn(s[j], y, wl[j], thr) for j in range(s.shape[0])])
 
@@ -217,10 +234,9 @@ class Validator:
         the winner, configured with its grid. X [n, d], y [n] and w [n]
         may be numpy arrays or tensors; `masks` overrides
         self.fold_masks(y)."""
-        if problem_type not in ("binary", "regression"):
-            raise NotImplementedError(
-                f"{problem_type} sweeps have no ported sweep route yet: "
-                "they come with the multiclass slice")
+        if problem_type not in PROBLEM_TYPES:
+            raise ValueError(f"unknown problem type {problem_type!r}; one "
+                             f"of {PROBLEM_TYPES}")
         dev = resolve_device(self.device)
         if getattr(self.evaluator, "device", None) is None:
             self.evaluator.device = self.device
@@ -245,6 +261,8 @@ class Validator:
         wd = torch.ones_like(yd) if w is None else \
             torch.as_tensor(w, dtype=torch.float32, device=dev)
         md = torch.as_tensor(masks, dtype=torch.float32, device=dev)
+        n_classes = int(np.max(y_host)) + 1 \
+            if problem_type == "multiclass" else 2
 
         validated: List[ValidatedModel] = []
         self.family_walls = {}
@@ -261,11 +279,13 @@ class Validator:
                     est, grids, Xd, yd, wd, md, metric, problem_type))
             elif self._vmappable(est, grids, problem_type):
                 validated.extend(self._validate_vmapped(
-                    est, grids, Xd, yd, wd, md, metric, problem_type))
+                    est, grids, Xd, yd, wd, md, metric, problem_type,
+                    n_classes))
             elif (getattr(est, "supports_mask_folds", False)
                   and problem_type in getattr(est, "problem_types", ())):
                 validated.extend(self._validate_mask_folds(
-                    est, grids, Xd, yd, wd, md, metric, problem_type))
+                    est, grids, Xd, yd, wd, md, metric, problem_type,
+                    n_classes))
             else:
                 validated.extend(self._validate_sequential(
                     est, grids, Xd, y_host, w, masks))
@@ -426,14 +446,17 @@ class Validator:
 
     # -- vmapped GLM route ---------------------------------------------------
     def _validate_vmapped(self, est, grids, X, y, w, masks, metric,
-                          problem_type) -> List[ValidatedModel]:
+                          problem_type, n_classes=2) -> List[ValidatedModel]:
         """GLM-family sweep: one lane-batched solve per grid chunk over
         (folds x chunk) lanes, each lane fitting on its fold's training
-        weights and scored on the held-out rows. Chunking bounds the
-        per-call memory (each lane holds [n, d] row-scaled products) and
-        gives the checkpoint mid-grid granularity."""
+        weights and scored on the held-out rows (softmax lanes and [n, c]
+        scores for a multiclass sweep). Chunking bounds the per-call
+        memory (each lane holds [n, d] row-scaled products) and gives the
+        checkpoint mid-grid granularity."""
         base = est.copy(**{k: v for k, v in grids[0].items()})
-        fit_one, _ = base.batched_fit_fn()
+        multiclass = problem_type == "multiclass"
+        fit_one, _ = base.batched_fit_fn(n_classes=n_classes) \
+            if multiclass else base.batched_fit_fn()
         regs, alphas = self._grid_axis_arrays(est, grids)
         F, n = masks.shape
         ckpt, keys, results = self._cell_bookkeeping(
@@ -443,7 +466,8 @@ class Validator:
         if pending:
             lane_metrics = _lane_metrics(metric, problem_type,
                                          self._rank_bins(n),
-                                         self._margin_threshold(est))
+                                         self._margin_threshold(est),
+                                         n_classes)
             chunk = self._auto_grid_chunk(n, X.shape[1], F, 4, len(pending))
             dev = X.device
             w_fit = masks * w[None, :]                       # [F, n]
@@ -460,7 +484,10 @@ class Validator:
                     return torch.as_tensor(v[idx], device=dev).repeat(F)
                 B, b0 = fit_one(X, y, lanes(w_fit), grid_vec(regs),
                                 grid_vec(alphas))
-                scores = (X @ B.T + b0[None, :]).T           # [F*k, n]
+                if multiclass:     # B [F*k, d, c] -> [F*k, n, c]
+                    scores = torch.matmul(X, B) + b0[:, None, :]
+                else:
+                    scores = (X @ B.T + b0[None, :]).T       # [F*k, n]
                 vals = lane_metrics(scores, y, lanes(w_eval))
                 self._land(est, grids, keys, ckpt, results, idx,
                            vals.reshape(F, k).cpu().numpy(), metric)
@@ -573,15 +600,18 @@ class Validator:
 
     # -- mask-fold tree route ------------------------------------------------
     def _validate_mask_folds(self, est, grids, X, y, w, masks, metric,
-                             problem_type) -> List[ValidatedModel]:
+                             problem_type, n_classes=2
+                             ) -> List[ValidatedModel]:
         """Tree-family sweep with folds as weight masks: the feature matrix
         is quantile-binned ONCE per max_bins value on the device, then each
         grid point fits all folds at once against it, with the folds'
         training masks as sample weights, and scores the held-out rows
-        (margins of a classifier, a regressor's predictions)."""
+        (margins of a binary classifier, [n, c] class scores of a
+        multiclass one, a regressor's predictions)."""
         fold_metrics = _lane_metrics(metric, problem_type,
                                      self._rank_bins(X.shape[0]),
-                                     self._margin_threshold(est))
+                                     self._margin_threshold(est), n_classes)
+        multiclass = problem_type == "multiclass"
         w_eval = (1.0 - masks) * w[None, :]
 
         def bins_of(g):
@@ -595,7 +625,8 @@ class Validator:
             ctx = est.copy(**grids[group[0]]).mask_sweep_context(X)
             for gi in group:
                 scores = est.copy(**grids[gi]).mask_fit_scores(
-                    ctx, y, w, masks)
+                    ctx, y, w, masks, n_classes=n_classes,
+                    multiclass=multiclass)
                 results[gi] = [float(v) for v in
                                fold_metrics(scores, y, w_eval).cpu()]
             del ctx  # free the binned matrix before the next group

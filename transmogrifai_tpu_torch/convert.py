@@ -1,9 +1,10 @@
 """Carry fitted parameters across from the JAX package.
 
 Each takes plain numpy arrays, lists and dicts — what the JAX package's
-`TreeEnsembleModel.save_args()`, `LinearBinaryModel.save_args()`,
-`LinearRegressionModel.save_args()`, `Tree` fields and fitted workflow
-stages hold — so this module imports nothing of the JAX package. With them
+`TreeEnsembleModel.save_args()`, `SoftmaxEnsembleModel.save_args()`,
+`LinearBinaryModel.save_args()`, `SoftmaxModel.save_args()`,
+`NaiveBayesModel.save_args()`, `LinearRegressionModel.save_args()`, `Tree`
+fields and fitted workflow stages hold — so this module imports nothing of the JAX package. With them
 both packages score the same fitted model or the same fitted workflow
 (`workflow_model_from_jax`). A fitted stage is rebuilt as a saved one is
 loaded (stages/registry.build_stage), so whatever a saved model may hold
@@ -19,8 +20,8 @@ import torch
 from .data.vector import VectorMetadata
 from .device import DeviceLike, resolve_device
 from .features.feature import Feature
-from .models.glm import LinearBinaryModel
-from .models.trees import TreeEnsembleModel
+from .models.glm import LinearBinaryModel, NaiveBayesModel, SoftmaxModel
+from .models.trees import SoftmaxEnsembleModel, TreeEnsembleModel
 from .ops.trees import Tree
 
 
@@ -46,6 +47,43 @@ def linear_model_from_jax(save_args: Dict[str, Any],
         beta=save_args["beta"], intercept=float(save_args["intercept"]),
         probabilistic=bool(save_args.get("probabilistic", True)),
         operation_name=str(save_args.get("operation_name", "linBin")),
+        device=device)
+
+
+def softmax_ensemble_from_jax(save_args: Dict[str, Any],
+                              device: DeviceLike = None
+                              ) -> SoftmaxEnsembleModel:
+    """A port SoftmaxEnsembleModel from the JAX SoftmaxEnsembleModel's
+    save_args(): feat, thresh_val, leaf, miss [rounds * classes, ...],
+    depth, n_classes."""
+    return SoftmaxEnsembleModel(
+        feat=save_args["feat"], thresh_val=save_args["thresh_val"],
+        leaf=save_args["leaf"], miss=save_args["miss"],
+        depth=int(save_args["depth"]),
+        n_classes=int(save_args["n_classes"]),
+        operation_name=str(save_args.get("operation_name", "xgbSoftmax")),
+        device=device)
+
+
+def softmax_model_from_jax(save_args: Dict[str, Any],
+                           device: DeviceLike = None) -> SoftmaxModel:
+    """A port SoftmaxModel from the JAX SoftmaxModel's save_args(): B
+    [d, c], b0 [c]."""
+    return SoftmaxModel(
+        B=np.asarray(save_args["B"], np.float32),
+        b0=np.asarray(save_args["b0"], np.float32),
+        operation_name=str(save_args.get("operation_name", "softmax")),
+        device=device)
+
+
+def naive_bayes_model_from_jax(save_args: Dict[str, Any],
+                               device: DeviceLike = None) -> NaiveBayesModel:
+    """A port NaiveBayesModel from the JAX NaiveBayesModel's save_args():
+    log_prob [c, d], log_prior [c]."""
+    return NaiveBayesModel(
+        log_prob=np.asarray(save_args["log_prob"], np.float32),
+        log_prior=np.asarray(save_args["log_prior"], np.float32),
+        operation_name=str(save_args.get("operation_name", "nb")),
         device=device)
 
 

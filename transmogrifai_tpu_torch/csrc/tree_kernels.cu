@@ -43,7 +43,10 @@
 
 namespace {
 
-constexpr int kMaxChannels = 4;  // C payload channels + the derived count
+// C payload channels + the derived count of one lane; the Python wrappers
+// launch a wider lane (a K-class forest's K + 2) as groups of lanes of at
+// most this many channels (channel_groups in ops/tree_kernels.py)
+constexpr int kMaxChannels = 4;
 constexpr int kRowThreads = 512;  // block of the rows path
 
 // Paths of the histogram entry points (plan_hist's HistTiling.path).
@@ -995,6 +998,7 @@ int launch_hist(const void* xb, const float* pay, const float* slot,
                 cudaStream_t stream) {
   const int n_ftiles = (F + f_tile - 1) / f_tile;
   const int n_stiles = (S + s_tile - 1) / s_tile;
+  if (C < 1 || C + derive > kMaxChannels) return (int)cudaErrorInvalidValue;
   if (path == kPathRows) {
     if ((long long)smem != 4LL * s_tile * (C + derive) * f_tile * B)
       return (int)cudaErrorInvalidValue;
@@ -1021,6 +1025,7 @@ int launch_route_hist(const void* xb, const float* pay, const float* node,
                       cudaStream_t stream) {
   const int n_ftiles = (F + f_tile - 1) / f_tile;
   const int n_stiles = (n_nodes + s_tile - 1) / s_tile;
+  if (C < 1 || C + derive > kMaxChannels) return (int)cudaErrorInvalidValue;
   if (path == kPathRows) {
     if ((long long)smem != 4LL * s_tile * (C + derive) * f_tile * B +
                                12LL * n_nodes)

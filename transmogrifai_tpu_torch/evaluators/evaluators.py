@@ -1,7 +1,8 @@
-"""Binary-classification, regression and custom evaluators (counterpart of
-evaluators/evaluators.py).
+"""Binary, multiclass, bin-score, regression and custom evaluators
+(counterpart of evaluators/evaluators.py).
 
 Reference: core/.../evaluators/{OpBinaryClassificationEvaluator.scala:56,
+OpMultiClassificationEvaluator.scala:58, OpBinScoreEvaluator.scala,
 OpRegressionEvaluator.scala:61, Evaluators.scala:40}. `evaluate_all(labels, pred_col, w)` computes the
 metric bundle of a Prediction column (models/prediction.py): AuROC, AuPR,
 and precision / recall / F1 / error / confusion counts at the threshold
@@ -12,22 +13,29 @@ validators rank models by it. A Prediction column's metrics run on the
 evaluator's `device` (None = CUDA; the model selector and the workflow
 fill it with theirs); a score array's where it lies. `RegressionEvaluator`
 reports RMSE, MSE, MAE and R2 of a regression Prediction column on its
-device; `Evaluators.custom` wraps a user's metric function, which
+device; `MultiClassificationEvaluator` the weighted precision, recall,
+F1 and error of the predicted classes on its device, with the top-N
+accuracies and threshold counts of the probabilities; `BinScoreEvaluator`
+the Brier score and calibration bins on the host, as the JAX package
+computes them; `Evaluators.custom` wraps a user's metric function, which
 validators can only call on host columns (their sequential route).
-The multiclass and bin-score evaluators are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import re
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..data.dataset import Column
 from ..device import DeviceLike, resolve_device
-from ..models.prediction import (positive_score_of, prediction_of,
-                                 probability_of)
+from ..models.prediction import (n_classes_of, positive_score_of,
+                                 prediction_of, probability_of)
 from ..ops import metrics_ops as M
+
+# metric name of a top-N hit rate, e.g. "top_1_accuracy"
+_TOP_N_RE = re.compile(r"^top_(\d+)_accuracy$")
 
 _SMALLER_BETTER = {"error", "rmse", "mse", "mae", "log_loss", "brier_score"}
 
@@ -161,6 +169,106 @@ class BinaryClassificationEvaluator(Evaluator):
         }
 
 
+class BinScoreEvaluator(Evaluator):
+    """Calibration bins and the Brier score of the positive-class score
+    (reference OpBinScoreEvaluator.scala), on the host."""
+
+    name = "binScoreEval"
+    default_metric = "brier_score"
+
+    def __init__(self, num_bins: int = 100, metric: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(metric, device)
+        self.num_bins = num_bins
+
+    def evaluate_all(self, labels, pred_col: Column, w=None
+                     ) -> Dict[str, Any]:
+        score = np.asarray(positive_score_of(pred_col), np.float64)
+        y = np.asarray(labels, np.float64)
+        if w is None:
+            w = np.ones_like(y)
+        brier = float((w * (score - y) ** 2).sum() / max(w.sum(), 1e-12))
+        bins = np.clip((score * self.num_bins).astype(int), 0,
+                       self.num_bins - 1)
+        counts = np.bincount(bins, weights=w, minlength=self.num_bins)
+        avg_score = np.bincount(bins, weights=w * score,
+                                minlength=self.num_bins)
+        avg_label = np.bincount(bins, weights=w * y, minlength=self.num_bins)
+        nz = counts > 0
+        avg_score[nz] /= counts[nz]
+        avg_label[nz] /= counts[nz]
+        return {
+            "brier_score": brier,
+            "bin_centers": list((np.arange(self.num_bins) + 0.5)
+                                / self.num_bins),
+            "bin_counts": [float(c) for c in counts],
+            "bin_avg_scores": [float(v) for v in avg_score],
+            "bin_avg_labels": [float(v) for v in avg_label],
+        }
+
+
+class MultiClassificationEvaluator(Evaluator):
+    """Weighted precision/recall/F1/error and the top-N threshold metrics
+    (reference OpMultiClassificationEvaluator.scala:58)."""
+
+    name = "multiEval"
+    default_metric = "error"
+
+    def __init__(self, metric: Optional[str] = None,
+                 top_ns: Sequence[int] = (1, 3), device: DeviceLike = None):
+        super().__init__(metric, device)
+        self.top_ns = tuple(top_ns)
+
+    def _scalar_metrics(self, labels, pred_col: Column,
+                        w=None) -> Dict[str, float]:
+        y = np.asarray(labels, np.float32)
+        pred = np.asarray(prediction_of(pred_col), np.float32)
+        n_classes = max(int(y.max()) + 1 if y.size else 1,
+                        n_classes_of(pred_col),
+                        int(pred.max()) + 1 if pred.size else 1)
+        dev = resolve_device(self.device)
+        m = M.multiclass_metrics(
+            torch.as_tensor(pred, device=dev), torch.as_tensor(y, device=dev),
+            n_classes, None if w is None else
+            torch.as_tensor(np.asarray(w, np.float32), device=dev))
+        return {k: float(v) for k, v in m._asdict().items()}
+
+    @staticmethod
+    def _top_n(y, prob, w, n: int) -> float:
+        ww = np.ones_like(y) if w is None else np.asarray(w, np.float64)
+        hit = (np.argsort(-prob, axis=1)[:, :n]
+               == y[:, None].astype(int)).any(axis=1)
+        return float((ww * hit).sum() / max(ww.sum(), 1e-12))
+
+    def evaluate(self, labels, pred_col: Column, w=None) -> float:
+        """The default metric; a top-N accuracy needs only the host's
+        argsort of the probabilities."""
+        m = _TOP_N_RE.match(self.default_metric)
+        if m:
+            prob = probability_of(pred_col)
+            if prob is None or not prob.size:
+                return float("nan")
+            return self._top_n(np.asarray(labels, np.float32), prob, w,
+                               int(m.group(1)))
+        return self._scalar_metrics(labels, pred_col, w)[self.default_metric]
+
+    def evaluate_all(self, labels, pred_col: Column, w=None
+                     ) -> Dict[str, Any]:
+        y = np.asarray(labels, np.float32)
+        prob = probability_of(pred_col)
+        out: Dict[str, Any] = self._scalar_metrics(labels, pred_col, w)
+        if prob is not None and prob.size:
+            for topn in self.top_ns:
+                out[f"top_{topn}_accuracy"] = self._top_n(y, prob, w, topn)
+            # unweighted counts, as the reference's
+            dev = resolve_device(self.device)
+            tm = M.multiclass_threshold_metrics(
+                torch.as_tensor(np.asarray(prob, np.float32), device=dev),
+                torch.as_tensor(y, device=dev), top_ns=self.top_ns)
+            out["threshold_metrics"] = tm.to_json()
+        return out
+
+
 class RegressionEvaluator(Evaluator):
     """RMSE/MSE/MAE/R2 (reference OpRegressionEvaluator.scala:61)."""
 
@@ -247,6 +355,43 @@ class Evaluators:
             return BinaryClassificationEvaluator(metric="au_roc")
 
         auROC = au_roc
+
+        @staticmethod
+        def precision() -> BinaryClassificationEvaluator:
+            return BinaryClassificationEvaluator(metric="precision")
+
+        @staticmethod
+        def recall() -> BinaryClassificationEvaluator:
+            return BinaryClassificationEvaluator(metric="recall")
+
+        @staticmethod
+        def f1() -> BinaryClassificationEvaluator:
+            return BinaryClassificationEvaluator(metric="f1")
+
+        @staticmethod
+        def error() -> BinaryClassificationEvaluator:
+            return BinaryClassificationEvaluator(metric="error")
+
+        @staticmethod
+        def brier_score() -> BinScoreEvaluator:
+            return BinScoreEvaluator()
+
+    class MultiClassification:
+        @staticmethod
+        def precision() -> MultiClassificationEvaluator:
+            return MultiClassificationEvaluator(metric="precision")
+
+        @staticmethod
+        def recall() -> MultiClassificationEvaluator:
+            return MultiClassificationEvaluator(metric="recall")
+
+        @staticmethod
+        def f1() -> MultiClassificationEvaluator:
+            return MultiClassificationEvaluator(metric="f1")
+
+        @staticmethod
+        def error() -> MultiClassificationEvaluator:
+            return MultiClassificationEvaluator(metric="error")
 
     class Regression:
         @staticmethod

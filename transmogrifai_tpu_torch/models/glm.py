@@ -1,18 +1,17 @@
 """GLM-family predictors (counterpart of models/glm.py): logistic
-regression and the linear SVC (binary), linear and generalized linear
-regression.
+regression (binary and softmax), the linear SVC, naive Bayes, linear and
+generalized linear regression.
 
 Reference wrappers: core/.../impl/classification/{OpLogisticRegression,
-OpLinearSVC}.scala, core/.../impl/regression/{OpLinearRegression,
+OpLinearSVC, OpNaiveBayes}.scala, core/.../impl/regression/{OpLinearRegression,
 OpGeneralizedLinearRegression}.scala. Param names mirror the Spark params the reference
 grids over (DefaultSelectorParams.scala:35-56). Fits run through the
 lane-batched ops/glm solvers, so the model selector fits (fold x grid)
 lanes in one call (`batched_fit_fn`) or streams them
 (`streamed_loss`, ops/glm_sweep.py; linear regression's squared loss
-takes its Gram route). Generalized linear regression has no lane-batched
-fit: the selector sweeps it through the validator's sequential route.
-Softmax (multiclass) logistic regression and naive Bayes come with the
-multiclass slice.
+takes its Gram route); a multiclass sweep fits softmax lanes. Generalized
+linear regression and naive Bayes have no lane-batched fit: the selector
+sweeps them through the validator's sequential route.
 """
 from __future__ import annotations
 
@@ -62,6 +61,65 @@ class LinearBinaryModel(PredictionModel):
         return d
 
 
+def _softmax_rows(raw: torch.Tensor) -> torch.Tensor:
+    e = torch.exp(raw - raw.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
+
+class SoftmaxModel(PredictionModel):
+    """Multinomial logistic scorer: logits X B + b0 [n, c], computed on the
+    model's device; results are numpy."""
+
+    def __init__(self, B: np.ndarray, b0: np.ndarray,
+                 operation_name: str = "softmax", uid: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(operation_name, uid=uid, device=device)
+        self.B = np.array(B, np.float32)
+        self.b0 = np.array(b0, np.float32)
+
+    def predict_arrays(self, X):
+        dev = resolve_device(self.device)
+        logits = (to_device(X, dev, label="predict")
+                  @ torch.as_tensor(self.B, device=dev)
+                  + torch.as_tensor(self.b0, device=dev)[None, :])
+        logits = logits - logits.amax(dim=1, keepdim=True)
+        prob = _softmax_rows(logits)
+        pred = prob.argmax(dim=1).to(torch.float32)
+        return pred.cpu().numpy(), logits.cpu().numpy(), prob.cpu().numpy()
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        d.update(B=self.B.tolist(), b0=self.b0.tolist())
+        return d
+
+
+class NaiveBayesModel(PredictionModel):
+    """Multinomial naive Bayes scorer: raw max(X, 0) log_prob^T + log_prior
+    [n, c] on the model's device; results are numpy."""
+
+    def __init__(self, log_prob: np.ndarray, log_prior: np.ndarray,
+                 operation_name: str = "nb", uid: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(operation_name, uid=uid, device=device)
+        self.log_prob = np.array(log_prob, np.float32)
+        self.log_prior = np.array(log_prior, np.float32)
+
+    def predict_arrays(self, X):
+        dev = resolve_device(self.device)
+        raw = (torch.clamp(to_device(X, dev, label="predict"), min=0.0)
+               @ torch.as_tensor(self.log_prob, device=dev).T
+               + torch.as_tensor(self.log_prior, device=dev)[None, :])
+        prob = _softmax_rows(raw)
+        pred = raw.argmax(dim=1).to(torch.float32)
+        return pred.cpu().numpy(), raw.cpu().numpy(), prob.cpu().numpy()
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        d.update(log_prob=self.log_prob.tolist(),
+                 log_prior=self.log_prior.tolist())
+        return d
+
+
 class LinearRegressionModel(PredictionModel):
     """Linear predictor with the identity or the log link (generalized
     linear regression's poisson and gamma families). The products run on
@@ -95,11 +153,8 @@ def _weights(y: torch.Tensor, w) -> torch.Tensor:
         torch.as_tensor(w, dtype=torch.float32, device=y.device)
 
 
-def _binary_only(y: torch.Tensor, name: str) -> None:
-    if y.numel() and int(y.max()) > 1:
-        raise NotImplementedError(
-            f"multiclass {name} is not ported yet: this slice fits binary "
-            "problems")
+def _one_hot(y: torch.Tensor, n_classes: int) -> torch.Tensor:
+    return torch.nn.functional.one_hot(y.long(), n_classes).to(torch.float32)
 
 
 # the selector's lane-batched fit: fit_one(X [n, d], y [n], w [L, n],
@@ -109,6 +164,16 @@ def _batched_logistic(max_iter, fit_intercept, standardize):
         return G.fit_logistic(X, y, w, reg, alpha, max_iter=max_iter,
                               fit_intercept=fit_intercept,
                               standardize=standardize)
+    return fit_one
+
+
+def _batched_softmax(max_iter, fit_intercept, standardize, n_classes):
+    """The multiclass fit_one: the binary closure's signature, the labels
+    one-hot inside; returns (B [L, d, c], b0 [L, c])."""
+    def fit_one(X, y, w, reg, alpha):
+        return G.fit_softmax(X, _one_hot(y, n_classes), w, reg, alpha,
+                             max_iter=max_iter, fit_intercept=fit_intercept,
+                             standardize=standardize)
     return fit_one
 
 
@@ -129,11 +194,13 @@ def _batched_linear(max_iter, fit_intercept, standardize):
 
 
 class OpLogisticRegression(PredictorEstimator):
-    """Reference OpLogisticRegression (impl/classification/, 212 LoC),
-    binary."""
+    """Reference OpLogisticRegression (impl/classification/, 212 LoC):
+    binary logistic regression, softmax from three classes on (at most 30
+    iterations, as the reference's)."""
 
-    problem_types = ("binary",)
+    problem_types = ("binary", "multiclass")
     supports_grid_vmap = True
+    supports_multiclass_vmap = True
     # large binary sweeps stream ALL (fold x grid) lanes through shared
     # X passes (ops/glm_sweep.py); the round driver retires each lane at
     # its OWN delta <= tol — the stopping rule of fit_arrays' solver
@@ -154,35 +221,52 @@ class OpLogisticRegression(PredictorEstimator):
                  **params):
         super().__init__("logreg", uid=uid, device=device, **params)
 
-    def fit_arrays(self, X, y, w=None) -> LinearBinaryModel:
+    def _softmax_iters(self) -> int:
+        return min(int(self.get_param("max_iter")), 30)
+
+    def fit_arrays(self, X, y, w=None):
         dev = resolve_device(self.device)
         yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
-        _binary_only(yd, "logistic regression (softmax)")
+        n_classes = int(yd.max()) + 1 if yd.numel() else 2
+        Xd = to_device(X, dev, label="fit")
+        reg = float(self.get_param("reg_param"))
+        alpha = float(self.get_param("elastic_net_param"))
+        fit_intercept = bool(self.get_param("fit_intercept"))
+        standardize = bool(self.get_param("standardization"))
+        if n_classes > 2:
+            B, b0 = G.fit_softmax(
+                Xd, _one_hot(yd, n_classes), _weights(yd, w), reg, alpha,
+                max_iter=self._softmax_iters(), fit_intercept=fit_intercept,
+                standardize=standardize)
+            return self.model_from_params(B.cpu().numpy(), b0.cpu().numpy())
         beta, b0 = G.fit_logistic(
-            to_device(X, dev, label="fit"), yd,
-            _weights(yd, w), float(self.get_param("reg_param")),
-            float(self.get_param("elastic_net_param")),
+            Xd, yd, _weights(yd, w), reg, alpha,
             max_iter=int(self.get_param("max_iter")),
-            tol=float(self.get_param("tol")),
-            fit_intercept=bool(self.get_param("fit_intercept")),
-            standardize=bool(self.get_param("standardization")))
-        return LinearBinaryModel(beta.cpu().numpy(), float(b0),
-                                 probabilistic=True,
-                                 operation_name=self.operation_name,
-                                 device=self.device)
+            tol=float(self.get_param("tol")), fit_intercept=fit_intercept,
+            standardize=standardize)
+        return self.model_from_params(beta.cpu().numpy(), float(b0))
 
     def batched_fit_fn(self, n_classes: int = 2):
+        """The lane fit of the selector's sweep; from three classes on the
+        softmax lanes, with the same closure signature."""
         if n_classes > 2:
-            raise NotImplementedError(
-                "the multiclass (softmax) lane fit is not ported yet")
-        fit_one = _batched_logistic(
-            int(self.get_param("max_iter")),
-            bool(self.get_param("fit_intercept")),
-            bool(self.get_param("standardization")))
+            fit_one = _batched_softmax(
+                self._softmax_iters(), bool(self.get_param("fit_intercept")),
+                bool(self.get_param("standardization")), int(n_classes))
+        else:
+            fit_one = _batched_logistic(
+                int(self.get_param("max_iter")),
+                bool(self.get_param("fit_intercept")),
+                bool(self.get_param("standardization")))
         return fit_one, ("reg_param", "elastic_net_param")
 
-    def model_from_params(self, beta, b0) -> LinearBinaryModel:
-        return LinearBinaryModel(np.asarray(beta), float(b0),
+    def model_from_params(self, beta, b0):
+        beta = np.asarray(beta)
+        if beta.ndim == 2:          # a softmax fit: B [d, c], b0 [c]
+            return SoftmaxModel(beta, np.asarray(b0),
+                                operation_name=self.operation_name,
+                                device=self.device)
+        return LinearBinaryModel(beta, float(b0),
                                  probabilistic=True,
                                  operation_name=self.operation_name,
                                  device=self.device)
@@ -216,7 +300,8 @@ class OpLinearSVC(PredictorEstimator):
     def fit_arrays(self, X, y, w=None) -> LinearBinaryModel:
         dev = resolve_device(self.device)
         yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
-        _binary_only(yd, "linear SVC")
+        if yd.numel() and int(yd.max()) > 1:
+            raise ValueError("the linear SVC is binary, as Spark's LinearSVC")
         beta, b0 = G.fit_linear_svc(
             to_device(X, dev, label="fit"), yd,
             _weights(yd, w), float(self.get_param("reg_param")),
@@ -240,6 +325,33 @@ class OpLinearSVC(PredictorEstimator):
                                  probabilistic=False,
                                  operation_name=self.operation_name,
                                  device=self.device)
+
+
+class OpNaiveBayes(PredictorEstimator):
+    """Reference OpNaiveBayes (multinomial; 112 LoC), binary and
+    multiclass: the selector sweeps it through the sequential route."""
+
+    problem_types = ("binary", "multiclass")
+
+    @classmethod
+    def _declare_params(cls):
+        return [Param("smoothing", "Laplace smoothing", 1.0)]
+
+    def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
+                 **params):
+        super().__init__("naiveBayes", uid=uid, device=device, **params)
+
+    def fit_arrays(self, X, y, w=None) -> NaiveBayesModel:
+        dev = resolve_device(self.device)
+        yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        n_classes = max(int(yd.max()) + 1 if yd.numel() else 2, 2)
+        log_prob, log_prior = G.fit_naive_bayes(
+            to_device(X, dev, label="fit"), _one_hot(yd, n_classes),
+            _weights(yd, w), float(self.get_param("smoothing")))
+        return NaiveBayesModel(log_prob.cpu().numpy(),
+                               log_prior.cpu().numpy(),
+                               operation_name=self.operation_name,
+                               device=self.device)
 
 
 class OpLinearRegression(PredictorEstimator):

@@ -9,9 +9,10 @@ XGBoost params the reference grids over. Every fit runs through the
 level-wise grower of ops/trees.py on the four tree kernels: the model
 selector's sweep fits every CV fold of a grid point as a lane of one fit
 over one binned matrix (`mask_fit_scores`), and the refit is the same fit
-with one lane. Softmax (multiclass) boosting and multiclass forests, whose
-histograms need more channels than the kernels take, come with the
-multiclass slice; the config-fused grid route comes later.
+with one lane. A K-class forest's lanes carry K + 2 histogram channels;
+multiclass XGBoost grows each round's K class trees as K lanes of one fit
+(`SoftmaxEnsembleModel`); Spark's GBT stays binary. The config-fused grid
+route comes later.
 """
 from __future__ import annotations
 
@@ -24,9 +25,6 @@ from ..device import DeviceLike, resolve_device, to_device
 from ..ops import trees as T
 from ..stages.params import Param
 from .base import PredictionModel, PredictorEstimator, stable_sigmoid
-
-_MULTICLASS = ("multiclass {what} is not ported yet: it comes with the "
-               "multiclass slice")
 
 
 class TreeEnsembleModel(PredictionModel):
@@ -95,6 +93,49 @@ class TreeEnsembleModel(PredictionModel):
         d.update(feat=self.feat, thresh_val=self.thresh_val, leaf=self.leaf,
                  miss=self.miss, depth=self.depth, mode=self.mode,
                  base=self.base, n_classes=self.n_classes)
+        return d
+
+
+class SoftmaxEnsembleModel(PredictionModel):
+    """Multiclass boosted ensemble (reference SoftmaxEnsembleModel): trees
+    round-major, [rounds * n_classes, ...], class c's trees at c::n_classes
+    with one-channel leaves; class margins are their payload sums, traversed
+    on the model's device; probabilities their softmax."""
+
+    def __init__(self, feat: np.ndarray, thresh_val: np.ndarray,
+                 leaf: np.ndarray, depth: int, n_classes: int,
+                 miss: Optional[np.ndarray] = None,
+                 operation_name: str = "xgbSoftmax",
+                 uid: Optional[str] = None, device: DeviceLike = None):
+        super().__init__(operation_name, uid=uid, device=device)
+        self.feat = np.array(feat, np.int32)
+        self.thresh_val = np.array(thresh_val, np.float32)
+        self.leaf = np.array(leaf, np.float32)
+        self.miss = (np.zeros_like(self.feat) if miss is None
+                     else np.array(miss, np.int32))
+        self.depth = int(depth)
+        self.n_classes = int(n_classes)
+
+    def predict_arrays(self, X):
+        dev = resolve_device(self.device)
+        Xd = to_device(X, dev, label="predict")
+        C = self.n_classes
+
+        def part(a, c):
+            return torch.as_tensor(np.ascontiguousarray(a[c::C]), device=dev)
+        margins = torch.stack([T.predict_ensemble(
+            part(self.feat, c), part(self.thresh_val, c),
+            part(self.leaf, c), Xd, self.depth,
+            miss=part(self.miss, c))[:, 0] for c in range(C)], dim=1)
+        e = torch.exp(margins - margins.amax(dim=1, keepdim=True))
+        prob = e / e.sum(dim=1, keepdim=True)
+        pred = prob.argmax(dim=1).to(torch.float32)
+        return pred.cpu().numpy(), margins.cpu().numpy(), prob.cpu().numpy()
+
+    def save_args(self) -> Dict[str, Any]:
+        d = super().save_args()
+        d.update(feat=self.feat, thresh_val=self.thresh_val, leaf=self.leaf,
+                 miss=self.miss, depth=self.depth, n_classes=self.n_classes)
         return d
 
 
@@ -235,11 +276,10 @@ class _ForestBase(_TreeEstimator):
         """[F, n] scores: every fold of this grid point as a lane of one
         forest fit against the shared binned matrix (masks [F, n], 1 =
         train); the folds share the bootstrap and the feature subsets.
-        Classifiers return the margin log(p1 / (1 - p1)) of the averaged
-        class distribution (p1 clipped to [1e-7, 1 - 1e-7]), regressors the
+        Binary classifiers return the margin log(p1 / (1 - p1)) of the
+        averaged class distribution (p1 clipped to [1e-7, 1 - 1e-7]),
+        multiclass ones the distribution itself [F, n, c], regressors the
         averaged value, as the reference's sweep scores them."""
-        if multiclass or n_classes > 2:
-            raise NotImplementedError(_MULTICLASS.format(what="forests"))
         Xb, _, n_bins, store = ctx
         kw = self._forest_kw(Xb.shape[1])
         W = masks * w[None, :]
@@ -251,6 +291,8 @@ class _ForestBase(_TreeEstimator):
             return agg[:, 0] / kw["n_trees"]
         prob = torch.clamp(agg / kw["n_trees"], min=0.0)
         prob = prob / torch.clamp(prob.sum(dim=1, keepdim=True), min=1e-12)
+        if multiclass:
+            return prob.transpose(1, 2)
         p1 = torch.clamp(prob[:, 1], 1e-7, 1.0 - 1e-7)
         return torch.log(p1 / (1.0 - p1))
 
@@ -266,8 +308,8 @@ class _ForestBase(_TreeEstimator):
 
 
 class OpRandomForestClassifier(_ForestBase):
-    """Reference OpRandomForestClassifier (impl/classification/): binary
-    here; multiclass forests come with the multiclass slice."""
+    """Reference OpRandomForestClassifier (impl/classification/), binary
+    and multiclass: K classes grow with K + 2 histogram channels."""
 
     problem_types = ("binary", "multiclass")
     classification = True
@@ -280,8 +322,6 @@ class OpRandomForestClassifier(_ForestBase):
     def fit_arrays(self, X, y, w=None) -> TreeEnsembleModel:
         y = np.asarray(y)
         n_classes = max(int(np.max(y)) + 1 if y.size else 2, 2)
-        if n_classes > 2:
-            raise NotImplementedError(_MULTICLASS.format(what="forests"))
         frozen = self._fit_forest(X, y, w, n_classes)
         return TreeEnsembleModel(depth=int(self.get_param("max_depth")),
                                  mode="classify_mean", n_classes=n_classes,
@@ -381,7 +421,8 @@ class _GBTBase(_TreeEstimator):
         """[F, n] margins (classifier) or values (regressor): every fold of
         this grid point as a lane of one boosted fit."""
         if multiclass:
-            raise NotImplementedError(_MULTICLASS.format(what="boosting"))
+            raise ValueError("Spark's GBT is binary: it takes no "
+                             "multiclass sweep")
         Xb, _, n_bins, _ = ctx
         _, _, margins = T.fit_gbt_folds(
             Xb, y, masks * w[None, :], n_bins=n_bins, loss=self._loss,
@@ -465,47 +506,76 @@ class _XGBBase(_TreeEstimator):
             colsample_bylevel=float(self.get_param("colsample_bylevel")),
             base_score=None if base_score is None else float(base_score))
 
-    def _apply_spw(self, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def _apply_spw(self, y: torch.Tensor, w: torch.Tensor,
+                   multiclass: bool = False) -> torch.Tensor:
         """scale_pos_weight: multiply positive-class weights — for the
-        logistic objective exactly xgboost's g/h scaling of positive rows."""
+        logistic objective exactly xgboost's g/h scaling of positive rows;
+        a multiclass fit has no positive class."""
         spw = float(self.get_param("scale_pos_weight"))
-        if spw == 1.0 or self._regression:
+        if spw == 1.0 or self._regression or multiclass:
             return w
         return w * torch.where(y == 1, spw, 1.0).to(torch.float32)
 
+    def _check_multiclass_params(self) -> None:
+        if self.get_param("base_score") is not None:
+            # softmax boosting has no scalar prior: dropping the param in
+            # silence would ignore it
+            raise ValueError(
+                "base_score is only supported for binary/regression "
+                "xgboost fits (softmax margins start at 0, matching "
+                "xgboost multi:softprob)")
+
+    def _softmax_kw(self) -> Dict[str, Any]:
+        self._check_multiclass_params()
+        return {k: v for k, v in self._common().items() if k != "base_score"}
+
     def mask_fit_scores(self, ctx, y, w, masks, n_classes: int = 2,
                         multiclass: bool = False) -> torch.Tensor:
-        """[F, n] margins (classifier) or values (regressor): every fold of
-        this grid point in one fold-fused fit against the shared binned
-        matrix (masks [F, n] 1 = train)."""
-        if multiclass and not self._regression:
-            raise NotImplementedError(_MULTICLASS.format(what="boosting"))
+        """[F, n] margins (binary classifier) or values (regressor), [F, n,
+        c] class margins (multiclass): every fold of this grid point in one
+        fold-fused fit against the shared binned matrix (masks [F, n] 1 =
+        train)."""
         Xb, _, n_bins, _ = ctx
-        w = self._apply_spw(y, w)
+        multiclass = multiclass and not self._regression
+        W = masks * self._apply_spw(y, w, multiclass)[None, :]
+        if multiclass:
+            _, margins = T.fit_gbt_softmax_folds(
+                Xb, y, W, n_bins=n_bins, n_classes=n_classes,
+                generator=self._key(Xb.device), **self._softmax_kw())
+            return margins
         _, _, margins = T.fit_gbt_folds(
-            Xb, y, masks * w[None, :], n_bins=n_bins, loss=self._loss,
+            Xb, y, W, n_bins=n_bins, loss=self._loss,
             generator=self._key(Xb.device), **self._common())
         return margins
 
-    def _fit(self, X, y, w, mode: str) -> TreeEnsembleModel:
+    def _fit(self, X, y, w, mode: str) -> PredictionModel:
         Xd, yd, wd = self._device_arrays(X, y, w)
-        if not self._regression and yd.numel() and int(yd.max()) > 1:
-            raise NotImplementedError(_MULTICLASS.format(what="boosting"))
-        return self._fit_boosted(Xd, yd, self._apply_spw(yd, wd), mode,
-                                 self._loss, self._common())
+        n_classes = int(yd.max()) + 1 if yd.numel() else 2
+        if self._regression or n_classes <= 2:
+            return self._fit_boosted(Xd, yd, self._apply_spw(yd, wd), mode,
+                                     self._loss, self._common())
+        kw = self._softmax_kw()
+        Xb, edges, n_bins = self._bin(Xd)
+        trees = T.fit_gbt_softmax(Xb, yd, wd, n_bins=n_bins,
+                                  n_classes=n_classes,
+                                  generator=self._key(Xb.device), **kw)
+        return SoftmaxEnsembleModel(depth=kw["depth"], n_classes=n_classes,
+                                    operation_name=self.operation_name,
+                                    device=self.device,
+                                    **self._freeze(trees, edges))
 
 
 class OpXGBoostClassifier(_XGBBase):
-    """Reference OpXGBoostClassifier (JNI -> libxgboost): binary logistic,
-    histogram algorithm; softprob comes with the multiclass slice."""
+    """Reference OpXGBoostClassifier (JNI -> libxgboost): binary logistic
+    or multiclass softprob, histogram algorithm."""
 
-    problem_types = ("binary",)
+    problem_types = ("binary", "multiclass")
 
     def __init__(self, uid: Optional[str] = None, device: DeviceLike = None,
                  **params):
         super().__init__("xgbClassifier", uid=uid, device=device, **params)
 
-    def fit_arrays(self, X, y, w=None) -> TreeEnsembleModel:
+    def fit_arrays(self, X, y, w=None) -> PredictionModel:
         return self._fit(X, y, w, "margin")
 
 

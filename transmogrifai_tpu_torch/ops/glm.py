@@ -1,11 +1,12 @@
 """Generalized-linear-model solvers in PyTorch (counterpart of ops/glm.py).
 
-Binary logistic regression (IRLS-Newton with a proximal L1 step), the
+Binary logistic regression (IRLS-Newton with a proximal L1 step),
+multinomial (softmax) logistic regression under Boehning's bound, the
 linear SVC (squared hinge, Newton on the active set), linear regression
-(squared loss, elastic net) and generalized linear regression (IRLS,
-gaussian / poisson / gamma), as the reference's OpLogisticRegression /
-OpLinearSVC / OpLinearRegression / OpGeneralizedLinearRegression wrappers
-fit them. `ridge_gram_solve` and `prox_newton_gram` solve squared-loss
+(squared loss, elastic net), generalized linear regression (IRLS,
+gaussian / poisson / gamma) and multinomial naive Bayes, as the
+reference's OpLogisticRegression / OpLinearSVC / OpLinearRegression /
+OpGeneralizedLinearRegression / OpNaiveBayes wrappers fit them. `ridge_gram_solve` and `prox_newton_gram` solve squared-loss
 lanes from their sufficient statistics (the Gram route of
 ops/glm_sweep.py). Every solver takes
 per-row weights, so fold masks enter as weights and no data moves between
@@ -317,6 +318,84 @@ def prox_newton_gram(Gm: torch.Tensor, cm: torch.Tensor, sx: torch.Tensor,
         beta, b0 = beta_new, b0_new
         i += 1
     return beta, b0, i
+
+
+def fit_softmax(X: torch.Tensor, Y: torch.Tensor, w: torch.Tensor, reg,
+                elastic_net, max_iter: int = 100, fit_intercept: bool = True,
+                standardize: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multinomial logistic regression; Y one-hot [n, c].
+
+    Boehning's (1992) bound H <= 0.5 (1 - 1/c) X^T W X for every class block
+    makes the preconditioner A = 0.5 (1 - 1/c) X^T W X / sum(w) + l2 I
+    (+1e-6 I) constant: it is Cholesky-factored once, and each of the
+    `max_iter` iterations (no tolerance: the count is fixed) is products
+    and triangular solves, with L1 by a proximal step against A's diagonal
+    and an unpenalized intercept step. `w` [n] with scalar penalties
+    returns (B [d, c], b0 [c]); `w` [L, n] with [L] (or scalar) penalties
+    returns L fits, ([L, d, c], [L, c]), each standardized with its own
+    weights."""
+    f32 = torch.float32
+    X = X.to(f32)
+    n, d = X.shape
+    Y = Y.to(device=X.device, dtype=f32)
+    c = Y.shape[1]
+    w, reg, alpha, single = _lanes(X, w, reg, elastic_net)
+    L = w.shape[0]
+    if standardize:
+        Xs, mean, std = _standardize(X, w[0] if single else w)
+    else:
+        Xs = X
+    wsum = torch.clamp(w.sum(-1), min=EPS)                     # [L]
+    l2 = (reg * (1.0 - alpha))[:, None, None]
+    l1 = (reg * alpha)[:, None, None]
+    eye = torch.eye(d, dtype=f32, device=X.device)
+    coef = 0.5 * (1.0 - 1.0 / c)
+    # the preconditioner's Gram in float64, lane by lane: a one-hot group's
+    # standardized columns are collinear, so only l2 keeps A positive
+    # definite, and an f32 sum over hundreds of thousands of rows (cuBLAS's
+    # on the card) errs by more than the smallest l2 of the default grid
+    lanes_x = Xs if Xs.dim() == 3 else Xs.expand(L, n, d)
+    gram = torch.stack([((x.double() * wl[:, None]).T @ x.double()).to(f32)
+                        for x, wl in zip(lanes_x, w.double())])
+    A = coef * gram / wsum[:, None, None] + l2 * eye + 1e-6 * eye
+    chol = torch.linalg.cholesky(A)
+    hdiag = torch.clamp(torch.diagonal(A, dim1=1, dim2=2), min=EPS)
+    h0 = torch.clamp(coef * w.sum(-1) / wsum, min=1e-6)        # [L]
+    XsT = Xs.transpose(-1, -2)
+    B = torch.zeros((L, d, c), dtype=f32, device=X.device)
+    b0 = torch.zeros((L, c), dtype=f32, device=X.device)
+    for _ in range(int(max_iter)):
+        P = torch.softmax(torch.matmul(Xs, B) + b0[:, None, :], dim=-1)
+        R = (P - Y) * w[..., None]                              # [L, n, c]
+        G = torch.matmul(XsT, R) / wsum[:, None, None] + l2 * B
+        B = _soft_threshold(B - torch.cholesky_solve(G, chol),
+                            l1 / hdiag[..., None])
+        if fit_intercept:
+            b0 = b0 - (R.sum(1) / wsum[:, None]) / h0[:, None]
+    if standardize:
+        B = B / std.reshape(-1, d, 1)
+        b0 = b0 - (B * mean.reshape(-1, d, 1)).sum(1)
+    return (B[0], b0[0]) if single else (B, b0)
+
+
+def fit_naive_bayes(X: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
+                    smoothing: float = 1.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multinomial naive Bayes (Spark NaiveBayes, modelType multinomial) on
+    the positive part of the features. Y one-hot [n, c]. Returns (log_prob
+    [c, d], log_prior [c])."""
+    f32 = torch.float32
+    X = X.to(f32)
+    Y = Y.to(device=X.device, dtype=f32)
+    w_ = w.to(device=X.device, dtype=f32)[:, None]
+    class_count = (Y * w_).sum(0)                               # [c]
+    feat_count = Y.T @ (torch.clamp(X, min=0.0) * w_)           # [c, d]
+    log_prior = (torch.log(torch.clamp(class_count, min=EPS))
+                 - torch.log(torch.clamp(class_count.sum(), min=EPS)))
+    num = feat_count + smoothing
+    den = feat_count.sum(1, keepdim=True) + smoothing * X.shape[1]
+    return torch.log(num) - torch.log(den), log_prior
 
 
 GLR_FAMILIES = ("gaussian", "poisson", "gamma")

@@ -9,11 +9,14 @@ launch over all lanes (the lane is the slot axis), no sort. Every function
 takes row weights, so fold masks cost nothing. `binary_metrics` adds the thresholded metrics
 (precision, recall, F1, error, confusion counts) the evaluators report.
 `regression_metrics` gives RMSE, MSE, MAE and R2, weighted, for one lane or
-for lanes along the leading axes.
+for lanes along the leading axes. `multiclass_metrics` gives the weighted
+precision, recall, F1 and error from one confusion-matrix product, and
+`multiclass_threshold_metrics` the top-N counts per threshold of the
+reference's multiclass evaluator.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -149,6 +152,123 @@ def binary_metrics(scores: torch.Tensor, labels: torch.Tensor,
         au_roc=au_roc(scores, labels, w), au_pr=au_pr(scores, labels, w),
         precision=precision, recall=recall, f1=f1, error=error,
         tp=tp, tn=tn, fp=fp, fn=fn)
+
+
+class MultiMetrics(NamedTuple):
+    precision: torch.Tensor  # weighted by each true class's share
+    recall: torch.Tensor
+    f1: torch.Tensor
+    error: torch.Tensor
+
+
+def multiclass_metrics(pred: torch.Tensor, labels: torch.Tensor,
+                       n_classes: int,
+                       w: Optional[torch.Tensor] = None) -> MultiMetrics:
+    """Weighted precision, recall, F1 and error from predicted and true
+    class ids: the confusion matrix [true, pred] is one product of the
+    row-weighted true one-hot with the predicted one-hot; the per-class
+    values are averaged with each true class's weight share."""
+    if w is None:
+        w = torch.ones(pred.shape, dtype=torch.float32, device=pred.device)
+    P = torch.nn.functional.one_hot(pred.long(), n_classes).to(w.dtype)
+    Y = torch.nn.functional.one_hot(labels.long(), n_classes).to(w.dtype) \
+        * w[:, None]
+    conf = Y.T @ P
+    tp = torch.diagonal(conf)
+    per_pred = conf.sum(dim=0)
+    per_true = conf.sum(dim=1)
+    prec_c = tp / torch.clamp(per_pred, min=EPS)
+    rec_c = tp / torch.clamp(per_true, min=EPS)
+    f1_c = 2 * prec_c * rec_c / torch.clamp(prec_c + rec_c, min=EPS)
+    weights = per_true / torch.clamp(per_true.sum(), min=EPS)
+    return MultiMetrics(
+        precision=(prec_c * weights).sum(), recall=(rec_c * weights).sum(),
+        f1=(f1_c * weights).sum(),
+        error=1.0 - tp.sum() / torch.clamp(conf.sum(), min=EPS))
+
+
+class ThresholdMetrics(NamedTuple):
+    """Top-N correctness counts per threshold (the reference's
+    OpMultiClassificationEvaluator ThresholdMetrics). For each (top-N,
+    threshold) cell over n rows: correct, the true class's score in the top
+    N and >= threshold; incorrect, the top score >= threshold and the true
+    class not in the top N or below the threshold; no_prediction, the top
+    score below the threshold. The three [len(top_ns), T] counts sum to n
+    in every cell."""
+
+    top_ns: Tuple[int, ...]
+    thresholds: torch.Tensor            # [T]
+    correct_counts: torch.Tensor        # [len(top_ns), T] int32
+    incorrect_counts: torch.Tensor      # [len(top_ns), T] int32
+    no_prediction_counts: torch.Tensor  # [len(top_ns), T] int32
+
+    def to_json(self) -> Dict[str, object]:
+        def per_n(counts):
+            return {str(t): counts[i].tolist()
+                    for i, t in enumerate(self.top_ns)}
+        return {"top_ns": list(self.top_ns),
+                "thresholds": self.thresholds.tolist(),
+                "correct_counts": per_n(self.correct_counts),
+                "incorrect_counts": per_n(self.incorrect_counts),
+                "no_prediction_counts": per_n(self.no_prediction_counts)}
+
+
+def _threshold_counts(probs, labels, thresholds, top_ns):
+    """(correct, incorrect) [len(top_ns), T] int32 counts in one pass over
+    [n, C] scores, no sort: the true class's rank under a stable
+    descending sort is the count of strictly greater scores plus equal
+    scores at a lower class index; each row's threshold cut-off is the
+    first threshold above its score (T where none is)."""
+    C = probs.shape[1]
+    T = thresholds.shape[0]
+    lbl = labels.long()
+    valid = (lbl >= 0) & (lbl < C)
+    onehot = torch.nn.functional.one_hot(torch.where(valid, lbl, 0), C) \
+        .to(probs.dtype)
+    s_true = torch.where(valid, (probs * onehot).sum(1), 0.0)
+    s_top = probs.max(dim=1).values
+    idx = torch.arange(C, device=probs.device)[None, :]
+    rank = ((probs > s_true[:, None]).sum(1)
+            + ((probs == s_true[:, None]) & (idx < lbl[:, None])).sum(1))
+
+    def cutoff(score):
+        over = thresholds[None, :] > score[:, None]           # [n, T]
+        return torch.where(over.any(1), torch.argmax(over.to(torch.int8), 1),
+                           T)
+    k = torch.arange(T, device=probs.device)[None, :]
+    before_true = k < cutoff(s_true)[:, None]
+    before_top = k < cutoff(s_top)[:, None]
+    correct, incorrect = [], []
+    for t in top_ns:
+        in_topn = (valid & (rank < t))[:, None]
+        corr = in_topn & before_true
+        incorr = torch.where(in_topn, ~before_true & before_top, before_top)
+        correct.append(corr.sum(0, dtype=torch.int32))
+        incorrect.append(incorr.sum(0, dtype=torch.int32))
+    return torch.stack(correct), torch.stack(incorrect)
+
+
+def multiclass_threshold_metrics(probs: torch.Tensor, labels: torch.Tensor,
+                                 top_ns: Tuple[int, ...] = (1, 3),
+                                 thresholds: Optional[torch.Tensor] = None
+                                 ) -> ThresholdMetrics:
+    """Top-N threshold metrics of multiclass probabilities [n, C] (the
+    reference's calculateThresholdMetrics; thresholds 0.00 to 1.00 in steps
+    of 0.01 by default)."""
+    if thresholds is None:
+        thresholds = torch.arange(101, dtype=torch.float32,
+                                  device=probs.device) / 100.0
+    else:
+        thresholds = torch.as_tensor(thresholds, dtype=torch.float32,
+                                     device=probs.device)
+    top_ns = tuple(int(t) for t in top_ns)
+    if not top_ns or any(t <= 0 for t in top_ns):
+        raise ValueError("top_ns must be non-empty positive ints")
+    correct, incorrect = _threshold_counts(probs, labels, thresholds, top_ns)
+    return ThresholdMetrics(
+        top_ns=top_ns, thresholds=thresholds, correct_counts=correct,
+        incorrect_counts=incorrect,
+        no_prediction_counts=probs.shape[0] - correct - incorrect)
 
 
 class RegressionMetrics(NamedTuple):

@@ -25,6 +25,15 @@ width for `table_lookup`, whose F is 1).
 The port accumulates f32 payloads only: its histograms follow the JAX
 package's TMOG_HIST_BF16=0 mode. It pads no rows: the 4096-row blocks of the
 Pallas kernels are a TPU artifact.
+
+A histogram lane may carry any number of channels (a K-class forest's K
+class sums, the weight and the count: K + 2). The kernels take at most
+_GROUP_CHANNELS a lane, so a wider lane is launched as `channel_groups`
+kernel lanes: its derived count becomes a real channel, its channels are
+split into groups of equal width (zero-padded), and every group is a lane
+of the same launch with the lane's slot or node plane and split tables.
+route_hist then routes each row once per group, all alike, and returns
+the node ids of each lane's first group.
 """
 from __future__ import annotations
 
@@ -52,7 +61,7 @@ def _count_launch(name: str, n_feat: int, n_slots: int) -> None:
 
 
 _BIN_KINDS = {torch.int8: 0, torch.uint8: 1, torch.int32: 2}
-_MAX_CHANNELS = 4            # payload channels + derived count (kMaxChannels)
+_GROUP_CHANNELS = 4          # channels of one kernel lane (kMaxChannels)
 _SMEM_BLOCK_MAX = 232_448    # dynamic shared memory one block may use (H100)
 _SMEM_BUDGET = _SMEM_BLOCK_MAX // 2   # rows path: two blocks per SM
 _THREADS = 512               # rows paths (kRowThreads, route/lookup rows)
@@ -189,6 +198,14 @@ def _fm_tiles(n_feat, n_slots, channels, n_bins, itemsize, private,
     return None if best is None else (best[3], best[1], -best[2])
 
 
+def channel_groups(channels: int) -> tuple:
+    """(groups, channels a group) of a lane of `channels` cells: one group
+    up to _GROUP_CHANNELS, else the fewest groups of at most that many,
+    all of one width (the last zero-padded)."""
+    groups = -(-channels // _GROUP_CHANNELS)
+    return groups, -(-channels // groups)
+
+
 def _plan_rows(n_feat, n_slots, channels, n_bins, lanes, n_rows, n_sm,
                extra_smem):
     """Rows path: tile the [s_tile, Co, f_tile, B] f32 histogram into half
@@ -231,7 +248,12 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
     wide histograms split into slot tiles: at B = 257 each slot tile
     re-reads every row while most of its warps own no slot). A given
     `path` is forced (measurement and tests), and raises where it does not
-    fit."""
+    fit. `channels` and `lanes` are the histogram's own: a lane of more
+    than _GROUP_CHANNELS channels is planned as the launch takes it,
+    `channel_groups` lanes of fewer."""
+    if channels > _GROUP_CHANNELS:
+        groups, channels = channel_groups(channels)
+        lanes *= groups
     n_tables = n_slots if route else 0
     fit = {p: _fm_tiles(n_feat, n_slots, channels, n_bins, itemsize,
                         p == "private", n_tables) for p in PATHS[1:]}
@@ -401,14 +423,39 @@ def _check_tables(f_lvl, t_lvl, m_lvl, lanes: int, n_nodes: int) -> None:
 
 
 def _lane_channels(pay_t: torch.Tensor, lanes: int, derive_count: bool) -> int:
-    if pay_t.shape[0] % lanes:
+    if lanes < 1 or pay_t.shape[0] % lanes:
         raise ValueError(f"pay_t channels {pay_t.shape[0]} not a multiple of "
                          f"{lanes} lanes")
     C = pay_t.shape[0] // lanes
-    if C < 1 or C + int(derive_count) > _MAX_CHANNELS:
-        raise ValueError(f"{C} payload channels per lane: the kernels take "
-                         f"1..{_MAX_CHANNELS - int(derive_count)}")
+    if C < 1:
+        raise ValueError("a lane needs at least one payload channel")
     return C
+
+
+def _grouped(pay_t, plane, lanes: int, C: int, derive_count: bool):
+    """The launch inputs of lanes wider than _GROUP_CHANNELS: (payload
+    [lanes * groups * width, N], plane [lanes * groups, N], groups, width);
+    the count channel made real, each group a lane of its own."""
+    N = pay_t.shape[1]
+    p = pay_t.reshape(lanes, C, N)
+    if derive_count:
+        p = torch.cat([p, (p[:, C - 1:C] > 0).to(p.dtype)], dim=1)
+    Co = p.shape[1]
+    groups, width = channel_groups(Co)
+    if groups * width > Co:
+        p = torch.cat([p, p.new_zeros(lanes, groups * width - Co, N)], dim=1)
+    return (p.reshape(-1, N), plane.repeat_interleave(groups, dim=0),
+            groups, width)
+
+
+def _ungrouped(hist, lanes: int, groups: int, width: int, n_slots: int,
+               Co: int) -> torch.Tensor:
+    """A grouped launch's histograms back in the lane's layout [lanes *
+    n_slots * Co, F * B]."""
+    FB = hist.shape[1]
+    return (hist.reshape(lanes, groups, n_slots, width, FB).transpose(1, 2)
+            .reshape(lanes, n_slots, groups * width, FB)[:, :, :Co]
+            .reshape(lanes * n_slots * Co, FB))
 
 
 # -- B1: multi-lane gradient histograms --------------------------------------
@@ -475,20 +522,27 @@ def hist_folds(Xb_t: torch.Tensor, pay_t: torch.Tensor, slot_t: torch.Tensor,
                                 n_bins=n_bins, derive_count=derive_count)
     lib = _build.library()
     Co = C + int(derive_count)
-    out = torch.zeros((Fo * n_slots * Co, F * n_bins), dtype=torch.float32,
-                      device=Xb_t.device)
     if N == 0:
-        return out
+        return torch.zeros((Fo * n_slots * Co, F * n_bins),
+                           dtype=torch.float32, device=Xb_t.device)
     tl = plan_hist(F, n_slots, Co, n_bins, Fo, N, _n_sm(Xb_t.device),
                    itemsize=Xb_t.element_size(), path=path)
+    groups, lanes, derive = 1, Fo, int(derive_count)
+    if Co > _GROUP_CHANNELS:
+        pay_t, slot_t, groups, C = _grouped(pay_t, slot_t, Fo, C,
+                                            derive_count)
+        lanes, derive = Fo * groups, 0
+    out = torch.zeros((lanes * n_slots * (C + derive), F * n_bins),
+                      dtype=torch.float32, device=Xb_t.device)
     _build.check(lib, lib.tk_hist(
         Xb_t.data_ptr(), _BIN_KINDS[Xb_t.dtype], pay_t.data_ptr(),
-        slot_t.data_ptr(), out.data_ptr(), F, N, Fo, C, int(derive_count),
+        slot_t.data_ptr(), out.data_ptr(), F, N, lanes, C, derive,
         n_slots, n_bins, _PATH_CODES[tl.path], tl.f_tile, tl.s_tile,
         tl.copies, tl.blocks, tl.rows_per_block, tl.smem_bytes, _stream()),
         "hist_folds")
     _count_launch("hist_folds", F, n_slots)
-    return out
+    return out if groups == 1 else _ungrouped(out, Fo, groups, C, n_slots,
+                                              Co)
 
 
 # -- B3: level routing --------------------------------------------------------
@@ -577,23 +631,35 @@ def route_hist(Xb_t: torch.Tensor, pay_t: torch.Tensor, node_t: torch.Tensor,
                                 derive_count=derive_count)
     lib = _build.library()
     Co = C + int(derive_count)
-    hist = torch.zeros((Fo * n_nodes * Co, F * n_bins), dtype=torch.float32,
-                       device=Xb_t.device)
-    new_node = torch.empty_like(node_t)
     if N == 0:
-        return hist, new_node
+        return (torch.zeros((Fo * n_nodes * Co, F * n_bins),
+                            dtype=torch.float32, device=Xb_t.device),
+                torch.empty_like(node_t))
     tl = plan_hist(F, n_nodes, Co, n_bins, Fo, N, _n_sm(Xb_t.device),
                    itemsize=Xb_t.element_size(), route=True, path=path)
+    groups, lanes, derive = 1, Fo, int(derive_count)
+    if Co > _GROUP_CHANNELS:
+        pay_t, node_t, groups, C = _grouped(pay_t, node_t, Fo, C,
+                                            derive_count)
+        f_lvl, t_lvl, m_lvl = (t.repeat_interleave(groups, dim=0)
+                               for t in (f_lvl, t_lvl, m_lvl))
+        lanes, derive = Fo * groups, 0
+    hist = torch.zeros((lanes * n_nodes * (C + derive), F * n_bins),
+                       dtype=torch.float32, device=Xb_t.device)
+    new_node = torch.empty_like(node_t)
     _build.check(lib, lib.tk_route_hist(
         Xb_t.data_ptr(), _BIN_KINDS[Xb_t.dtype], pay_t.data_ptr(),
         node_t.data_ptr(), f_lvl.data_ptr(), t_lvl.data_ptr(),
-        m_lvl.data_ptr(), hist.data_ptr(), new_node.data_ptr(), F, N, Fo, C,
-        int(derive_count), n_nodes, n_bins, _PATH_CODES[tl.path], tl.f_tile,
+        m_lvl.data_ptr(), hist.data_ptr(), new_node.data_ptr(), F, N, lanes,
+        C, derive, n_nodes, n_bins, _PATH_CODES[tl.path], tl.f_tile,
         tl.s_tile, tl.copies, tl.blocks, tl.rows_per_block, tl.smem_bytes,
         _stream()),
         "route_hist")
     _count_launch("route_hist", F, n_nodes)
-    return hist, new_node
+    if groups == 1:
+        return hist, new_node
+    return (_ungrouped(hist, Fo, groups, C, n_nodes, Co),
+            new_node[::groups].contiguous())
 
 
 # -- B4: per-lane table lookup ------------------------------------------------

@@ -4,8 +4,10 @@ Quantile binning with a dedicated missing bin, and one level-wise grower,
 `_grow_tree_folds`, which grows one tree per lane over ONE binned matrix;
 every tree family is a caller of it: the fold-fused boosted fit
 `fit_gbt_folds` (XGBoost, Spark GBT; `fit_gbt` is its one-lane form), the
-random forest `fit_forest_folds` (`fit_forest`, decision trees), and the
-single tree `grow_tree`. Each level is one pass of a kernel in
+softmax boosted fit `fit_gbt_softmax_folds` (multiclass XGBoost: each
+round's class trees are lanes of one growth), the random forest
+`fit_forest_folds` (`fit_forest`, decision trees; a K-class forest's lanes
+carry K + 2 histogram channels), and the single tree `grow_tree`. Each level is one pass of a kernel in
 ops/tree_kernels.py: the root histogram (`hist_folds`), a fused route +
 next-level histogram (`route_hist`) for every mid level, the final `route`
 and the leaf `table_lookup`. The split algebra between passes (cumulative
@@ -684,6 +686,100 @@ def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
                                    depth=depth, n_bins=n_bins,
                                    generator=generator, **kw)
     return Tree(*(t[:, 0] for t in trees)), base[0]
+
+
+def _class_level_masks(generator: torch.Generator, lanes: int,
+                       n_classes: int, n_feat: int, frac: float,
+                       within: Optional[torch.Tensor],
+                       within_count: Optional[int]):
+    """Level d -> [lanes * n_classes, 2^d, F] colsample_bylevel masks, one
+    draw a class (each class tree draws its own, as the reference's
+    per-class keys), shared by the lanes (folds) of that class."""
+    def level(d: int) -> torch.Tensor:
+        per_class = torch.stack([
+            _level_feature_mask(generator, n_feat, frac, within,
+                                within_count) for _ in range(n_classes)])
+        return per_class[None, :, None, :].expand(
+            lanes, n_classes, 1 << d, n_feat).reshape(
+            lanes * n_classes, 1 << d, n_feat)
+    return level
+
+
+def fit_gbt_softmax_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
+                          *, n_rounds: int, depth: int, n_bins: int,
+                          n_classes: int, learning_rate: float = 0.1,
+                          reg_lambda: float = 1.0,
+                          min_child_weight: float = 0.0, gamma: float = 0.0,
+                          subsample: float = 1.0, feature_frac: float = 1.0,
+                          alpha: float = 0.0, max_delta_step: float = 0.0,
+                          colsample_bylevel: float = 1.0,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[Tree, torch.Tensor]:
+    """Multiclass softmax boosting (XGBoost multi:softprob) for every lane
+    (CV fold) over one binned matrix: the reference's fit_gbt_softmax,
+    whose per-round class trees grow under a vmap, here as lanes. Each
+    round's gradients g = w (p - onehot) and hessians max(w p (1 - p), EPS)
+    of the softmax of the margins (which start at 0) feed ONE
+    `_grow_tree_folds` call of Fo x K one-channel lanes (lane f * K + c is
+    fold f's class-c tree), so every level launches each kernel once for
+    every fold and class. The row subsample and the colsample_bytree mask
+    are one draw per round shared by all lanes; a colsample_bylevel mask
+    is drawn per class and level. Returns (trees [rounds, Fo, K, ...],
+    margins [Fo, N, K] of all rows, held-out rows included)."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    sampled = subsample < 1.0 or feature_frac < 1.0 or colsample_bylevel < 1.0
+    if sampled and generator is None:
+        raise ValueError("row or column subsampling needs a torch.Generator")
+    Fo, N = W.shape
+    K = int(n_classes)
+    F = Xb.shape[1]
+    dev = Xb.device
+    W = W.to(torch.float32)[:, None, :]                        # [Fo, 1, N]
+    Y = torch.nn.functional.one_hot(y.long(), K).T.to(torch.float32)[None]
+    Xb_t = Xb.T.contiguous()
+    fm_count = max(1, int(round(feature_frac * F))) \
+        if feature_frac < 1.0 else None
+    margin = torch.zeros((Fo, K, N), dtype=torch.float32, device=dev)
+    rounds = []
+    for _ in range(n_rounds):
+        p = torch.softmax(margin, dim=1)
+        g = W * (p - Y)
+        h = torch.clamp(W * p * (1.0 - p), min=EPS)
+        if subsample < 1.0:
+            rw = (torch.rand((N,), generator=generator, device=dev)
+                  < subsample).to(torch.float32)
+            g, h = g * rw, h * rw
+        fm = _feature_mask(generator, 1, F, feature_frac)[0] \
+            if feature_frac < 1.0 else None
+        node_masks = _class_level_masks(
+            generator, Fo, K, F, colsample_bylevel, fm, fm_count) \
+            if colsample_bylevel < 1.0 else None
+        tree, leaf_rows = _grow_tree_folds(
+            Xb_t, g.reshape(Fo * K, N).contiguous(),
+            h.reshape(Fo * K, N).contiguous(), depth=depth, n_bins=n_bins,
+            reg_lambda=reg_lambda, min_child_weight=min_child_weight,
+            min_instances=1.0, min_info_gain=0.0, gamma=gamma,
+            learning_rate=learning_rate, feature_mask=fm, alpha=alpha,
+            max_delta_step=max_delta_step, node_masks=node_masks)
+        margin = margin + leaf_rows.reshape(Fo, K, N)
+        rounds.append(Tree(*(t.reshape(Fo, K, *t.shape[1:]) for t in tree)))
+    trees = Tree(*(torch.stack(parts) for parts in zip(*rounds)))
+    return trees, margin.transpose(1, 2)
+
+
+def fit_gbt_softmax(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
+                    n_rounds: int, depth: int, n_bins: int, n_classes: int,
+                    generator: Optional[torch.Generator] = None,
+                    **kw) -> Tree:
+    """Softmax boosting on one fit (the reference's fit_gbt_softmax, the
+    multiclass XGBoost refit): one lane of `fit_gbt_softmax_folds`, which
+    takes the same keywords. Returns trees with leading [rounds, K] axes;
+    class c's margin is the sum of its trees' payloads."""
+    trees, _ = fit_gbt_softmax_folds(
+        Xb, y, w[None, :], n_rounds=n_rounds, depth=depth, n_bins=n_bins,
+        n_classes=n_classes, generator=generator, **kw)
+    return Tree(*(t[:, 0] for t in trees))
 
 
 # -- traversal on raw feature values -----------------------------------------
