@@ -210,8 +210,10 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+# the card's HBM bytes/s and float32 operations/s outside the tensor cores:
+# set by card_roof() from transmogrifai_tpu_torch.utils.metrics.DEVICE_ROOFS,
+# the one table the port's kernel records divide by too
+HBM_BYTES_PER_S = FP32_OPS_PER_S = None
 SOURCE = "transmogrifai_tpu_torch/csrc/tree_kernels.cu"
 KERNEL_ROWS = 2_000_000       # rows of the per-kernel checks and timings
 LANE_ROWS = 10_000_000        # route and table_lookup also at the main
@@ -243,6 +245,18 @@ COVERTYPE_CLASS_SEED = 1999   # seeds the classes' means and category shares
 COVERTYPE_LEG_ROWS = 20_000   # its CPU-and-card leg
 COVERTYPE_SCORE_ROWS = 100_000    # new rows scored before and after save/load
 COVERTYPE_CPU_LOAD_ROWS = 10_000  # rows the model loaded onto the CPU scores
+MLP_GRID_SEED = 7             # RandomParamBuilder's seed of the MLP's grid
+# an MLP fold metric CPU against card (relative to max(1, |metric|)). Adam
+# steps each weight by step_size times the sign of its gradient's running
+# mean wherever that gradient is rounding noise (a sigmoid saturated by
+# raw, unscaled inputs), so the two devices' fits part further with every
+# step: fold errors of the Covertype-shaped matrix measured up to 0.181
+# apart at 3 000 rows and 0.076 at 20 000 (3 seeds, 100 and 200 steps;
+# NVIDIA H100 80GB HBM3, 700 W). The same fits agree within 3e-6 after
+# 50 steps on well-conditioned inputs (tests/test_torch_mlp_gpu.py).
+MLP_FOLD_TOL = 0.25
+MLP_STEPS = 100               # the multiclass selector's MLP: Adam steps
+#                               (the default 200 halved for the CPU leg)
 XGB_GRID = [dict(num_round=10, max_depth=d, eta=e, reg_lambda=lam,
                  max_bins=32)
             for d in (4, 6) for e in (0.05, 0.1, 0.2, 0.3) for lam in (1.0, 5.0)]
@@ -260,7 +274,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def card_roof() -> tuple:
+    """(HBM bytes/s, f32 operations/s) of card 0 from the port's
+    DEVICE_ROOFS, set once into HBM_BYTES_PER_S and FP32_OPS_PER_S; None
+    for a card the table does not hold."""
+    global HBM_BYTES_PER_S, FP32_OPS_PER_S
+    if HBM_BYTES_PER_S is None:
+        import torch
+        from transmogrifai_tpu_torch.utils.metrics import device_roof
+        roof = device_roof(torch.cuda.get_device_name(0))
+        if roof is None:
+            return None
+        HBM_BYTES_PER_S, FP32_OPS_PER_S = roof
+    return HBM_BYTES_PER_S, FP32_OPS_PER_S
+
+
 def bound(n_bytes: float, n_ops: float):
+    card_roof()
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1524,19 +1554,25 @@ def workflow_titanic_phase(rows: int, seed: int):
     return ok, capture_launches, ti_rows
 
 
-def wide_selector(leg: bool = False):
+def wide_selector(leg: bool = False, mlp: bool = False):
     """workflow-wide's selector: 3-fold CrossValidation (the DataBalancer's
     10% holdout) over logistic regression's default grid (8 points), random
-    forests of 10 trees at depth {3, 6} and Spark GBT of 10 rounds at depth
-    4. `leg`: the CPU-against-card leg's cut of it, for the CPU's sake:
-    `lr_cut_grid()`, a forest of 5 trees at depth 3, the GBT at 3 rounds
-    of depth 3."""
+    forests of 10 trees at depth {3, 6}, Spark GBT of 10 rounds at depth 4
+    and, with `mlp`, the MLP's default grid (hidden layers [10, 10], 200
+    Adam steps; the sequential route). `leg`: the CPU-against-card leg's
+    cut of it, for the CPU's sake: `lr_cut_grid()`, a forest of 5 trees at
+    depth 3, the GBT at 3 rounds of depth 3."""
     from transmogrifai_tpu_torch.automl.selectors import (
         BinaryClassificationModelSelector, default_grid_for)
     from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.mlp import (
+        OpMultilayerPerceptronClassifier)
     from transmogrifai_tpu_torch.models.trees import (
         OpGBTClassifier, OpRandomForestClassifier)
     lr = lr_cut_grid() if leg else default_grid_for("OpLogisticRegression")
+    mlps = [(OpMultilayerPerceptronClassifier(),
+             default_grid_for("OpMultilayerPerceptronClassifier"))] \
+        if mlp else []
     return BinaryClassificationModelSelector.with_cross_validation(
         num_folds=3, seed=42, models_and_parameters=[
             (OpLogisticRegression(), lr),
@@ -1545,13 +1581,16 @@ def wide_selector(leg: bool = False):
                      min_instances_per_node=10)
                 for d in ((3,) if leg else (3, 6))]),
             (OpGBTClassifier(), [dict(max_iter=3 if leg else 10,
-                                      max_depth=3 if leg else 4)])])
+                                      max_depth=3 if leg else 4)])] + mlps)
 
 
 def wide_workflow(cols: dict, device=None, leg: bool = False):
     """(workflow, prediction) of the wide flow in the port: transmogrify ->
-    SanityChecker() -> `wide_selector(leg)` -> Workflow(device) over a
-    Dataset of `cols`."""
+    SanityChecker() -> `wide_selector(leg, mlp=not leg)` -> Workflow(device)
+    over a Dataset of `cols`. Outside the leg a second result feature
+    calibrates r1 (filled with its mean) against the label by isotonic
+    regression (`to_isotonic_calibrated`); it does not enter the
+    selector's vector."""
     from transmogrifai_tpu_torch import types as T
     from transmogrifai_tpu_torch.automl.preparators import SanityChecker
     from transmogrifai_tpu_torch.automl.transmogrifier import (
@@ -1562,9 +1601,14 @@ def wide_workflow(cols: dict, device=None, leg: bool = False):
     label, vec = wide_vector(FeatureBuilder, transmogrify,
                              TransmogrifierDefaults)
     checked = SanityChecker().set_input(label, vec).get_output()
-    pred = wide_selector(leg).set_input(label, checked).get_output()
+    pred = wide_selector(leg, mlp=not leg).set_input(label, checked) \
+        .get_output()
+    extra = [] if leg else [FeatureBuilder.Real("r1").as_predictor()
+                            .fill_missing_with_mean()
+                            .to_isotonic_calibrated(label)]
     wf = Workflow(device=device).set_input_dataset(
-        wide_dataset(cols, Dataset, Column, T)).set_result_features(pred)
+        wide_dataset(cols, Dataset, Column, T)).set_result_features(
+            pred, *extra)
     return wf, pred
 
 
@@ -1573,6 +1617,34 @@ def wide_scores(model, pred, cols: dict):
     from transmogrifai_tpu_torch.data.dataset import Column, Dataset
     return model.score(wide_dataset(cols, Dataset, Column, T)) \
         .data(pred.name)
+
+
+def isotonic_check(model) -> dict:
+    """The fitted IsotonicRegressionModel of a trained wide workflow applied
+    to its whole score column (r1 filled) on the card and on the CPU: the
+    two float64 transforms must be equal and monotone in the score. Its
+    fit's wall is the stage wall of the calibrator."""
+    import copy
+    import numpy as np
+    iso = next(st for st in model.stages
+               if type(st).__name__ == "IsotonicRegressionModel")
+    x = np.asarray(model._train_data.data(iso.input_names()[1]), np.float64)
+    t0 = time.perf_counter()
+    card = iso.apply(x)
+    card_s = time.perf_counter() - t0
+    on_cpu = copy.copy(iso)
+    on_cpu.device = "cpu"
+    t0 = time.perf_counter()
+    host = on_cpu.apply(x)
+    cpu_s = time.perf_counter() - t0
+    order = np.argsort(x, kind="stable")
+    fit_s = sum(w["seconds"] for w in model.runner.walls
+                if w["stage"].startswith("IsotonicRegressionCalibrator"))
+    return dict(rows=len(x), steps=len(iso.values), fit_s=fit_s,
+                card_transform_s=card_s, cpu_transform_s=cpu_s,
+                card_equals_cpu=bool(np.array_equal(card, host)),
+                monotone=bool((np.diff(card[order]) >= 0).all()),
+                device=str(iso.device))
 
 
 def compare_runs(a: dict, b: dict) -> dict:
@@ -1675,7 +1747,9 @@ def workflow_wide_phase(rows: int, seed: int):
     route_hist at S >= 2 too. The width of each group, each stage's fit and
     transform wall (the derivations' too), the train and score walls
     (score on `WIDE_SCORE_ROWS` new rows), each family's sweep, peak device
-    memory, the winner and the holdout AuPR against the prevalence; each
+    memory, the winner and the holdout AuPR against the prevalence, the
+    isotonic calibrator of r1 fitted on all rows (`isotonic_check`: its
+    card transform equal to its CPU transform and monotone); each
     kernel at every (kernel, F, S, C, Fo) key of train() on the inputs of
     its first launch against its plain version (rows of the kernels line,
     phase "wide"), the capture keys' launches adding up to the
@@ -1733,6 +1807,7 @@ def workflow_wide_phase(rows: int, seed: int):
     prevalence = float(cols["label"][1].mean())
     best = max(sel.validation_results, key=lambda v: v["mean_metric"])
     families = family_results(sel, selector)
+    iso = isotonic_check(model)
     model._train_data = None
     del cols
     t0 = time.perf_counter()
@@ -1799,7 +1874,7 @@ def workflow_wide_phase(rows: int, seed: int):
         peak_device_gb_train=train_peak_gb,
         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches, shape_launches=shape_launches,
-        capture_launches=capture_launches)
+        capture_launches=capture_launches, isotonic=iso)
     log("workflow-wide: " + json.dumps(res))
     by_shape = collections.Counter()
     for key, n in capture_launches.items():
@@ -1813,7 +1888,10 @@ def workflow_wide_phase(rows: int, seed: int):
           and dict(by_shape) == shape_launches
           and set(families) == {"OpLogisticRegression",
                                 "OpRandomForestClassifier",
-                                "OpGBTClassifier"}
+                                "OpGBTClassifier",
+                                "OpMultilayerPerceptronClassifier"}
+          and iso["card_equals_cpu"] and iso["monotone"]
+          and iso["rows"] == rows
           and scored.shape == (WIDE_SCORE_ROWS, 5)
           and bool(np.isfinite(scored).all())
           and best["mean_metric"] > prevalence
@@ -2432,12 +2510,17 @@ def compare_regression_runs(a: dict, b: dict, workflow_cv: bool = True,
     bcv = [v for v in bsel.validation_results
            if v.get("workflow_cv") or not workflow_cv]
     names = am._train_data.column(checked).metadata.column_names()
-    cells, apart = {}, []
+    cells, apart, mlp_apart = {}, [], []
     for x, y in zip(acv, bcv):
         if (x["model_name"], x["grid"]) != (y["model_name"], y["grid"]):
             continue
         key = f"{x['model_name']} {x['grid']}"
         cells[key] = rel_diff(x["fold_metrics"], y["fold_metrics"])
+        if x["model_name"] == "OpMultilayerPerceptronClassifier":
+            # no tree split to witness: the MLP's own bound
+            if cells[key] > MLP_FOLD_TOL:
+                mlp_apart.append(dict(cell=key, rel_diff=cells[key]))
+            continue
         for f, (p, q) in enumerate(zip(x["fold_metrics"],
                                        y["fold_metrics"])):
             d = rel_diff(p, q)
@@ -2474,7 +2557,7 @@ def compare_regression_runs(a: dict, b: dict, workflow_cv: bool = True,
         cv_cells=len(acv), same_cells=len(cells) == len(acv) == len(bcv) > 0,
         max_cell_rel_diff=max(cells.values()) if cells else None,
         cell_rel_diffs={k: v for k, v in cells.items() if v},
-        cells_apart=apart,
+        cells_apart=apart, mlp_cells_apart=mlp_apart,
         max_score_diff=float(np.abs(a["scored"] - b["scored"]).max()),
         max_score_rel_diff=rel_diff(a["scored"], b["scored"]),
         scored_rows=len(a["scored"]), witness=witness)
@@ -2484,11 +2567,11 @@ def regression_runs_agree(cmp: dict) -> bool:
     """compare_regression_runs' verdict: identical matrix, metadata and
     drops, the same winner, every CV fold metric within 1e-3 relative or,
     further apart, a tie at the first node its sweep fits split
-    differently, and the scores within 1e-5 relative or a tie at the first
+    differently (an MLP cell within MLP_FOLD_TOL), and the scores within 1e-5 relative or a tie at the first
     node the refits split differently."""
     return (cmp["matrix_identical"] and cmp["metadata_identical"]
             and cmp["same_drops"] and cmp["same_winner"]
-            and cmp["same_cells"]
+            and cmp["same_cells"] and not cmp["mlp_cells_apart"]
             and all(c["witness"] is not None and c["witness"]["tie"]
                     for c in cmp["cells_apart"])
             and (cmp["max_score_rel_diff"] <= 1e-5
@@ -2733,16 +2816,29 @@ def covertype_features():
     return label, feats
 
 
+def mlp_random_grid() -> list:
+    """The MLP's grid in workflow-multiclass: 2 points drawn by
+    RandomParamBuilder(`MLP_GRID_SEED`) over the step size (uniform in
+    [0.02, 0.2]) and the hidden layers ([10] or [10, 10])."""
+    from transmogrifai_tpu_torch.automl.random_param import (
+        RandomParamBuilder)
+    return RandomParamBuilder(MLP_GRID_SEED).uniform("step_size", 0.02, 0.2) \
+        .subset("hidden_layers", [[10], [10, 10]]).build(2)
+
+
 def multiclass_selector():
     """workflow-multiclass's selector: MultiClassificationModelSelector's
     3-fold CrossValidation (DataCutter, the multiclass error) over
     logistic regression's default grid (8 points, softmax on the vmapped
     route), random forests of 10 trees at depth {3, 6}, XGBoost of 10
-    rounds at depth 4 (softmax: 7 class lanes a fold) and naive Bayes."""
+    rounds at depth 4 (softmax: 7 class lanes a fold), naive Bayes and the
+    MLP of `MLP_STEPS` Adam steps over `mlp_random_grid()` (sequential)."""
     from transmogrifai_tpu_torch.automl.selectors import (
         MultiClassificationModelSelector, default_grid_for)
     from transmogrifai_tpu_torch.models.glm import (
         OpLogisticRegression, OpNaiveBayes)
+    from transmogrifai_tpu_torch.models.mlp import (
+        OpMultilayerPerceptronClassifier)
     from transmogrifai_tpu_torch.models.trees import (
         OpRandomForestClassifier, OpXGBoostClassifier)
     return MultiClassificationModelSelector.with_cross_validation(
@@ -2753,7 +2849,9 @@ def multiclass_selector():
                 for d in (3, 6)]),
             (OpXGBoostClassifier(), [dict(num_round=10, max_depth=4,
                                           eta=0.3)]),
-            (OpNaiveBayes(), default_grid_for("OpNaiveBayes"))])
+            (OpNaiveBayes(), default_grid_for("OpNaiveBayes")),
+            (OpMultilayerPerceptronClassifier(max_iter=MLP_STEPS),
+             mlp_random_grid())])
 
 
 def multiclass_workflow(cols: dict, device=None):
@@ -2806,6 +2904,125 @@ def multiclass_leg_run(cols: dict, new: dict, device) -> dict:
                 scored=multiclass_scores(model, pred, new))
 
 
+def span_self_times(trace, kind: str) -> dict:
+    """Self seconds of the spans of `kind` in a trace tree, summed by name,
+    largest first."""
+    out = collections.Counter()
+    for sp in trace.spans:
+        if sp.kind == kind:
+            out[sp.name] += trace.self_seconds(sp)
+    return dict(out.most_common())
+
+
+def span_peaks_gb(trace, kinds=("run", "workflow", "layer")) -> dict:
+    """Peak device memory (GB) inside each span of `kinds`, by name (the
+    largest where a name repeats)."""
+    out = {}
+    for sp in trace.spans:
+        peak = sp.attrs.get("hbm_peak_bytes")
+        if sp.kind in kinds and peak is not None:
+            out[sp.name] = max(out.get(sp.name, 0.0), peak / 1e9)
+    return out
+
+
+def traced_runner_run(cols: dict, new: dict) -> tuple:
+    """The Covertype flow's train() through OpWorkflowRunner(TRAIN): with
+    the run-metrics collector off, on (OpParams(collect_stage_metrics=True,
+    metrics_location=...)) and off again, each saving its model; then
+    SCORE of the traced run's saved model on `new` through a reader. The
+    traced run writes train_stage_metrics.json, train_trace.json and
+    events.jsonl; `trace_report(check=True)` must return 0 over them. The
+    traced train()'s span tree gives the self time of each layer and
+    stage, the peak device memory of each workflow and layer span, and
+    the kernel records of its tree fits, whose launch counts must add up
+    to the dispatchers' counts over that train(), every kernel launched.
+    Returns (ok, result)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.readers.readers import Reader
+    from transmogrifai_tpu_torch.utils.metrics import collector
+    from transmogrifai_tpu_torch.utils.tracing import trace_report_rc
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow import OpParams, OpWorkflowRunner
+
+    class DatasetReader(Reader):     # a reader over a built Dataset
+        def __init__(self, ds):
+            super().__init__()
+            self.ds = ds
+
+        def generate_dataset(self, raw_features):
+            return self.ds
+
+    tmp = tempfile.mkdtemp(prefix="runner-")
+    try:
+        reset_uids()
+        wf, pred = multiclass_workflow(cols)
+        runner = OpWorkflowRunner(wf, score_reader=DatasetReader(
+            wide_dataset(new, Dataset, Column, T)))
+        metrics_dir = os.path.join(tmp, "metrics")
+        walls = {"off": [], "on": []}
+        for turn in ("off", "on", "off"):
+            params = OpParams(model_location=os.path.join(tmp, turn))
+            if turn == "on":
+                params = params.with_values(collect_stage_metrics=True,
+                                            metrics_location=metrics_dir)
+                TK.reset_launches()
+            res = runner.run(OpWorkflowRunner.TRAIN, params)
+            walls[turn].append(res.wall_seconds)
+            if turn == "on":
+                launches = dict(TK.launches)
+                trace, app = collector.trace, collector.current
+        score = runner.run(OpWorkflowRunner.SCORE, OpParams(
+            model_location=os.path.join(tmp, "on"),
+            metrics_location=metrics_dir))
+        artifacts = sorted(os.listdir(metrics_dir))
+        report, rc = trace_report_rc(metrics_dir, check=True)
+        text, _ = trace_report_rc(metrics_dir, top=12)
+    finally:
+        shutil.rmtree(tmp)
+    kern = [sp for sp in trace.spans if sp.kind == "kernel"
+            and not sp.name.startswith("stats_pass")]
+    counted = {k: sum(sp.attrs["launches"][k] for sp in kern)
+               for k in TK.KERNELS}
+    records = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    for sp in kern:
+        r = records[f"{sp.name} lanes={sp.attrs['lanes']} "
+                    f"depth={sp.attrs['depth']}"]
+        r[0] += 1
+        r[1] += sp.duration
+        r[2] += sp.attrs["bytes_hbm"]
+    on_off = walls["on"][0] / float(np.mean(walls["off"]))
+    wf_span = next(sp for sp in trace.spans if sp.kind == "workflow")
+    res = dict(
+        train_wall_s=walls, collector_on_off_ratio=on_off,
+        spans=len(trace.spans), workflow_train_s=wf_span.duration,
+        layer_self_s=span_self_times(trace, "layer"),
+        stage_self_s=dict(list(span_self_times(trace, "stage").items())[:15]),
+        sweep_fit_self_s=span_self_times(trace, "sweep_fit"),
+        peak_gb=span_peaks_gb(trace),
+        kernel_records={k: dict(fits=v[0], s=v[1], gb=v[2] / 1e9)
+                        for k, v in records.items()},
+        kernel_launches=counted, dispatcher_launches=launches,
+        stats_passes=[m.to_json() for m in app.stats_metrics],
+        artifacts=artifacts, trace_report_rc=rc,
+        score_rows=score.n_rows, score_s=score.wall_seconds)
+    log("workflow-multiclass traced runner: " + json.dumps(res, default=str))
+    log("workflow-multiclass trace-report:\n" + text)
+    ok = (rc == 0 and counted == launches and all(counted.values())
+          and {"train_stage_metrics.json", "train_trace.json",
+               "events.jsonl", "train_metrics.json",
+               "score_metrics.json"} <= set(artifacts)
+          and score.n_rows == COVERTYPE_SCORE_ROWS
+          and wf_span.attrs.get("hbm_peak_bytes", 0) > 0)
+    if rc:
+        log(report)
+    return ok, res
+
+
 def workflow_multiclass_phase(rows: int, seed: int):
     """Multiclass at user scale: the Covertype-shaped flow
     (`covertype_columns`, 581 012 rows, 7 cover types) through
@@ -2830,7 +3047,11 @@ def workflow_multiclass_phase(rows: int, seed: int):
     scored again (identical), loaded with device="cpu" (its scores of
     `COVERTYPE_CPU_LOAD_ROWS` rows within 1e-5 relative of the card's);
     the accuracy on the new rows must beat the majority class's share.
-    Then op_iris.main([]) on the card (its winner, CV error and launches).
+    Then `traced_runner_run` (the same train() through OpWorkflowRunner
+    with the run-metrics collector off, on and off: its span tree, kernel
+    records, the on/off ratio of the train wall, trace_report, SCORE of
+    the saved model), then op_iris.main([]) on the card (its winner, CV
+    error and launches).
     Each kernel at every (kernel, F, S, C, Fo) key of the two train()s on
     the inputs of its first launch against its plain version (rows of the
     kernels line, phases "multiclass" and "iris": a forest's K = 7 lanes
@@ -2896,7 +3117,9 @@ def workflow_multiclass_phase(rows: int, seed: int):
     walls = stage_walls(model)
     label_map = model.selected_model().label_map
     model._train_data = None
-    del cols
+    mlp_cells = {json.dumps(v["grid"], sort_keys=True): v["mean_metric"]
+                 for v in cells
+                 if v["model_name"] == "OpMultilayerPerceptronClassifier"}
 
     t0 = time.perf_counter()
     scored = multiclass_scores(model, pred, new)
@@ -2927,6 +3150,13 @@ def workflow_multiclass_phase(rows: int, seed: int):
     cpu_load_rel = rel_diff(cpu_scored, scored[:COVERTYPE_CPU_LOAD_ROWS])
     main_s = time.perf_counter() - t_phase - leg_s
     del loaded, on_cpu
+    torch.cuda.empty_cache()
+    # the collector's per-span peaks reset the allocator's peak counter
+    phase_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    runner_ok, runner_res = traced_runner_run(cols, new)
+    runner_s = time.perf_counter() - t0
+    del cols
     torch.cuda.empty_cache()
 
     # the port's op_iris example on the card (K = 3)
@@ -2977,9 +3207,11 @@ def workflow_multiclass_phase(rows: int, seed: int):
         cpu_load_rows=COVERTYPE_CPU_LOAD_ROWS,
         cpu_load_max_rel_diff=cpu_load_rel,
         peak_device_gb_train=train_peak_gb,
-        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_device_gb=max(phase_peak_gb,
+                           torch.cuda.max_memory_allocated() / 1e9),
         launches=launches, shape_launches=shape_launches,
-        capture_launches=capture_launches,
+        capture_launches=capture_launches, mlp_cv_error=mlp_cells,
+        runner_s=runner_s,
         iris=dict(s=iris_s, winner=[iris_sel.best_model_name,
                                     iris_sel.best_grid],
                   holdout_error=iris_sel.holdout_evaluation.get("error"),
@@ -2988,15 +3220,18 @@ def workflow_multiclass_phase(rows: int, seed: int):
     by_shape = collections.Counter()
     for key, n in capture_launches.items():
         by_shape[launch_key(key)] += n
-    ok = (leg_ok and iris_ok and all(n > 0 for n in launches.values())
+    ok = (leg_ok and iris_ok and runner_ok
+          and all(n > 0 for n in launches.values())
           and set(launches) == set(TK.KERNELS)
           and {r["key"] for r in rows_out}
           == set(capture_launches) | set(iris_launches)
           and dict(by_shape) == shape_launches
           and any(" C=9 " in k + " " for k in capture_launches)
-          and families == ["OpLogisticRegression", "OpNaiveBayes",
-                           "OpRandomForestClassifier", "OpXGBoostClassifier"]
-          and len(cells) == 12
+          and families == ["OpLogisticRegression",
+                           "OpMultilayerPerceptronClassifier",
+                           "OpNaiveBayes", "OpRandomForestClassifier",
+                           "OpXGBoostClassifier"]
+          and len(cells) == 14 and len(mlp_cells) == 2
           and scored.shape == (COVERTYPE_SCORE_ROWS, 8)
           and bool(np.isfinite(scored).all())
           and set(np.unique(scored[:, 0])) <= set(range(1, 8))
@@ -3512,6 +3747,10 @@ def main() -> int:
     from transmogrifai_tpu_torch.tools import hist_paths as HP
 
     resolve_device()
+    if card_roof() is None:
+        print(f"chip_smoke: no roof for {torch.cuda.get_device_name(0)} "
+              "in utils.metrics.DEVICE_ROOFS", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     card = HP.card_line()
     log(f"device: {card} ({torch.cuda.get_device_name(0)}, "

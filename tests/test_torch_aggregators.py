@@ -16,6 +16,7 @@ import transmogrifai_tpu.types as JT
 from transmogrifai_tpu.features import aggregators as JA
 
 import transmogrifai_tpu_torch.types as PT
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.features import aggregators as PA
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder as PFB
 

@@ -26,6 +26,7 @@ from datetime import datetime, timedelta, timezone
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 import chip_smoke as CS
 
 from transmogrifai_tpu import readers as JR

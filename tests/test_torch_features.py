@@ -22,6 +22,7 @@ from transmogrifai_tpu.utils import uid as JU
 import transmogrifai_tpu_torch.data.dataset as PD
 import transmogrifai_tpu_torch.data.vector as PV
 import transmogrifai_tpu_torch.types as PT
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder as PFB
 from transmogrifai_tpu_torch.features.builder import infer_feature_type as p_infer
 from transmogrifai_tpu_torch.readers.readers import CSVReader as PCSV

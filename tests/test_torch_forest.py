@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_threads import one_torch_thread  # noqa: F401
 import chip_smoke
 from transmogrifai_tpu.ops import trees as JT
 from transmogrifai_tpu_torch.ops import trees as PT

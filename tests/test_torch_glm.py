@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from transmogrifai_tpu.models.glm import OpLinearSVC as JSVC
 from transmogrifai_tpu.models.glm import OpLogisticRegression as JLR
 from transmogrifai_tpu.ops import glm as JG
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch import convert
 from transmogrifai_tpu_torch.models.glm import (LinearBinaryModel,
                                                 OpLinearSVC,

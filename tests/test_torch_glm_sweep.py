@@ -34,6 +34,7 @@ from transmogrifai_tpu.models.glm import OpLinearSVC as JSVC
 from transmogrifai_tpu.models.glm import OpLogisticRegression as JLR
 from transmogrifai_tpu.models.trees import OpXGBoostClassifier as JXGB
 from transmogrifai_tpu.ops import glm_sweep as JGS
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.automl.tuning import checkpoint as PC
 from transmogrifai_tpu_torch.automl.tuning import validators as PV
 from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators as PE

@@ -26,6 +26,7 @@ from transmogrifai_tpu.readers.readers import ListReader as JList
 from transmogrifai_tpu.utils import uid as JU
 from transmogrifai_tpu.workflow.io import load_model as j_load
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.automl import selectors as PS
 from transmogrifai_tpu_torch.examples import op_iris as PI
 from transmogrifai_tpu_torch.ops import trees as PT

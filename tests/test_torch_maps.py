@@ -23,6 +23,7 @@ from transmogrifai_tpu.transformers import misc as JM
 from transmogrifai_tpu.utils import uid as JU
 import transmogrifai_tpu.types as JT
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.automl.vectorizers import geo as PG
 from transmogrifai_tpu_torch.automl.vectorizers import maps as PMaps
 from transmogrifai_tpu_torch.data.dataset import Dataset as PDataset

@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from transmogrifai_tpu.ops import metrics_ops as JM
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
 from transmogrifai_tpu_torch.ops import metrics_ops as PM
 

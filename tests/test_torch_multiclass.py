@@ -30,6 +30,7 @@ from transmogrifai_tpu.ops import glm as JOG
 from transmogrifai_tpu.ops import metrics_ops as JMO
 from transmogrifai_tpu.ops import trees as JT
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch import convert
 from transmogrifai_tpu_torch.automl import selectors as PS
 from transmogrifai_tpu_torch.automl.tuning import splitters as PSp
@@ -420,11 +421,20 @@ def test_multiclass_selector_defaults_match_jax():
     assert sel.problem_type == "multiclass"
     assert PS.default_grid_for("OpNaiveBayes") == \
         JS.default_grid_for("OpNaiveBayes")
-    with pytest.raises(NotImplementedError,
-                       match="OpMultilayerPerceptronClassifier"):
-        PS.MultiClassificationModelSelector.with_cross_validation(
-            model_types=["OpLogisticRegression",
-                         "OpMultilayerPerceptronClassifier"])
+    # the MLP resolves (reference default grid [{}]) and runs
+    mlp_sel = PS.MultiClassificationModelSelector.with_cross_validation(
+        model_types=["OpLogisticRegression",
+                     "OpMultilayerPerceptronClassifier"], device="cpu")
+    jmlp_sel = JS.MultiClassificationModelSelector.with_cross_validation(
+        model_types=["OpLogisticRegression",
+                     "OpMultilayerPerceptronClassifier"])
+    (mlp, grid), (jmlp, jgrid) = mlp_sel.models[1], jmlp_sel.models[1]
+    assert type(mlp).__name__ == type(jmlp).__name__
+    assert grid == jgrid == [dict()]
+    assert mlp.param_values() == jmlp.param_values()
+    X, y = _data(300, K=3, seed=81)
+    model = mlp.copy(max_iter=20).fit_arrays(np.nan_to_num(X), y)
+    assert model.predict_arrays(np.nan_to_num(X))[2].shape == (300, 3)
 
 
 def test_selector_fit_maps_labels_back():

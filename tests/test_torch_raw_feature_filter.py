@@ -23,6 +23,7 @@ from transmogrifai_tpu.ops import stats_engine as JSE
 from transmogrifai_tpu.ops.stats import histogram_batched as j_hist
 
 import transmogrifai_tpu_torch.types as PT
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.data.dataset import Dataset as PDataset
 from transmogrifai_tpu_torch.filters import (RawFeatureFilter as PRFF,
                                              RawFeatureFilterResults)

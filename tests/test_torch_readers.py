@@ -16,6 +16,7 @@ from transmogrifai_tpu.features.builder import FeatureBuilder as JFB
 from transmogrifai_tpu.readers import avro as JAvro
 from transmogrifai_tpu.readers import readers as JR
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder as PFB
 from transmogrifai_tpu_torch.readers import avro as PAvro
 from transmogrifai_tpu_torch.readers import readers as PR

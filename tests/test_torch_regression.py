@@ -35,6 +35,7 @@ from transmogrifai_tpu.ops import glm_sweep as JGS
 from transmogrifai_tpu.ops import metrics_ops as JM
 from transmogrifai_tpu.utils import uid as JU
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.automl import selectors as PS
 from transmogrifai_tpu_torch.automl.tuning import validators as PV
 from transmogrifai_tpu_torch.automl.tuning.splitters import DataSplitter

@@ -23,6 +23,7 @@ from transmogrifai_tpu.readers.readers import ListReader as JList
 from transmogrifai_tpu.utils import uid as JU
 from transmogrifai_tpu.workflow import Workflow as JWorkflow
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.automl.preparators import SanityChecker as PSC
 from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify as p_tm
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder as PFB

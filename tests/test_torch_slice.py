@@ -21,6 +21,7 @@ from transmogrifai_tpu.evaluators.evaluators import Evaluators as JEvaluators
 from transmogrifai_tpu.models.trees import OpXGBoostClassifier as JXGB
 from transmogrifai_tpu.ops import metrics_ops as JM
 from transmogrifai_tpu.ops import trees as JT
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch import convert
 from transmogrifai_tpu_torch.automl.tuning.validators import (
     CrossValidation, TrainValidationSplit)

@@ -21,6 +21,7 @@ import torch
 from transmogrifai_tpu.ops import stats as JS
 from transmogrifai_tpu.ops import stats_engine as JE
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.ops import stats_engine as PE
 
 RTOL, ATOL = 1e-5, 1e-6

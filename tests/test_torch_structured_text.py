@@ -24,6 +24,7 @@ from transmogrifai_tpu.transformers import text as JX
 from transmogrifai_tpu.utils import uid as JU
 import transmogrifai_tpu.types as JT
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.data.dataset import Dataset as PDataset
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder as PFB
 from transmogrifai_tpu_torch.transformers import text as PX

@@ -24,6 +24,7 @@ from transmogrifai_tpu.transformers import text as JTx
 from transmogrifai_tpu.utils import uid as JU
 from transmogrifai_tpu.workflow import Workflow as JWorkflow
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch import convert
 from transmogrifai_tpu_torch.automl.transmogrifier import \
     transmogrify as p_tm, TransmogrifierDefaults as PDefaults

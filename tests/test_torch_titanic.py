@@ -39,6 +39,7 @@ from transmogrifai_tpu.models.trees import OpRandomForestClassifier as JRF
 from transmogrifai_tpu.readers.readers import ListReader as JList
 from transmogrifai_tpu.utils import uid as JU
 
+from torch_threads import one_torch_thread  # noqa: F401
 import chip_smoke
 from test_torch_tree_models import _ReferenceDraws
 from transmogrifai_tpu_torch import convert

@@ -17,6 +17,7 @@ import torch
 import jax.numpy as jnp
 
 from transmogrifai_tpu.ops import pallas_hist as PH
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.ops import _build
 from transmogrifai_tpu_torch.ops import tree_kernels as TK
 

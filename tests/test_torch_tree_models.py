@@ -30,6 +30,7 @@ from transmogrifai_tpu.models import glm as JG
 from transmogrifai_tpu.models import trees as JM
 from transmogrifai_tpu.ops import trees as JT
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch import convert
 from transmogrifai_tpu_torch.automl import selectors as PS
 from transmogrifai_tpu_torch.automl.tuning.validators import \
@@ -187,7 +188,7 @@ def test_multiclass_forest_and_boosting_raise():
 
 def test_default_grids_equal_the_reference():
     names = sorted(PS._models_by_name())
-    assert len(names) == 13
+    assert len(names) == 14
     for name in names:
         assert PS.default_grid_for(name) == JS.default_grid_for(name), name
 

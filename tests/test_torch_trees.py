@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from transmogrifai_tpu.ops import pallas_hist as PH
 from transmogrifai_tpu.ops import trees as JT
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.ops import trees as PT
 
 

@@ -13,6 +13,7 @@ convert.workflow_model_from_jax scores within 1e-5 of the JAX package.
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 import chip_smoke as CS
 
 from transmogrifai_tpu import types as JT

@@ -36,6 +36,7 @@ from transmogrifai_tpu.readers.readers import ListReader as JList
 from transmogrifai_tpu.utils import uid as JU
 from transmogrifai_tpu.workflow import Workflow as JWorkflow
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch import convert
 from transmogrifai_tpu_torch.automl.preparators import SanityChecker as PSC
 from transmogrifai_tpu_torch.automl.selectors import \
@@ -289,8 +290,9 @@ def test_split_witness_tells_a_tie_from_a_worse_split():
 
 
 def test_default_model_types_raise():
-    """The defaults (LR, RF, GBT, SVC) resolve since the forest slice; a
-    model type the port still lacks raises, naming it."""
+    """The defaults (LR, RF, GBT, SVC) resolve since the forest slice, the
+    MLP since the MLP slice; a model type the port does not know raises,
+    naming it."""
     sel = PBCMS.with_cross_validation(device="cpu")
     assert [type(e).__name__ for e, _ in sel.models] == \
         list(PBCMS.default_model_types)
@@ -302,11 +304,22 @@ def test_default_model_types_raise():
     nb = PBCMS.with_cross_validation(model_types=["OpNaiveBayes"],
                                      device="cpu")
     assert [type(e).__name__ for e, _ in nb.models] == ["OpNaiveBayes"]
-    with pytest.raises(NotImplementedError,
-                       match="OpMultilayerPerceptronClassifier"):
-        PBCMS.with_cross_validation(
-            model_types=["OpLogisticRegression",
-                         "OpMultilayerPerceptronClassifier"])
+    # the MLP is ported: it resolves and runs (the sequential route)
+    mlp = PBCMS.with_cross_validation(
+        model_types=["OpLogisticRegression",
+                     "OpMultilayerPerceptronClassifier"], device="cpu")
+    assert [type(e).__name__ for e, _ in mlp.models] == \
+        ["OpLogisticRegression", "OpMultilayerPerceptronClassifier"]
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(240, 3)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    mlp.validator.device = "cpu"
+    best = mlp.validator.validate(
+        [(mlp.models[1][0].copy(max_iter=30), [dict()])], X, y)
+    assert [v.route for v in best.validated] == ["sequential"]
+    assert np.isfinite(best.best_metric)
+    with pytest.raises(NotImplementedError, match="OpPerceptronOfDoom"):
+        PBCMS.with_cross_validation(model_types=["OpPerceptronOfDoom"])
 
 
 def test_ported_model_types_take_the_reference_grids():

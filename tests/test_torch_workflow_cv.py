@@ -27,6 +27,7 @@ from transmogrifai_tpu.workflow import Workflow as JWorkflow
 from transmogrifai_tpu.workflow.dag import compute_dag as j_dag
 from transmogrifai_tpu.workflow.dag import cut_dag as j_cut
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.automl.preparators import SanityChecker as PSC
 from transmogrifai_tpu_torch.automl.selectors import \
     RegressionModelSelector as PRMS

@@ -34,6 +34,7 @@ from transmogrifai_tpu.utils import uid as JU
 from transmogrifai_tpu.workflow import Workflow as JWorkflow
 from transmogrifai_tpu.workflow.io import load_model as j_load
 
+from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch.automl.preparators import SanityChecker as PSC
 from transmogrifai_tpu_torch.automl.selectors import \
     BinaryClassificationModelSelector as PBCMS

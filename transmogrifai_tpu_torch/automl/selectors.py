@@ -7,14 +7,14 @@ MultiClassificationModelSelector.scala,
 regression/RegressionModelSelector.scala,
 selector/DefaultSelectorParams.scala:35-56.
 
-The port has OpLogisticRegression (binary and softmax), OpLinearSVC,
-OpNaiveBayes, OpLinearRegression, OpGeneralizedLinearRegression and the
-eight tree families (random forest, decision tree, Spark GBT and XGBoost,
-each a classifier and a regressor), so the binary defaults (LR, RF, GBT,
-SVC), the multiclass defaults (LR, RF) and the regression defaults
-(LinReg, RF, GBT) all resolve. Asking for any other model type (the MLP)
-raises NotImplementedError naming it: a type is never dropped in silence,
-which would run a smaller sweep than the reference.
+The port has every model type of the JAX package: OpLogisticRegression
+(binary and softmax), OpLinearSVC, OpNaiveBayes, OpLinearRegression,
+OpGeneralizedLinearRegression, OpMultilayerPerceptronClassifier (binary
+and multiclass, the sequential route) and the eight tree families (random
+forest, decision tree, Spark GBT and XGBoost, each a classifier and a
+regressor). Asking for a type it does not know raises
+NotImplementedError naming it: a type is never dropped in silence, which
+would run a smaller sweep than the reference.
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ D = DefaultSelectorParams
 
 def _models_by_name() -> Dict[str, type]:
     """The model types the port has, by the reference's names."""
-    from ..models import glm, trees
+    from ..models import glm, mlp, trees
     return {"OpLogisticRegression": glm.OpLogisticRegression,
             "OpLinearSVC": glm.OpLinearSVC,
             "OpNaiveBayes": glm.OpNaiveBayes,
@@ -72,7 +72,9 @@ def _models_by_name() -> Dict[str, type]:
             "OpDecisionTreeClassifier": trees.OpDecisionTreeClassifier,
             "OpDecisionTreeRegressor": trees.OpDecisionTreeRegressor,
             "OpXGBoostClassifier": trees.OpXGBoostClassifier,
-            "OpXGBoostRegressor": trees.OpXGBoostRegressor}
+            "OpXGBoostRegressor": trees.OpXGBoostRegressor,
+            "OpMultilayerPerceptronClassifier":
+                mlp.OpMultilayerPerceptronClassifier}
 
 
 def default_grid_for(name: str) -> List[ParamMap]:

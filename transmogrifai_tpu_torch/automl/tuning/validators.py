@@ -32,6 +32,10 @@ binned-counts kernel instead of a sort per lane; regression metrics are
 lane-batched sums. GLM cells can be checkpointed (`checkpoint_path`), and
 the streamed route also per retirement round. `validate(..., masks=)`
 takes the folds from outside (workflow-level CV runs one fold at a time).
+While the run-metrics collector is on (utils/metrics.collector) each
+route's fits are a "sweep_fit" span, each finished (model x grid) cell a
+`sweep_cell_landed` event, each retirement round of the streamed route a
+`glm_round_retired` event and its telemetry a sweep_convergence record.
 Mesh sharding arrives in a later slice.
 """
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ...models.prediction import make_prediction_column
 from ...ops import glm_sweep as GS
 from ...ops import metrics_ops as M
 from ...stages.params import ParamMap
+from ...utils.metrics import collector
 
 
 @dataclass
@@ -425,15 +430,40 @@ class Validator:
                            else 0.0 for g in grids], np.float32)
         return regs, alphas
 
-    def _land(self, est, grids, keys, ckpt, results, pending, out, metric):
-        """Record each pending cell's fold metrics (out [F, len(pending)])
-        and checkpoint it."""
+    def _land(self, est, grids, keys, ckpt, results, pending, out, metric,
+              route: str):
+        """Record each pending cell's fold metrics (out [F, len(pending)]),
+        checkpoint it and announce it."""
         for j, gi in enumerate(pending):
             fm = [float(v) for v in out[:, j]]
             results[gi] = fm
             if ckpt is not None:
                 ckpt.record(keys[gi], type(est).__name__, grids[gi], fm,
                             metric)
+            self._cell_event(est, gi, fm, route)
+
+    @staticmethod
+    def _cell_event(est, gi, fm, route):
+        """One `sweep_cell_landed` event per finished (model x grid) cell,
+        so `tail -f events.jsonl` shows the sweep's progress cell by cell."""
+        finite = [v for v in fm if np.isfinite(v)]
+        collector.event(
+            "sweep_cell_landed", model=type(est).__name__,
+            grid_index=int(gi), route=route, n_folds=len(fm),
+            mean_metric=float(np.mean(finite)) if finite else None)
+
+    def _record_sweep_telemetry(self, est, info):
+        self.last_streamed_telemetry = dict(info, model=type(est).__name__)
+        collector.sweep_convergence(
+            family=type(est).__name__, kernel=info["kernel"],
+            rounds=info.get("glm_rounds", 0),
+            data_passes=info.get("data_passes", 0),
+            lane_passes=info.get("lane_passes", 0),
+            lanes_total=info.get("lanes_total", 0),
+            lanes_retired=info.get("lanes_retired", 0),
+            active_per_round=info.get("active_per_round", ()),
+            iters_per_round=info.get("iters_per_round", ()),
+            bucket_sizes=info.get("bucket_sizes", ()))
 
     @staticmethod
     def _validated(est, grids, metric, results, route):
@@ -482,15 +512,19 @@ class Validator:
 
                 def grid_vec(v):
                     return torch.as_tensor(v[idx], device=dev).repeat(F)
-                B, b0 = fit_one(X, y, lanes(w_fit), grid_vec(regs),
-                                grid_vec(alphas))
-                if multiclass:     # B [F*k, d, c] -> [F*k, n, c]
-                    scores = torch.matmul(X, B) + b0[:, None, :]
-                else:
-                    scores = (X @ B.T + b0[None, :]).T       # [F*k, n]
-                vals = lane_metrics(scores, y, lanes(w_eval))
-                self._land(est, grids, keys, ckpt, results, idx,
-                           vals.reshape(F, k).cpu().numpy(), metric)
+                with collector.trace_span(
+                        f"glm_vmapped:{type(est).__name__}",
+                        kind="sweep_fit", folds=int(F), chunk=int(k)):
+                    B, b0 = fit_one(X, y, lanes(w_fit), grid_vec(regs),
+                                    grid_vec(alphas))
+                    if multiclass:     # B [F*k, d, c] -> [F*k, n, c]
+                        scores = torch.matmul(X, B) + b0[:, None, :]
+                    else:
+                        scores = (X @ B.T + b0[None, :]).T   # [F*k, n]
+                    vals = lane_metrics(scores, y, lanes(w_eval)) \
+                        .reshape(F, k).cpu().numpy()
+                self._land(est, grids, keys, ckpt, results, idx, vals,
+                           metric, "vmapped")
         return self._validated(est, grids, metric, results, "vmapped")
 
     # -- streamed GLM route --------------------------------------------------
@@ -535,8 +569,19 @@ class Validator:
         if GS.env_on("TMOG_GLM_ROUNDS"):
             rc, rkey, state = self._round_checkpoint(keys, pending,
                                                      fit_kwargs)
-            on_round = None if rc is None else \
-                (lambda st: rc.save(rkey, st))
+
+            def on_round(st):
+                # one event per retirement boundary: the tail of
+                # events.jsonl is the live convergence picture of a sweep
+                if rc is not None:
+                    rc.save(rkey, st)
+                    collector.event("round_checkpoint_written",
+                                    path=rc.path, rounds=int(st["rounds"]))
+                collector.event(
+                    "glm_round_retired", rounds=int(st["rounds"]),
+                    lanes_retired=int(st["retired"].sum()),
+                    lanes_active=int((~st["retired"]).sum()),
+                    lane_passes=int(st["lane_passes"]))
             B, b0, info = GS.sweep_glm_streamed_rounds(
                 X, y, w, masks, regs_p, alphas_p, state=state,
                 on_round=on_round, **fit_kwargs)
@@ -573,24 +618,33 @@ class Validator:
                 if base.has_param("fit_intercept") else True,
                 standardize=bool(base.get_param("standardization"))
                 if base.has_param("standardization") else True)
-            B, b0, sweep_info, round_ckpt = self._streamed_fit(
-                est, fit_kwargs, X, y, w, masks, regs[pending],
-                alphas[pending], keys, pending)
-            self.last_streamed_telemetry = dict(sweep_info,
-                                                model=type(est).__name__)
+            with collector.trace_span(
+                    f"glm_streamed:{type(est).__name__}", kind="sweep_fit",
+                    folds=int(F), grids=len(pending)) as sp:
+                B, b0, sweep_info, round_ckpt = self._streamed_fit(
+                    est, fit_kwargs, X, y, w, masks, regs[pending],
+                    alphas[pending], keys, pending)
+                if sp is not None:
+                    sp.attrs["kernel"] = sweep_info.get("kernel")
+            self._record_sweep_telemetry(est, sweep_info)
             rank_bins = self._rank_bins(X.shape[0])
             thr = self._margin_threshold(est)
             chunk = min(self._STREAMED_EVAL_CHUNK, len(pending))
             out = np.empty((F, len(pending)), np.float64)
-            for f in range(F):
-                vw = (1.0 - masks[f]) * w
-                for s in range(0, len(pending), chunk):
-                    sl = slice(s, min(s + chunk, len(pending)))
-                    vals = _streamed_eval(
-                        X, y, vw, B[f, sl], b0[f, sl], thr, metric=metric,
-                        problem_type=problem_type, rank_bins=rank_bins)
-                    out[f, sl] = vals.cpu().numpy()
-            self._land(est, grids, keys, ckpt, results, pending, out, metric)
+            with collector.trace_span(
+                    f"glm_streamed_eval:{type(est).__name__}",
+                    kind="sweep_eval", cells=len(pending)):
+                for f in range(F):
+                    vw = (1.0 - masks[f]) * w
+                    for s in range(0, len(pending), chunk):
+                        sl = slice(s, min(s + chunk, len(pending)))
+                        vals = _streamed_eval(
+                            X, y, vw, B[f, sl], b0[f, sl], thr,
+                            metric=metric, problem_type=problem_type,
+                            rank_bins=rank_bins)
+                        out[f, sl] = vals.cpu().numpy()
+            self._land(est, grids, keys, ckpt, results, pending, out, metric,
+                       "streamed")
             if round_ckpt is not None:
                 # only NOW are all cells in the JSONL checkpoint: a
                 # preemption during the evaluation above resumes from the
@@ -624,11 +678,15 @@ class Validator:
         for _, group in sorted(groups.items(), key=lambda kv: str(kv[0])):
             ctx = est.copy(**grids[group[0]]).mask_sweep_context(X)
             for gi in group:
-                scores = est.copy(**grids[gi]).mask_fit_scores(
-                    ctx, y, w, masks, n_classes=n_classes,
-                    multiclass=multiclass)
-                results[gi] = [float(v) for v in
-                               fold_metrics(scores, y, w_eval).cpu()]
+                with collector.trace_span(
+                        f"mask_folds:{type(est).__name__}", kind="sweep_fit",
+                        folds=int(masks.shape[0]), grid_index=int(gi)):
+                    scores = est.copy(**grids[gi]).mask_fit_scores(
+                        ctx, y, w, masks, n_classes=n_classes,
+                        multiclass=multiclass)
+                    results[gi] = [float(v) for v in
+                                   fold_metrics(scores, y, w_eval).cpu()]
+                self._cell_event(est, gi, results[gi], "mask_folds")
             del ctx  # free the binned matrix before the next group
         return self._validated(est, grids, metric, results, "mask_folds")
 
@@ -655,20 +713,25 @@ class Validator:
                 continue
             est_g = est.copy(**g)
             fold_vals: List[float] = []
-            for f in range(masks.shape[0]):
-                tr = masks[f] > 0
-                va = ~tr
-                model = est_g.fit_arrays(
-                    X[torch.as_tensor(tr, device=X.device)], y[tr], w[tr])
-                pred, raw, prob = model.predict_arrays(
-                    X[torch.as_tensor(va, device=X.device)])
-                col = make_prediction_column(pred, raw, prob)
-                fold_vals.append(float(self.evaluator.evaluate(
-                    y[va], col, w[va])))
+            with collector.trace_span(
+                    f"sequential:{type(est).__name__}", kind="sweep_fit",
+                    folds=int(masks.shape[0]), grid_index=int(gi)):
+                for f in range(masks.shape[0]):
+                    tr = masks[f] > 0
+                    va = ~tr
+                    model = est_g.fit_arrays(
+                        X[torch.as_tensor(tr, device=X.device)], y[tr],
+                        w[tr])
+                    pred, raw, prob = model.predict_arrays(
+                        X[torch.as_tensor(va, device=X.device)])
+                    col = make_prediction_column(pred, raw, prob)
+                    fold_vals.append(float(self.evaluator.evaluate(
+                        y[va], col, w[va])))
             results[gi] = fold_vals
             if ckpt is not None:
                 ckpt.record(keys[gi], type(est).__name__, g, fold_vals,
                             metric)
+            self._cell_event(est, gi, fold_vals, "sequential")
         return self._validated(est, grids, metric, results, "sequential")
 
 

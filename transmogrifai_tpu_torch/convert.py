@@ -3,7 +3,8 @@
 Each takes plain numpy arrays, lists and dicts — what the JAX package's
 `TreeEnsembleModel.save_args()`, `SoftmaxEnsembleModel.save_args()`,
 `LinearBinaryModel.save_args()`, `SoftmaxModel.save_args()`,
-`NaiveBayesModel.save_args()`, `LinearRegressionModel.save_args()`, `Tree`
+`NaiveBayesModel.save_args()`, `LinearRegressionModel.save_args()`,
+`MLPModel.save_args()`, `IsotonicRegressionModel.save_args()`, `Tree`
 fields and fitted workflow stages hold — so this module imports nothing of the JAX package. With them
 both packages score the same fitted model or the same fitted workflow
 (`workflow_model_from_jax`). A fitted stage is rebuilt as a saved one is
@@ -21,6 +22,7 @@ from .data.vector import VectorMetadata
 from .device import DeviceLike, resolve_device
 from .features.feature import Feature
 from .models.glm import LinearBinaryModel, NaiveBayesModel, SoftmaxModel
+from .models.mlp import IsotonicRegressionModel, MLPModel
 from .models.trees import SoftmaxEnsembleModel, TreeEnsembleModel
 from .ops.trees import Tree
 
@@ -84,6 +86,30 @@ def naive_bayes_model_from_jax(save_args: Dict[str, Any],
         log_prob=np.asarray(save_args["log_prob"], np.float32),
         log_prior=np.asarray(save_args["log_prior"], np.float32),
         operation_name=str(save_args.get("operation_name", "nb")),
+        device=device)
+
+
+def mlp_model_from_jax(save_args: Dict[str, Any],
+                       device: DeviceLike = None) -> MLPModel:
+    """A port MLPModel from the JAX MLPModel's save_args(): weights
+    [fan_in, fan_out] and biases of each layer."""
+    return MLPModel(
+        weights=[np.asarray(w, np.float32) for w in save_args["weights"]],
+        biases=[np.asarray(b, np.float32) for b in save_args["biases"]],
+        operation_name=str(save_args.get("operation_name", "mlp")),
+        device=device)
+
+
+def isotonic_model_from_jax(save_args: Dict[str, Any],
+                            device: DeviceLike = None
+                            ) -> IsotonicRegressionModel:
+    """A port IsotonicRegressionModel from the JAX one's save_args():
+    boundaries, values (float64) and increasing."""
+    return IsotonicRegressionModel(
+        boundaries=np.asarray(save_args["boundaries"], np.float64),
+        values=np.asarray(save_args["values"], np.float64),
+        increasing=bool(save_args.get("increasing", True)),
+        operation_name=str(save_args.get("operation_name", "isoCalibrator")),
         device=device)
 
 

@@ -451,6 +451,14 @@ def _sanity_check(self, label: Feature, **kwargs):
     return SanityChecker(**kwargs).set_input(label, self).get_output()
 
 
+def _to_isotonic_calibrated(self, label: Feature, isotonic: bool = True):
+    """Calibrate a score against a label by isotonic regression
+    (RichNumericFeature.toIsotonicCalibrated)."""
+    from .models.mlp import IsotonicRegressionCalibrator
+    return IsotonicRegressionCalibrator(isotonic=isotonic) \
+        .set_input(label, self).get_output()
+
+
 def _random_forest_vec(self, label: Feature, **params):
     """Fit a random-forest classifier on (label, vector) and emit the
     Prediction feature (RichVectorFeature.randomForest:77)."""
@@ -475,8 +483,6 @@ UNPORTED: Dict[str, Tuple[str, str]] = {
     "jaccard_similarity": ("JaccardSimilarity", "transformers/text.py"),
     "loco_insights": ("RecordInsightsLOCO", "insights/"),
     "to_multi_pick_list": ("TextToMultiPickList", "transformers/text.py"),
-    "to_isotonic_calibrated": ("IsotonicRegressionCalibrator",
-                               "models/mlp.py"),
     "is_substring": ("SubstringTransformer", "transformers/text.py"),
     "tokenize_regex": ("RegexTokenizer", "transformers/text.py"),
     "remove_stop_words": ("StopWordsRemover", "transformers/text.py"),
@@ -521,6 +527,7 @@ def install() -> None:
         "map_values": _map_values, "replace_with": _replace_with,
         "exists": _exists, "filter_values": _filter_values,
         "bucketize": _bucketize, "z_normalize": _z_normalize,
+        "to_isotonic_calibrated": _to_isotonic_calibrated,
         "tf": _tf, "drop_indices_by": _drop_indices_by,
         "map": _map_feature, "filter_not": _filter_not,
         "collect": _collect, "random_forest": _random_forest_vec,

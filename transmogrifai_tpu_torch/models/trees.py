@@ -11,18 +11,24 @@ selector's sweep fits every CV fold of a grid point as a lane of one fit
 over one binned matrix (`mask_fit_scores`), and the refit is the same fit
 with one lane. A K-class forest's lanes carry K + 2 histogram channels;
 multiclass XGBoost grows each round's K class trees as K lanes of one fit
-(`SoftmaxEnsembleModel`); Spark's GBT stays binary. The config-fused grid
-route comes later.
+(`SoftmaxEnsembleModel`); Spark's GBT stays binary. While the run-metrics
+collector is on, each fit is a "tree_fit" span of the trace and a kernel
+record: its synchronised wall, its analytic HBM bytes
+(ops/tree_kernels.fused_fit_bytes) and the launches of each kernel in it.
+The config-fused grid route comes later.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, to_device
+from ..ops import tree_kernels as TK
 from ..ops import trees as T
+from ..utils.metrics import collector
 from ..stages.params import Param
 from .base import PredictionModel, PredictorEstimator, stable_sigmoid
 
@@ -170,6 +176,44 @@ class _TreeEstimator(PredictorEstimator):
             leaf=leaf.reshape(-1, leaf.shape[-2], leaf.shape[-1]).cpu().numpy(),
             miss=trees.miss.reshape(-1, n_int).cpu().numpy())
 
+    # (device, label, binned shape, lanes, depth, rounds) of the fits this
+    # process has timed: the first of a shape is cold (its wall includes
+    # the kernels' build)
+    _WARM_SHAPES: set = set()
+
+    @staticmethod
+    def _timed_fit(label: str, Xb: torch.Tensor, lanes: int, depth: int,
+                   n_rounds: int, call: Callable[[], Any]) -> Any:
+        """Run one fit; while the collector is on, as a "tree_fit" span,
+        timed to the device's completion and recorded as a kernel record
+        with its analytic bytes and each kernel's launches in it."""
+        if not collector.enabled:
+            return call()
+        sig = (str(Xb.device), label, tuple(Xb.shape), str(Xb.dtype),
+               int(lanes), int(depth), int(n_rounds))
+        cold = sig not in _TreeEstimator._WARM_SHAPES
+        before = dict(TK.launches)
+        with collector.trace_span(label, kind="tree_fit", lanes=int(lanes),
+                                  depth=int(depth)):
+            t0 = time.perf_counter()
+            out = call()
+            if Xb.device.type == "cuda":
+                torch.cuda.synchronize(Xb.device)
+            wall = time.perf_counter() - t0
+        collector.kernel(
+            label, wall,
+            TK.fused_fit_bytes(Xb.shape[0], Xb.shape[1], int(lanes),
+                               int(depth), int(n_rounds),
+                               xb_itemsize=Xb.element_size()),
+            cold=cold, device=Xb.device,
+            attrs=dict(lanes=int(lanes), depth=int(depth),
+                       n_rounds=int(n_rounds), n_rows=int(Xb.shape[0]),
+                       n_feat=int(Xb.shape[1]),
+                       launches={k: TK.launches[k] - before.get(k, 0)
+                                 for k in TK.launches}))
+        _TreeEstimator._WARM_SHAPES.add(sig)
+        return out
+
     def _key(self, device: torch.device) -> torch.Generator:
         """The fit's random stream, seeded from the `seed` param."""
         gen = torch.Generator(device=device)
@@ -190,8 +234,10 @@ class _TreeEstimator(PredictorEstimator):
         """The boosted refit (Spark GBT, XGBoost): bin, one-lane fit_gbt
         with `kw`, frozen trees behind the base score."""
         Xb, edges, n_bins = self._bin(Xd)
-        trees, base = T.fit_gbt(Xb, yd, wd, n_bins=n_bins, loss=loss,
-                                generator=self._key(Xb.device), **kw)
+        trees, base = self._timed_fit(
+            "tree_refit", Xb, 1, kw["depth"], kw["n_rounds"],
+            lambda: T.fit_gbt(Xb, yd, wd, n_bins=n_bins, loss=loss,
+                              generator=self._key(Xb.device), **kw))
         return TreeEnsembleModel(depth=kw["depth"], mode=mode,
                                  base=float(base),
                                  operation_name=self.operation_name,
@@ -285,8 +331,12 @@ class _ForestBase(_TreeEstimator):
         W = masks * w[None, :]
         G = _class_payload(y, W, n_classes) if self.classification \
             else (y[None, :] * W)[:, None, :]
-        _, agg = T.fit_forest_folds(Xb, G, W, n_bins=n_bins,
-                                    draws=self._draws(Xb, kw, store), **kw)
+        _, agg = self._timed_fit(
+            "forest_sweep_fold_fused", Xb, masks.shape[0], kw["depth"],
+            kw["n_trees"],
+            lambda: T.fit_forest_folds(Xb, G, W, n_bins=n_bins,
+                                       draws=self._draws(Xb, kw, store),
+                                       **kw))
         if not self.classification:
             return agg[:, 0] / kw["n_trees"]
         prob = torch.clamp(agg / kw["n_trees"], min=0.0)
@@ -302,8 +352,10 @@ class _ForestBase(_TreeEstimator):
         Xb, edges, n_bins = self._bin(Xd)
         G = _class_payload(yd, wd[None, :], n_classes)[0].T \
             if n_classes is not None else (yd * wd)[:, None]
-        trees = T.fit_forest(Xb, G, wd, n_bins=n_bins,
-                             **self._forest_kw(Xb.shape[1]))
+        kw = self._forest_kw(Xb.shape[1])
+        trees = self._timed_fit(
+            "forest_refit", Xb, 1, kw["depth"], kw["n_trees"],
+            lambda: T.fit_forest(Xb, G, wd, n_bins=n_bins, **kw))
         return self._freeze(trees, edges)
 
 
@@ -424,9 +476,13 @@ class _GBTBase(_TreeEstimator):
             raise ValueError("Spark's GBT is binary: it takes no "
                              "multiclass sweep")
         Xb, _, n_bins, _ = ctx
-        _, _, margins = T.fit_gbt_folds(
-            Xb, y, masks * w[None, :], n_bins=n_bins, loss=self._loss,
-            generator=self._key(Xb.device), **self._gbt_kw())
+        kw = self._gbt_kw()
+        _, _, margins = self._timed_fit(
+            "tree_sweep_fold_fused", Xb, masks.shape[0], kw["depth"],
+            kw["n_rounds"],
+            lambda: T.fit_gbt_folds(
+                Xb, y, masks * w[None, :], n_bins=n_bins, loss=self._loss,
+                generator=self._key(Xb.device), **kw))
         return margins
 
     def _fit(self, X, y, w, mode: str) -> TreeEnsembleModel:
@@ -539,13 +595,21 @@ class _XGBBase(_TreeEstimator):
         multiclass = multiclass and not self._regression
         W = masks * self._apply_spw(y, w, multiclass)[None, :]
         if multiclass:
-            _, margins = T.fit_gbt_softmax_folds(
-                Xb, y, W, n_bins=n_bins, n_classes=n_classes,
-                generator=self._key(Xb.device), **self._softmax_kw())
+            kw = self._softmax_kw()
+            _, margins = self._timed_fit(
+                "tree_sweep_softmax_fused", Xb, masks.shape[0] * n_classes,
+                kw["depth"], kw["n_rounds"],
+                lambda: T.fit_gbt_softmax_folds(
+                    Xb, y, W, n_bins=n_bins, n_classes=n_classes,
+                    generator=self._key(Xb.device), **kw))
             return margins
-        _, _, margins = T.fit_gbt_folds(
-            Xb, y, W, n_bins=n_bins, loss=self._loss,
-            generator=self._key(Xb.device), **self._common())
+        kw = self._common()
+        _, _, margins = self._timed_fit(
+            "tree_sweep_fold_fused", Xb, masks.shape[0], kw["depth"],
+            kw["n_rounds"],
+            lambda: T.fit_gbt_folds(
+                Xb, y, W, n_bins=n_bins, loss=self._loss,
+                generator=self._key(Xb.device), **kw))
         return margins
 
     def _fit(self, X, y, w, mode: str) -> PredictionModel:
@@ -556,9 +620,12 @@ class _XGBBase(_TreeEstimator):
                                      self._loss, self._common())
         kw = self._softmax_kw()
         Xb, edges, n_bins = self._bin(Xd)
-        trees = T.fit_gbt_softmax(Xb, yd, wd, n_bins=n_bins,
-                                  n_classes=n_classes,
-                                  generator=self._key(Xb.device), **kw)
+        trees = self._timed_fit(
+            "tree_refit_softmax", Xb, n_classes, kw["depth"],
+            kw["n_rounds"],
+            lambda: T.fit_gbt_softmax(Xb, yd, wd, n_bins=n_bins,
+                                      n_classes=n_classes,
+                                      generator=self._key(Xb.device), **kw))
         return SoftmaxEnsembleModel(depth=kw["depth"], n_classes=n_classes,
                                     operation_name=self.operation_name,
                                     device=self.device,

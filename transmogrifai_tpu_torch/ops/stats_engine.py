@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, to_device
+from ..utils.metrics import collector
 from . import stats as S
 
 EPS = 1e-12
@@ -419,6 +420,25 @@ def _finalize(st: _State, shift, bins: int = 0) -> FusedStats:
         hist=None if st.hist is None else f8(st.hist).reshape(-1, bins + 1))
 
 
+def stats_pass_bytes(n: int, d: int, *, itemsize: int = 4,
+                     y2d: bool = False, weighted: bool = False) -> int:
+    """Analytic HBM bytes of one engine pass: one read of X, the label (a
+    second [n, d] plane in the 2-D-label mode of the rank pass) and the
+    optional weights; the [d]-shaped outputs are noise at any n worth
+    measuring."""
+    b = n * d * itemsize
+    b += n * d * 4 if y2d else n * 4
+    if weighted:
+        b += n * 4
+    return int(b)
+
+
+# (driver, n, d, bins, corr_matrix, distinct, 2-D label) of the passes this
+# process has run: the first pass of a shape is cold (its wall includes the
+# allocator's first growth)
+_seen_shapes: set = set()
+
+
 def run_stats(X, y, w=None, *, distinct=None, clip=None, lo=None,
               hi=None, bins: int = 0, corr_matrix: bool = False,
               driver: Optional[str] = None, tile_rows: Optional[int] = None,
@@ -447,9 +467,19 @@ def run_stats(X, y, w=None, *, distinct=None, clip=None, lo=None,
     else:
         raise ValueError(f"unknown statistics driver {driver!r}")
     out = _finalize(st, shift, int(bins))
+    wall = time.perf_counter() - t0
     last_pass.clear()
     last_pass.update(driver=driver, rows=int(n), cols=int(d),
-                     tiles=-(-n // c), seconds=time.perf_counter() - t0)
+                     tiles=-(-n // c), seconds=wall)
+    y2d = getattr(y, "ndim", 1) == 2
+    key = (driver, n, d, int(bins), corr_matrix, distinct is not None, y2d)
+    collector.stats_pass(driver=driver, rows=int(n), cols=int(d),
+                         tiles=-(-n // c),
+                         bytes_hbm=float(stats_pass_bytes(
+                             n, d, y2d=y2d, weighted=w is not None)),
+                         wall_seconds=wall, cold=key not in _seen_shapes,
+                         device=dev)
+    _seen_shapes.add(key)
     return out
 
 

@@ -40,6 +40,7 @@ _STAGE_MODULES = [
     "transmogrifai_tpu_torch.automl.selector",
     "transmogrifai_tpu_torch.models.glm",
     "transmogrifai_tpu_torch.models.trees",
+    "transmogrifai_tpu_torch.models.mlp",
 ]
 
 _registry_cache: Optional[Dict[str, type]] = None

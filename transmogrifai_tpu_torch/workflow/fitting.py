@@ -14,7 +14,11 @@ into their slice of the VectorsCombiner's output (the combiner sinks).
 The runner's `device` (Workflow(device=...)) fills the device of every
 stage it fits or runs that has none; a stage given its own device keeps
 it. `walls` holds the wall seconds of every fit and transform of its last
-run (`fit_dag` or `apply_dag`), in order. Missing response columns at
+run (`fit_dag` or `apply_dag`), in order. While the run-metrics collector
+is on (utils/metrics.collector) each layer is a "layer" span and each fit
+and transform a "stage" span of its trace; inside
+`utils.sanitizers.debug_nans()` / `debug_infs()` every column a stage
+outputs is checked for NaN / Inf it produced. Missing response columns at
 scoring time are synthesized as all-NaN columns so (label, features) stages
 score without labels.
 """
@@ -31,6 +35,8 @@ from ..device import DeviceLike, resolve_device, to_device
 from ..stages.base import (TENSOR_KINDS, Estimator, PipelineStage,
                            Transformer, to_host)
 from ..types import ColumnKind
+from ..utils import sanitizers
+from ..utils.metrics import collector
 from .dag import StagesDAG
 
 
@@ -61,12 +67,24 @@ class LayerRunner:
         if stage.device is None:
             stage.device = self.device
 
-    def _timed(self, stage: str, op: str, fn: Callable[[], Any]) -> Any:
+    def _timed(self, stage: str, op: str, fn: Callable[[], Any],
+               uid: str = "", n_rows: int = 0, n_fused: int = 1) -> Any:
         t0 = time.perf_counter()
-        out = fn()
-        self.walls.append({"stage": stage, "op": op,
+        with collector.span(stage[:120], uid, op, n_rows=n_rows,
+                            n_stages_fused=n_fused):
+            out = fn()
+        self.walls.append({"stage": stage, "op": op.split("-")[-1],
                            "seconds": time.perf_counter() - t0})
         return out
+
+    @staticmethod
+    def _check(ds: Dataset, stages: Sequence[Transformer]) -> None:
+        """Under debug_nans / debug_infs: each stage's output column."""
+        if sanitizers.checking():
+            for st in stages:
+                sanitizers.check_stage_output(
+                    st, ds.column(st.output_name()),
+                    [ds.column(n) for n in st.input_names()])
 
     # -- one layer ---------------------------------------------------------
     def apply_layer(self, ds: Dataset,
@@ -84,8 +102,11 @@ class LayerRunner:
             (tensor if ok else host).append(st)
         if tensor:
             ds = self._timed("+".join(st.stage_name for st in tensor),
-                             "transform",
-                             lambda: self._apply_tensor_stages(ds, tensor))
+                             "fused-transform",
+                             lambda: self._apply_tensor_stages(ds, tensor),
+                             uid=tensor[0].uid, n_rows=len(ds),
+                             n_fused=len(tensor))
+            self._check(ds, tensor)
         for st in host:
             plan = combiner_plans.get(st.uid)
             view = producer_views.get(st.uid)
@@ -97,7 +118,9 @@ class LayerRunner:
                        self._apply_into_sink(d, st, view))
             else:
                 run = (lambda st=st, d=ds: st.transform(d))
-            ds = self._timed(st.stage_name, "transform", run)
+            ds = self._timed(st.stage_name, "transform", run, uid=st.uid,
+                             n_rows=len(ds))
+            self._check(ds, [st])
         return ds
 
     def _apply_tensor_stages(self, ds: Dataset,
@@ -220,8 +243,11 @@ class LayerRunner:
                         f"train the workflow first")
         self.walls = []
         sinks = self._plan_sinks(ds, dag)
-        for layer in dag.layers:
-            ds = self.apply_layer(ds, layer, sinks)  # type: ignore[arg-type]
+        for i, layer in enumerate(dag.layers):
+            with collector.trace_span(f"layer_{i}", kind="layer",
+                                      n_stages=len(layer)):
+                ds = self.apply_layer(ds, layer,  # type: ignore[arg-type]
+                                      sinks)
         return ds
 
     def fit_dag(self, ds: Dataset, dag: StagesDAG,
@@ -236,25 +262,28 @@ class LayerRunner:
         prefitted = prefitted or {}
         fitted_layers: List[List[Transformer]] = []
         self.walls = []
-        for layer in dag.layers:
-            fitted: List[Transformer] = []
-            for st in layer:
-                self._bind(st)
-                prev = prefitted.get(st.uid) \
-                    if isinstance(st, Estimator) else None
-                if prev is not None:
-                    # a copy: the source model's DAG still holds prev, and
-                    # rewiring it in place would corrupt that model
-                    prev = copy.deepcopy(prev)
-                    prev.set_input(*st.input_features)
-                    prev.set_output_name(st.output_name())
-                    fitted.append(prev)
-                elif isinstance(st, Estimator):
-                    data = _ensure_input_columns(ds, st)
-                    fitted.append(self._timed(st.stage_name, "fit",
-                                              lambda: st.fit(data)))
-                else:
-                    fitted.append(st)  # type: ignore[arg-type]
-            ds = self.apply_layer(ds, fitted)
-            fitted_layers.append(fitted)
+        for li, layer in enumerate(dag.layers):
+            with collector.trace_span(f"layer_{li}", kind="layer",
+                                      n_stages=len(layer)):
+                fitted: List[Transformer] = []
+                for st in layer:
+                    self._bind(st)
+                    prev = prefitted.get(st.uid) \
+                        if isinstance(st, Estimator) else None
+                    if prev is not None:
+                        # a copy: the source model's DAG still holds prev,
+                        # and rewiring it in place would corrupt that model
+                        prev = copy.deepcopy(prev)
+                        prev.set_input(*st.input_features)
+                        prev.set_output_name(st.output_name())
+                        fitted.append(prev)
+                    elif isinstance(st, Estimator):
+                        data = _ensure_input_columns(ds, st)
+                        fitted.append(self._timed(
+                            st.stage_name, "fit", lambda: st.fit(data),
+                            uid=st.uid, n_rows=len(data)))
+                    else:
+                        fitted.append(st)  # type: ignore[arg-type]
+                ds = self.apply_layer(ds, fitted)
+                fitted_layers.append(fitted)
         return ds, StagesDAG(layers=fitted_layers)  # type: ignore[arg-type]

@@ -15,7 +15,11 @@ before the DAG is fitted (filters/raw_feature_filter.py).
 `with_workflow_cv` refits the stages that feed the model selector inside
 each fold; `with_model_stages` reuses a fitted model's stages;
 `WorkflowModel.save` / `load` (workflow/io.py) write and read the JAX
-package's format. Not ported yet: insights, the runner and serving.
+package's format. train(), transform() and score() run with the cyclic
+garbage collector paused (utils/gcpause.py) and, while the run-metrics
+collector is on, as "workflow" spans of its trace. The runner
+(workflow/runner.py) drives a workflow by run type. Not ported yet:
+insights and serving.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from ..features.feature import Feature
 from ..readers.readers import KEY_COLUMN, Reader
 from ..stages.base import PipelineStage, Transformer
 from ..types import Prediction
+from ..utils.gcpause import paused_gc
+from ..utils.metrics import collector
 from .dag import (StagesDAG, collect_raw_features, compute_dag, cut_dag,
                   validate_stages)
 from .fitting import LayerRunner
@@ -148,6 +154,11 @@ class Workflow:
     def train(self) -> "WorkflowModel":
         """Fit the DAG layer by layer on the raw data (reference
         OpWorkflow.train:332)."""
+        with paused_gc(), collector.trace_span(
+                f"{type(self).__name__}.train", kind="workflow"):
+            return self._train()
+
+    def _train(self) -> "WorkflowModel":
         raw_data = self.generate_raw_data()
         dag = compute_dag(self._result_features)
         validate_stages(dag)
@@ -315,13 +326,17 @@ class WorkflowModel:
             if self._reader is None:
                 raise ValueError("score needs a dataset or a reader")
             ds = self._reader.generate_dataset(self.raw_features())
-        return self.runner.apply_dag(ds, self.dag)
+        with paused_gc(), collector.trace_span(
+                f"{type(self).__name__}.transform", kind="workflow",
+                n_rows=len(ds)):
+            return self.runner.apply_dag(ds, self.dag)
 
     def score(self, ds: Optional[Dataset] = None,
               keep_raw_features: bool = False) -> Dataset:
         """Reference saveScores:376 — keep result-feature columns (+ raw if
         asked), plus the row key when the reader produced one."""
-        full = self.transform(ds)
+        with paused_gc():
+            full = self.transform(ds)
         keep = [KEY_COLUMN] if KEY_COLUMN in full else []
         keep += [f.name for f in self.result_features if f.name in full]
         if keep_raw_features:
