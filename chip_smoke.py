@@ -179,7 +179,26 @@ Phases, each of which fails the run on error:
              and twice on the card: the matrix identical, the same winner,
              CV fold metrics within 1e-3 or a tie witness in that fold's
              lanes, the scores (predicted class, probabilities) within 1e-5
-             relative or a tie witness.
+             relative or a tie witness;
+18. serve — the model workflow-wide trained at 1M rows (saved there)
+             through the real CLI in subprocesses: `serve DIR
+             --prewarm-only --max-batch 64` (rc 0, buckets 1, 8, 16, 32 and
+             64 with each one's wall, serve.json's model_hash equal to
+             `model_content_hash`), then `serve DIR --port 0
+             --metrics-location M`: /healthz warm, 1 000 single-record
+             POSTs from 8 client threads, bulk bodies of 1, 3, 17, 63, 64
+             and 100 records, an unknown key and a value its type rejects
+             (400s naming them), every answer within 1e-5 of in-process
+             score() of the same records (a record missing a key included:
+             a saved model reads it as a missing value, as the JAX
+             package's does), /metrics (post_warmup_compiles 0, pad and
+             bucket rows, p50 / p95 / p99 of total, queue, assemble and
+             device time), SIGTERM (rc 0 after the drain), `trace-report M
+             --check` (rc 0) and `--requests`; then workflow-titanic's
+             model (a random forest won) in a ServingEngine in process: 200
+             new records within 1e-5 of score(), its local route on 20
+             within 1e-5 of the bucket route, and the four kernels' launch
+             counters unmoved while it serves.
 
 Float32 products stay in full f32: the run fails unless TF32 is off
 (`torch.backends.cuda.matmul.allow_tf32` False, float32 matmul precision
@@ -200,11 +219,13 @@ not beside this script.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1516,6 +1537,7 @@ def workflow_titanic_phase(rows: int, seed: int):
     t0 = time.perf_counter()
     scored = score(model, pred)
     score_s = time.perf_counter() - t0
+    HELD["tree"] = model
     ti_rows = kernel_rows([captured_shape(key, *captured[key],
                                           prefix="workflow-titanic")
                            for key in sorted(captured)], phase="titanic")
@@ -1759,6 +1781,7 @@ def workflow_wide_phase(rows: int, seed: int):
     kernels are timed, so no host work of its own delays a timed launch
     (`leg_wait_s`: how long the timing waited for it). Returns (ok,
     launches by capture key, kernel rows)."""
+    import tempfile
     import threading
     import numpy as np
     import torch
@@ -1814,6 +1837,14 @@ def workflow_wide_phase(rows: int, seed: int):
     scored = wide_scores(model, pred, new)
     score_s = time.perf_counter() - t0
     score_walls = stage_walls(model)
+    t0 = time.perf_counter()
+    wide_root = tempfile.mkdtemp(prefix="chip_smoke_wide_model_")
+    # removed at exit whatever fails between here and the serve phase
+    atexit.register(shutil.rmtree, wide_root, ignore_errors=True)
+    HELD["wide_dir"] = os.path.join(wide_root, "model")
+    model.save(HELD["wide_dir"])
+    save_s = time.perf_counter() - t0
+    del model
     main_s = time.perf_counter() - t_phase
 
     cpu = {}
@@ -1863,7 +1894,7 @@ def workflow_wide_phase(rows: int, seed: int):
         kernel_checks_s=checks_s, leg_wait_s=leg_wait["s"],
         raw_data_s=raw_s,
         train_s=train_s, score_s=score_s, score_rows=WIDE_SCORE_ROWS,
-        group_widths=widths, stage_walls_s=walls,
+        save_s=save_s, group_widths=widths, stage_walls_s=walls,
         score_stage_walls_s=score_walls, selector_walls_s=selector.walls,
         width_before=width, width_after=kept, flagged=len(sc.dropped),
         winner=[sel.best_model_name, sel.best_grid],
@@ -3693,6 +3724,330 @@ def captured_shape(key: str, name: str, args: tuple, kw: dict,
     return f"{prefix} {label}", name, S, args, kw
 
 
+# the models the serve phase reuses: workflow-wide's saved 1M-row model and
+# workflow-titanic's main-path model (a random forest won there), so phase
+# 18 serves without a train() of its own
+HELD = {}
+SERVE_RECORDS = 1_000        # single-record POSTs of the serve phase
+SERVE_CLIENTS = 8            # client threads sending them
+SERVE_BULKS = (1, 3, 17, 63, 64, 100)
+SERVE_TREE_RECORDS = 200     # records the tree ensemble scores in process
+SERVE_LOCAL_RECORDS = 20     # of them through the local route
+
+
+def wide_records(cols: dict) -> list:
+    """`wide_columns`' rows as the JSON records a client posts: the label
+    left out, NaN as null, numpy scalars as Python numbers, dates as
+    integer milliseconds."""
+    import numpy as np
+    names = [n for n in cols if n != "label"]
+    n_rows = len(cols[names[0]][1])
+    out = []
+    for i in range(n_rows):
+        rec = {}
+        for name in names:
+            t, arr = cols[name]
+            v = arr[i]
+            if isinstance(v, (float, np.floating)):
+                v = None if np.isnan(v) else (
+                    int(v) if t == "Date" else float(v))
+            elif isinstance(v, np.generic):
+                v = v.item()
+            rec[name] = v
+        out.append(rec)
+    return out
+
+
+def _http(port: int, method: str, path: str, body=None,
+          timeout: float = 60.0):
+    """(status, parsed JSON) of one request to the local server."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+    finally:
+        conn.close()
+
+
+def _max_result_diff(got: list, want: list, names: list) -> tuple:
+    """(largest |difference|, predictions identical) of scored rows against
+    expected rows: a Prediction's probabilities (or its prediction where it
+    has none), a numeric result as is."""
+    worst, same = 0.0, True
+    for g, w in zip(got, want):
+        for name in names:
+            a, b = g[name], w[name]
+            if isinstance(b, dict):
+                keys = [k for k in b if k.startswith("probability_")] \
+                    or ["prediction"]
+                worst = max(worst, max(abs(a[k] - b[k]) for k in keys))
+                same = same and a["prediction"] == b["prediction"]
+            elif b is None or a is None:
+                same = same and a is None and b is None
+            else:
+                worst = max(worst, abs(float(a) - float(b)))
+    return worst, same
+
+
+def _scored_rows(model, records: list) -> list:
+    """model.score() of `records` (a Dataset of its predictor raw features)
+    as the engine's row dicts."""
+    from transmogrifai_tpu_torch.readers import ListReader
+    from transmogrifai_tpu_torch.serve.engine import _row_value
+    ds = ListReader(records).generate_dataset(
+        [f for f in model.raw_features() if not f.is_response])
+    scored = model.score(ds)
+    cols = [(f.name, scored.column(f.name), f.feature_type)
+            for f in model.result_features]
+    return [{nm: _row_value(col, i, t) for nm, col, t in cols}
+            for i in range(len(records))]
+
+
+def _serve_cli(here: str, *args: str, timeout: float = 300.0):
+    """`python -m transmogrifai_tpu_torch` with `args` from the checkout."""
+    env = dict(os.environ, PYTHONPATH=here)
+    return subprocess.run([sys.executable, "-m", "transmogrifai_tpu_torch",
+                           *args], cwd=here, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def _cli_in_process(*args: str):
+    """transmogrifai_tpu_torch.cli.main(args) in this process: (returncode,
+    stdout) as a CompletedProcess (the trace reports need no card and no
+    process start of their own)."""
+    import io
+    from transmogrifai_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    return subprocess.CompletedProcess(list(args), rc, buf.getvalue(), "")
+
+
+def serve_http_leg(here: str, model_dir: str, records: list, bad: list,
+                   metrics_dir: str) -> dict:
+    """The real `serve` CLI in a subprocess on the card: wait for its
+    "serving ... on http://" line, then /healthz, `records` as single-record
+    POSTs from SERVE_CLIENTS threads, the SERVE_BULKS bodies, the `bad`
+    records, /metrics, SIGTERM. Returns what came back."""
+    import queue
+    import signal
+    import threading
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "transmogrifai_tpu_torch", "serve", model_dir,
+         "--port", "0", "--max-batch", "64", "--metrics-location",
+         metrics_dir], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    lines, ready = [], queue.Queue()
+
+    def read_log():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+            m = re.search(r"serving .* on http://[^:]+:(\d+)", line)
+            if m:
+                ready.put(int(m.group(1)))
+        ready.put(None)
+    reader = threading.Thread(target=read_log, daemon=True)
+    reader.start()
+    out = {}
+    try:
+        port = ready.get(timeout=240)
+        if port is None:
+            raise RuntimeError("serve exited before serving:\n"
+                               + "\n".join(lines[-20:]))
+        out["startup_s"] = time.perf_counter() - t0
+        out["healthz"] = _http(port, "GET", "/healthz")
+        singles = [None] * len(records)
+        errors = []
+
+        def client(k):
+            for i in range(k, len(records), SERVE_CLIENTS):
+                try:
+                    singles[i] = _http(port, "POST", "/score", records[i])
+                except Exception as e:          # counted, fails the phase
+                    errors.append(f"{type(e).__name__}: {e}")
+        t1 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        out["singles_s"] = time.perf_counter() - t1
+        out["singles"], out["client_errors"] = singles, errors
+        out["bulks"] = [_http(port, "POST", "/score", records[:n])
+                        for n in SERVE_BULKS]
+        out["bad"] = [_http(port, "POST", "/score", r) for r in bad]
+        out["metrics"] = _http(port, "GET", "/metrics")[1]
+        proc.send_signal(signal.SIGTERM)
+        out["rc"] = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    out["wall_s"] = time.perf_counter() - t0
+    out["log_tail"] = lines[-3:]
+    return out
+
+
+def serve_phase(model_dir: str, tree_model):
+    """18. serve: the workflow-wide model saved at `model_dir` served by the
+    real CLI, and a tree ensemble served in process. Returns (ok, summary).
+
+    `serve DIR --prewarm-only --max-batch 64` (rc 0, buckets 1..64, each
+    bucket's wall, serve.json's model_hash equal to model_content_hash);
+    then `serve DIR --port 0 --metrics-location M` answering SERVE_RECORDS
+    single-record POSTs from SERVE_CLIENTS threads, the SERVE_BULKS bodies
+    and three bad records, each answer held to in-process score() of the
+    same records (probabilities within 1e-5, the same prediction);
+    /metrics (post_warmup_compiles 0, pad and bucket rows, latency
+    quantiles), SIGTERM (rc 0 after the drain), `trace-report M --check`
+    (rc 0) and `--requests`. In process: a ServingEngine over `tree_model`
+    (its winner a random forest) on SERVE_TREE_RECORDS new
+    `titanic_named_records`, unlabeled, against score() within 1e-5, and its local route on SERVE_LOCAL_RECORDS
+    against the bucket route within 1e-5; the four kernels' launch counters
+    must not move while the engine serves. Everything serves on the card."""
+    import tempfile
+    import numpy as np
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.serve import ServingEngine
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    from transmogrifai_tpu_torch.workflow.io import model_content_hash
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    res, checks = {}, {}
+    records = wide_records(wide_columns(SERVE_RECORDS, SEED + 25))
+    model = WorkflowModel.load(model_dir)
+    names = [f.name for f in model.result_features]
+    missing = dict(records[0])
+    del missing["r1"]
+    bad = [dict(records[1], no_such_feature=1.0),          # unknown key
+           dict(records[2], r1="not-a-number")]            # type rejects
+    t0 = time.perf_counter()
+    want = _scored_rows(model, records + [missing])
+    res["in_process_score_s"] = time.perf_counter() - t0
+
+    # 1. the deploy-time prewarm
+    pw = _serve_cli(here, "serve", model_dir, "--prewarm-only",
+                    "--max-batch", "64")
+    summary = json.loads(pw.stdout.strip().splitlines()[-1])["prewarm"] \
+        if pw.returncode == 0 else {}
+    with open(os.path.join(model_dir, "serve.json")) as f:
+        manifest = json.load(f)
+    res["prewarm"] = dict(rc=pw.returncode, wall_s=summary.get("wall_s"),
+                          per_bucket=summary.get("per_bucket"),
+                          manifest_hash=manifest.get("model_hash"))
+    checks["prewarm"] = (
+        pw.returncode == 0 and summary["buckets"] == [1, 8, 16, 32, 64]
+        and [b["bucket"] for b in summary["per_bucket"]]
+        == [1, 8, 16, 32, 64]
+        and all(b["wall_s"] > 0 for b in summary["per_bucket"])
+        and manifest["model_hash"] == model_content_hash(model_dir))
+    if pw.returncode != 0:
+        log("serve --prewarm-only failed:\n" + pw.stderr[-3000:])
+
+    # 2. the server under traffic
+    metrics_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_metrics_")
+    try:
+        http = serve_http_leg(here, model_dir, records + [missing], bad,
+                              metrics_dir)
+        check = _cli_in_process("trace-report", metrics_dir, "--check")
+        reqs = _cli_in_process("trace-report", metrics_dir, "--requests")
+    finally:
+        shutil.rmtree(metrics_dir, ignore_errors=True)
+    singles = http["singles"]
+    single_ok = all(s is not None and s[0] == 200 for s in singles)
+    single_diff, single_same = _max_result_diff(
+        [s[1] for s in singles], want, names) if single_ok else (None, False)
+    bulk_ok = all(code == 200 and len(body) == n
+                  for (code, body), n in zip(http["bulks"], SERVE_BULKS))
+    bulk_diff, bulk_same = _max_result_diff(
+        [row for _, body in http["bulks"] for row in body],
+        [w for n in SERVE_BULKS for w in want[:n]], names) \
+        if bulk_ok else (None, False)
+    m = http["metrics"]
+    lat = {k: {q: m["latency"][k][q] for q in ("p50_ms", "p95_ms",
+                                               "p99_ms")}
+           for k in ("total", "queue_wait", "batch_assemble",
+                     "device_score")}
+    res["http"] = dict(
+        startup_s=http["startup_s"], singles_s=http["singles_s"],
+        wall_s=http["wall_s"], rc=http["rc"], healthz=http["healthz"],
+        single_requests=len(singles), single_max_diff=single_diff,
+        bulk_sizes=list(SERVE_BULKS), bulk_max_diff=bulk_diff,
+        missing_key_status=singles[-1][0] if singles[-1] else None,
+        bad=[[code, body.get("error_type"), body.get("error")]
+             for code, body in http["bad"]],
+        client_errors=http["client_errors"][:3],
+        requests=m["requests"], batches=m["batches"], rows=m["rows"],
+        pad_rows=m["pad_rows"], bucket_rows=m["bucket_rows"],
+        post_warmup_compiles=m["post_warmup_compiles"],
+        prewarm=m["prewarm"], latency_ms=lat,
+        trace_check_rc=check.returncode, trace_check=check.stdout[-300:],
+        requests_rc=reqs.returncode,
+        requests_report=reqs.stdout.splitlines()[:3],
+        log_tail=http["log_tail"])
+    checks["http"] = (
+        http["healthz"][0] == 200 and http["healthz"][1]["warm"] is True
+        and not http["client_errors"] and single_ok and single_same
+        and single_diff <= 1e-5 and bulk_ok and bulk_same
+        and bulk_diff <= 1e-5
+        and [c for c, _ in http["bad"]] == [400, 400]
+        and "no_such_feature" in http["bad"][0][1]["error"]
+        and "'r1'" in http["bad"][1][1]["error"]
+        and m["post_warmup_compiles"] == 0 and m["bucket_rows"] > 0
+        and http["rc"] == 0 and check.returncode == 0
+        and reqs.returncode == 0 and "kept trace" in reqs.stdout)
+
+    # 3. a tree ensemble in process: bucket route and local route
+    tree_records = [{k: v for k, v in r.items() if k != "survived"}
+                    for r in titanic_named_records(SERVE_TREE_RECORDS,
+                                                   SEED + 14)]
+    TK.reset_launches()
+    before = dict(TK.launches)
+    t0 = time.perf_counter()
+    tree_want = _scored_rows(tree_model, tree_records)
+    eng = ServingEngine(tree_model, max_batch=64)
+    eng.prewarm()
+    got = eng.score_batch(tree_records)
+    local = ServingEngine(tree_model, max_batch=64, single_record="local")
+    local.prewarm()
+    tree_names = [f.name for f in tree_model.result_features]
+    loc = [local.score_batch([r])[0]
+           for r in tree_records[:SERVE_LOCAL_RECORDS]]
+    tree_diff, tree_same = _max_result_diff(got, tree_want, tree_names)
+    local_diff, local_same = _max_result_diff(
+        loc, got[:SERVE_LOCAL_RECORDS], tree_names)
+    after = dict(TK.launches)
+    winner = tree_model.selector_summary().best_model_name
+    res["tree"] = dict(winner=winner, records=len(tree_records),
+                       wall_s=time.perf_counter() - t0,
+                       max_diff=tree_diff, local_max_diff=local_diff,
+                       engine_device=str(eng.device),
+                       launches_before=before, launches_after=after)
+    checks["tree"] = (winner in ("OpRandomForestClassifier",
+                                 "OpGBTClassifier",
+                                 "OpXGBoostClassifier")
+                      and eng.device.type == "cuda"
+                      and tree_diff <= 1e-5 and tree_same
+                      and local_diff <= 1e-5 and local_same
+                      and before == after
+                      and all(n == 0 for n in after.values()))
+    log("serve: kernel launch counters while serving: "
+        f"{before} -> {after} (unchanged: {before == after})")
+    res["checks"] = checks
+    res["phase_s"] = time.perf_counter() - t_phase
+    log("serve: " + json.dumps(res, default=str))
+    return all(checks.values()), res
+
+
 def tf32_phase() -> bool:
     """Float32 products must stay in full f32 (no TF32)."""
     import torch
@@ -3830,6 +4185,10 @@ def main() -> int:
     failures += [f"kernel {r['name']} ({r['shape']})" for r in mc_rows
                  if not r.pop("ok")]
     rows += mc_rows
+    torch.cuda.empty_cache()
+    serve_ok, _ = serve_phase(HELD.pop("wide_dir"), HELD.pop("tree"))
+    if not serve_ok:
+        failures.append("serve")
     for r in rows:
         key = r.pop("key")
         r["launches"] = counts[r["phase"]].get(key, 0)

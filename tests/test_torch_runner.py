@@ -11,6 +11,7 @@ run -> Train -> workflow -> layer -> stage hierarchy and passes
 `trace_report(check=True)`. StreamingScore raises, naming its unported
 reader.
 """
+import contextlib
 import json
 import os
 
@@ -96,31 +97,52 @@ def _run_all(pkg, List, Eval, root, dev=None):
     return out
 
 
+@contextlib.contextmanager
+def _own_collector(coll):
+    """`coll` off and without an event log inside the block, its earlier
+    state put back after. Another test file run earlier in the same worker
+    process may leave a package's collector on or its event log attached;
+    a runner then joins that collection and writes its events into that
+    log, not into its own metrics location."""
+    with coll._lock:
+        enabled, log = coll.enabled, coll._event_log
+        coll.enabled, coll._event_log = False, None
+    try:
+        yield
+    finally:
+        with coll._lock:
+            coll.enabled, coll._event_log = enabled, log
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("runner")
     (root / "jax").mkdir()
     (root / "port").mkdir()
-    try:
-        j = _run_all(JPKG, JList, JEval, root / "jax")
-    finally:
-        j_collector.disable()
-    p = _run_all(PPKG, PList, PEval, root / "port", dev="cpu")
-    return dict(jax=j, port=p, root=root)
+    with _own_collector(j_collector):
+        try:
+            j = _run_all(JPKG, JList, JEval, root / "jax")
+        finally:
+            j_collector.disable()
+    with _own_collector(collector):
+        p = _run_all(PPKG, PList, PEval, root / "port", dev="cpu")
+        port_left_on = collector.enabled or collector.has_event_log
+    return dict(jax=j, port=p, root=root, port_left_on=port_left_on)
 
 
 def test_artifacts_match_jax(runs):
     j, p = runs["jax"], runs["port"]
-    # the JAX package's save also writes its drift monitor's reference
-    # profile (monitor/, not ported)
-    j["files"]["model"].remove("monitor.json")
+    # the JAX package's save may also write its drift monitor's reference
+    # profile (monitor/, not ported; best-effort, so only where present)
+    if "monitor.json" in j["files"]["model"]:
+        j["files"]["model"].remove("monitor.json")
     assert p["files"] == j["files"]
     assert {"train_stage_metrics.json", "train_trace.json", "events.jsonl",
             "train_metrics.json", "score_metrics.json"} <= \
         set(p["files"]["metrics"])
     assert p["seen"] == j["seen"] == ["Train", "Score", "Evaluate",
                                       "Features"]
-    assert not collector.enabled and not collector.has_event_log
+    assert not runs["port_left_on"]
 
 
 def test_train_and_evaluate_match_jax(runs):

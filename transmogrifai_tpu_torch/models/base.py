@@ -9,7 +9,7 @@ models/prediction.py).
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -72,6 +72,12 @@ class PredictionModel(Transformer):
         X = np.asarray(vals[-1].value, dtype=np.float32)[None, :]
         return row_prediction(
             make_prediction_column(*self.predict_arrays(X)), 0)
+
+    def transform_keyvalue(self, row: Dict[str, Any]) -> Any:
+        X = np.asarray(row.get(self.input_names()[-1]),
+                       dtype=np.float32)[None, :]
+        return row_prediction(
+            make_prediction_column(*self.predict_arrays(X)), 0).value
 
 
 class PredictorEstimator(Estimator):

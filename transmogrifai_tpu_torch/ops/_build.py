@@ -14,7 +14,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from ..utils import tracing
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "tree_kernels.cu"
@@ -54,12 +57,17 @@ def nvcc_path() -> str:
 
 
 def _compile() -> Path:
+    """The built library, built now unless this source and these flags were
+    built before. The tracker of utils/tracing counts a build as a compile
+    and a load of an earlier build as a cache hit."""
     global build_log
     digest = hashlib.sha1(SOURCE.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"tree_kernels-{digest}.so"
     if out.exists():
+        tracing.tracker.note_cache_hit("tree_kernels")
         return out
+    t0 = time.perf_counter()
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -69,6 +77,7 @@ def _compile() -> Path:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
+    tracing.tracker.note_build("tree_kernels", time.perf_counter() - t0)
     return out
 
 

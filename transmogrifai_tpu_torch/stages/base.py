@@ -10,7 +10,8 @@ expose a traceable ``get_jax_fn``, the port's expose ``get_torch_fn``: a
 pure function of tensors, batched over rows, with the same meaning. The
 workflow's layer runner runs every such function of a DAG layer on device
 tensors in one pass (workflow/fitting.py). A per-row path
-(``transform_value``) remains for local scoring and contract tests.
+(``transform_value``, and ``transform_keyvalue`` over a record dict)
+remains for local scoring and contract tests.
 
 Every stage carries a `device` (None = unset): the workflow's layer runner
 fills it from `Workflow(device=...)` for each stage that has none, and a
@@ -289,6 +290,25 @@ class Transformer(PipelineStage):
         cols = [ds.column(n) for n in self.input_names()]
         out = self.transform_columns(*cols)
         return ds.with_column(self.output_name(), out)
+
+    def transform_keyvalue(self, row: Dict[str, Any]) -> Any:
+        """Row-level scoring protocol (reference OpTransformer
+        .transformKeyValue:551) of the local scorer: dict in, raw output
+        value out. Serving records carry no labels: a missing response value
+        becomes a placeholder (fitted transformers never read responses) so
+        non-nullable response types (RealNN) do not reject None."""
+        vals = []
+        for f in self._input_features:
+            t = f.feature_type
+            v = row.get(f.name)
+            if v is None and f.is_response:
+                try:
+                    vals.append(t(None))
+                except Exception:
+                    vals.append(t(0.0))
+            else:
+                vals.append(t(v))
+        return self.transform_value(*vals).value
 
 
 class Estimator(PipelineStage):

@@ -377,6 +377,8 @@ class MetricsCollector:
             self.current = AppMetrics(app_name=app_name,
                                       start_time=time.time())
             self.trace = TraceTree(device)
+            # the cold-start tracker counts while a run is collected
+            tracing.tracker.activate(self.trace)
             self.trace.open(app_name, "run")
 
     @property
@@ -389,6 +391,7 @@ class MetricsCollector:
     def disable(self) -> None:
         with self._lock:
             self.enabled = False
+            tracing.tracker.deactivate()
 
     def finish(self) -> AppMetrics:
         """Close the run. Idempotent: end_time freezes on the first call."""

@@ -15,9 +15,13 @@ Three consumers, one tree:
 - a streaming JSONL event log (`EventLog`) of timestamped run events, so
   a long sweep can be followed by tailing one file.
 
-`trace_report(dir)` renders the spans by self time, the kernel roofline
-table and the device memory peak; `trace_report(dir, check=True)` is the
-schema validator.
+`trace_report(dir)` renders the spans by self time, the cold starts per
+program, the kernel roofline table and the device memory peak;
+`trace_report(dir, check=True)` is the schema validator, and fails a run
+whose event log holds a `serve_recompile` or `drift_alert` event.
+`requests_report(dir)` renders the kept request traces of a served run
+(serve/reqtrace.py). `tracker` counts what the port pays on first use
+where the JAX package counts XLA compiles (`RecompileTracker`).
 
 The module imports torch only inside `device_memory_attrs` and
 `DevicePeaks`, and touches CUDA only when it is already initialised, so
@@ -35,9 +39,11 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
-    "Span", "TraceTree", "DevicePeaks", "EventLog", "device_memory_attrs",
-    "chrome_trace", "write_chrome_trace", "trace_report", "trace_report_rc",
-    "event_log_paths", "iter_events", "fmt_table",
+    "Span", "TraceTree", "DevicePeaks", "RecompileTracker", "tracker",
+    "EventLog", "device_memory_attrs", "chrome_trace", "write_chrome_trace",
+    "trace_report", "trace_report_rc", "event_log_paths", "iter_events",
+    "follow_events", "load_request_traces", "requests_report",
+    "requests_report_rc", "fmt_table",
 ]
 
 
@@ -286,6 +292,125 @@ class TraceTree:
         return [s.to_json() for s in self.spans]
 
 
+# -- cold-start attribution --------------------------------------------------
+
+class RecompileTracker:
+    """Counts the port's cold starts and books each to the innermost open
+    span (counterpart of the JAX package's RecompileTracker, which counts
+    XLA compiles).
+
+    An eager PyTorch program compiles nothing per batch shape. What a first
+    call pays on the port's request path, and what this tracker counts as
+    a compile, is:
+
+    - an nvcc build of the kernel library (`ops/_build._compile`,
+      `note_build`);
+    - a new memory segment that the CUDA caching allocator reserves on a
+      serving device: `sample_allocator(device)` books the growth of
+      ``torch.cuda.memory_stats(device)["segment.all.allocated"]`` since
+      its last read of that device (a cudaMalloc on the request path is
+      the eager form of a cold start; the first read of a device after
+      `activate` only sets the baseline).
+
+    A load of an already-built library from `ops/_build.BUILD_DIR` counts
+    as a cache hit (`note_cache_hit`). `total_compiles` counts all three,
+    `true_compiles` leaves the cache hits out: the JAX package's field
+    names, so the serving engine's `post_warmup_compiles`, its
+    `serve_recompile` event and `trace-report --check` read alike in both
+    packages. Counting runs while a collected run is open
+    (`utils.metrics.collector.enable` activates the tracker)."""
+
+    def __init__(self) -> None:
+        self._tree: Optional[TraceTree] = None
+        self.total_compiles = 0
+        self.total_compile_seconds = 0.0
+        self.total_cache_hits = 0
+        self.by_program: Dict[str, int] = {}
+        # device -> the allocator's cumulative segment count at the last read
+        self._segments: Dict[str, int] = {}
+        # the counters are bumped from the serving dispatcher, HTTP worker
+        # threads (bulk requests) and the build; /metrics reads them from
+        # another. Ordering: _lock may be held while taking the tree's lock
+        self._lock = threading.RLock()
+
+    @property
+    def true_compiles(self) -> int:
+        """Builds and new allocator segments (cache hits excluded): the
+        serving engine's zero-cold-start contract counts these."""
+        with self._lock:
+            return max(self.total_compiles - self.total_cache_hits, 0)
+
+    def activate(self, tree: TraceTree) -> None:
+        with self._lock:
+            self._tree = tree
+            self.total_compiles = 0
+            self.total_compile_seconds = 0.0
+            self.total_cache_hits = 0
+            self.by_program = {}
+            self._segments = {}
+
+    def deactivate(self) -> None:
+        with self._lock:
+            self._tree = None
+
+    def _book(self, program: str, n: int = 1, seconds: float = 0.0,
+              hit: bool = False) -> None:
+        with self._lock:
+            tree = self._tree
+            if tree is None or n <= 0:
+                return
+            self.total_compiles += n
+            self.total_compile_seconds += float(seconds)
+            if hit:
+                self.total_cache_hits += n
+            self.by_program[program] = self.by_program.get(program, 0) + n
+            with tree._lock:
+                sp = tree.current()
+                if sp is None:
+                    return
+                sp.attrs["compiles"] = int(sp.attrs.get("compiles", 0)) + n
+                sp.attrs["compile_seconds"] = round(
+                    float(sp.attrs.get("compile_seconds", 0.0))
+                    + float(seconds), 4)
+                if hit:
+                    sp.attrs["cache_hits"] = \
+                        int(sp.attrs.get("cache_hits", 0)) + n
+
+    def note_build(self, program: str, seconds: float) -> None:
+        """One nvcc build of `program` that took `seconds`."""
+        self._book(program, 1, seconds)
+
+    def note_cache_hit(self, program: str) -> None:
+        """One load of an already-built `program`."""
+        self._book(program, 1, hit=True)
+
+    def sample_allocator(self, device: Any = None) -> int:
+        """Book the segments the caching allocator reserved on `device`
+        (None: the current CUDA device) since the last read; returns how
+        many. 0 on the CPU, where CUDA is not initialised, and while no
+        run is collected."""
+        dev = _cuda_device(device)
+        if dev is None:
+            return 0
+        import torch
+        n = int(torch.cuda.memory_stats(dev).get("segment.all.allocated", 0))
+        key = str(dev if dev.index is not None
+                  else torch.device("cuda", torch.cuda.current_device()))
+        with self._lock:
+            if self._tree is None:
+                return 0
+            last = self._segments.get(key)
+            self._segments[key] = n
+        new = 0 if last is None else n - last
+        if new > 0:
+            self._book("allocator_segment", new)
+        return max(new, 0)
+
+
+#: process-wide tracker the collector activates per enable()
+tracker = RecompileTracker()
+
+
 # -- streaming event log -----------------------------------------------------
 
 #: default events.jsonl rotation threshold: an offline run never gets near
@@ -420,6 +545,119 @@ def iter_events(path: str) -> Any:
                         continue
         except OSError:
             continue
+
+
+def follow_events(path: str, *, stop: Optional[threading.Event] = None,
+                  poll_s: float = 0.1, from_start: bool = False) -> Any:
+    """Tail-subscribe to a (possibly rotating) event log: yield every parsed
+    event whose `seq` is greater than the last one seen, until `stop` is
+    set.
+
+    It keeps an open handle and a byte offset on the live file and reads
+    only appended lines each poll. `seq` strictly increases across the
+    ``events.jsonl.N`` boundaries (the EventLog's contract), so when the
+    live file is replaced under the handle (a new inode, or the file
+    shrank) the follower rescans every segment oldest first
+    (:func:`iter_events`) and yields only records past the last seq: an
+    event appended just before the shift is seen once, from the ``.1``
+    segment. A segment dropped past `keep` between polls is lost. A torn
+    last line (a writer mid-append) waits for its newline; records without
+    an integer `seq` are skipped.
+
+    `from_start=False` (default) begins after the current end of the log:
+    a subscriber attaching to a long-running server does not replay its
+    history. The log may not exist yet; the follower waits for it."""
+    last = -1
+    # a tail-mode attach consumes the first full scan silently (advancing
+    # `last` past the history), so history is parsed once either way
+    primed = from_start
+
+    f = None
+    ino = None
+
+    def _close():
+        nonlocal f, ino
+        if f is not None:
+            try:
+                f.close()
+            except OSError:
+                pass
+        f, ino = None, None
+
+    def _parse(line: str):
+        nonlocal last
+        line = line.strip()
+        if not line:
+            return None
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            return None
+        s = rec.get("seq") if isinstance(rec, dict) else None
+        if not isinstance(s, int) or s <= last:
+            return None
+        last = s
+        return rec
+
+    try:
+        while stop is None or not stop.is_set():
+            rotated = False
+            try:
+                st = os.stat(path)
+            except OSError:
+                _close()
+                st = None
+                if not primed:
+                    # no live file at attach time: skip the rotated history
+                    # that already exists; whatever lands later is new
+                    for rec in iter_events(path):
+                        s = rec.get("seq")
+                        if isinstance(s, int) and s > last:
+                            last = s
+                    primed = True
+            if st is not None:
+                if f is None or st.st_ino != ino \
+                        or st.st_size < f.tell():
+                    # a fresh file under the path: the first attach, a
+                    # rotation, or a truncate in place. Catch up through
+                    # every segment by seq (on a first attach with
+                    # from_start=False this only advances `last`)
+                    rotated = True
+                    _close()
+                    for rec in iter_events(path):
+                        s = rec.get("seq")
+                        if isinstance(s, int) and s > last:
+                            last = s
+                            if primed:
+                                yield rec
+                    primed = True
+                    try:
+                        # read the live file from byte 0: lines the rescan
+                        # yielded drop by seq, and a line appended between
+                        # the rescan and this open is not missed
+                        f = open(path, encoding="utf-8")
+                        ino = st.st_ino
+                    except OSError:
+                        _close()
+                if f is not None and not rotated:
+                    while True:
+                        pos = f.tell()
+                        line = f.readline()
+                        if not line:
+                            break
+                        if not line.endswith("\n"):
+                            # torn tail: re-read once the line completes
+                            f.seek(pos)
+                            break
+                        rec = _parse(line)
+                        if rec is not None:
+                            yield rec
+            if stop is None:
+                time.sleep(poll_s)
+            elif stop.wait(poll_s):
+                return
+    finally:
+        _close()
 
 
 # -- Chrome trace_event export -----------------------------------------------
@@ -641,6 +879,21 @@ def trace_report(run_dir: str, check: bool = False,
     if log_paths:
         n_events, probs, event_counts = _check_event_log(log_paths)
         problems.extend(probs)
+        # serving contract: the engine emits one serve_recompile event for
+        # every cold start (a build, a new allocator segment) that lands
+        # after its warmup; under the prewarmed bucket ladder there must
+        # be none, so such an event fails --check like a schema problem
+        n_rc = event_counts.get("serve_recompile", 0)
+        if n_rc:
+            problems.append(
+                f"{event_log}: {n_rc} serve_recompile event(s) — "
+                f"cold start(s) landed after serving warmup")
+        # a drift_alert (the JAX package's serve-side monitor) fails too
+        n_da = event_counts.get("drift_alert", 0)
+        if n_da:
+            problems.append(
+                f"{event_log}: {n_da} drift_alert event(s) — serve-time "
+                f"feature/prediction drift exceeded policy thresholds")
 
     for mf in metric_files:
         try:
@@ -692,6 +945,26 @@ def trace_report(run_dir: str, check: bool = False,
             table, ["span", "kind", "total_s", "self_s", "peak_gb",
                     "err"]))
 
+        # cold starts (builds, allocator segments) per program (span name)
+        comp: Dict[str, Tuple[int, float]] = {}
+        for _, ev in all_spans:
+            args = ev.get("args", {})
+            c = args.get("compiles")
+            if c:
+                n, sec = comp.get(ev.get("name", "?"), (0, 0.0))
+                comp[ev.get("name", "?")] = (
+                    n + int(c),
+                    sec + float(args.get("compile_seconds", 0.0)))
+        lines.append("\n## Recompiles per program")
+        if comp:
+            lines.extend(fmt_table(
+                [[name[:48], str(n), f"{sec:.2f}"]
+                 for name, (n, sec) in
+                 sorted(comp.items(), key=lambda kv: -kv[1][0])],
+                ["program", "compiles", "compile_s"]))
+        else:
+            lines.append("(none recorded)")
+
         # roofline table from kernel spans
         kern = [ev for _, ev in all_spans if ev.get("cat") == "kernel"]
         if kern:
@@ -729,3 +1002,131 @@ def trace_report(run_dir: str, check: bool = False,
 
 def _gb(n: Any) -> str:
     return f"{n / 1e9:.3f}" if isinstance(n, (int, float)) else ""
+
+
+# -- trace-report --requests -------------------------------------------------
+
+#: a request is flagged when its unattributed wall (e2e minus the sum of its
+#: segments) exceeds both bounds: the fraction catches slow requests hiding
+#: time outside the segment chain, the floor keeps millisecond requests from
+#: flagging on scheduler-wake jitter
+REQUEST_COVERAGE_TOLERANCE = 0.25
+REQUEST_COVERAGE_FLOOR_MS = 25.0
+
+
+def load_request_traces(run_dir: str) -> List[Dict[str, Any]]:
+    """Every `request_trace` event under `run_dir` (the kept traces of the
+    tail sampler, serve/reqtrace.py), across rotated segments, oldest
+    first."""
+    path = os.path.join(run_dir, "events.jsonl")
+    return [rec for rec in iter_events(path)
+            if rec.get("event") == "request_trace"]
+
+
+def _coverage_problems(recs: List[Dict[str, Any]],
+                       tolerance: float, floor_ms: float) -> List[str]:
+    problems: List[str] = []
+    by_id: Dict[str, Dict[str, float]] = {}
+    for rec in recs:
+        tid = rec.get("trace_id")
+        wall = rec.get("wall_ms")
+        segs = rec.get("segments") or {}
+        if not isinstance(wall, (int, float)) or isinstance(wall, bool):
+            problems.append(f"request {tid}: non-numeric wall_ms")
+            continue
+        seg_sum = sum(float(v) for v in segs.values()
+                      if isinstance(v, (int, float)))
+        slack = max(tolerance * wall, floor_ms)
+        label = f"{rec.get('origin', '?')} request {tid}"
+        if wall - seg_sum > slack:
+            problems.append(
+                f"{label}: segments cover {seg_sum:.1f}ms of "
+                f"{wall:.1f}ms e2e wall ({wall - seg_sum:.1f}ms "
+                f"unattributed > {slack:.1f}ms tolerance)")
+        elif seg_sum - wall > slack:
+            problems.append(
+                f"{label}: segments sum to {seg_sum:.1f}ms, OVER the "
+                f"{wall:.1f}ms e2e wall by more than {slack:.1f}ms")
+        if isinstance(tid, str):
+            by_id.setdefault(tid, {})[rec.get("origin", "?")] = \
+                float(wall)
+    # across processes, durations only (two hosts' clocks never meet): a
+    # replica's e2e wall for a trace must fit inside the router's wall for
+    # the same trace id, plus slack for serialization and transport
+    for tid, origins in by_id.items():
+        rep, rout = origins.get("replica"), origins.get("router")
+        if rep is None or rout is None:
+            continue
+        slack = max(tolerance * rout, floor_ms)
+        if rep > rout + slack:
+            problems.append(
+                f"request {tid}: replica-side wall {rep:.1f}ms exceeds "
+                f"the router-side wall {rout:.1f}ms for the same trace")
+    return problems
+
+
+def requests_report(run_dir: str, top: int = 15,
+                    tolerance: float = REQUEST_COVERAGE_TOLERANCE,
+                    floor_ms: float = REQUEST_COVERAGE_FLOOR_MS
+                    ) -> Tuple[str, bool]:
+    """(report text, ok) over the kept request traces of a run dir: the
+    `top` slowest with their segment breakdown, the kept reasons, and the
+    coverage check (ok=False when a request's segments do not cover its
+    end-to-end wall within tolerance)."""
+    recs = load_request_traces(run_dir)
+    if not recs:
+        return (f"trace-report --requests: no request_trace events in "
+                f"{run_dir} (request tracing off, or no kept traces)",
+                False)
+    problems = _coverage_problems(recs, tolerance, floor_ms)
+    lines = [f"# trace-report --requests {run_dir}",
+             f"{len(recs)} kept trace(s)"]
+    reasons: Dict[str, int] = {}
+    for rec in recs:
+        k = str(rec.get("kept", "?"))
+        reasons[k] = reasons.get(k, 0) + 1
+    lines.append("kept by reason: " + ", ".join(
+        f"{k}={v}" for k, v in sorted(reasons.items(), key=lambda kv:
+                                      -kv[1])))
+    ranked = sorted(
+        recs, key=lambda r: -(r.get("wall_ms")
+                              if isinstance(r.get("wall_ms"),
+                                            (int, float)) else 0.0))
+    rows = []
+    for rec in ranked[:top]:
+        segs = rec.get("segments") or {}
+        seg_sum = sum(float(v) for v in segs.values()
+                      if isinstance(v, (int, float)))
+        wall = rec.get("wall_ms")
+        cover = (f"{100.0 * seg_sum / wall:.0f}%"
+                 if isinstance(wall, (int, float)) and wall else "?")
+        rows.append([str(rec.get("trace_id", "?"))[:16],
+                     str(rec.get("origin", "?")),
+                     str(rec.get("replica", ""))[:20],
+                     str(rec.get("status", "")),
+                     str(rec.get("kept", "")),
+                     f"{wall:.2f}" if isinstance(wall, (int, float))
+                     else "?",
+                     cover,
+                     " ".join(f"{k}={v:.2f}" for k, v in segs.items()
+                              if isinstance(v, (int, float)))[:72]])
+    lines.append(f"\n## Top {min(top, len(ranked))} slowest kept traces")
+    lines.extend(fmt_table(rows, ["trace", "origin", "replica",
+                                  "status", "kept", "wall_ms", "cover",
+                                  "segments_ms"]))
+    if problems:
+        lines.append(f"\n## {len(problems)} coverage problem(s)")
+        lines.extend(f"  {p}" for p in problems)
+    else:
+        lines.append("\ncoverage OK (every kept trace's segments cover "
+                     "its e2e wall within tolerance)")
+    return "\n".join(lines), not problems
+
+
+def requests_report_rc(run_dir: str, top: int = 15) -> Tuple[str, int]:
+    """(text, exit code): 0 = clean, 1 = coverage problems, 2 = nothing to
+    read (no kept request traces at all)."""
+    text, ok = requests_report(run_dir, top=top)
+    if text.startswith("trace-report --requests: no request_trace"):
+        return text, 2
+    return text, 0 if ok else 1

@@ -16,7 +16,9 @@ stage it fits or runs that has none; a stage given its own device keeps
 it. `walls` holds the wall seconds of every fit and transform of its last
 run (`fit_dag` or `apply_dag`), in order. While the run-metrics collector
 is on (utils/metrics.collector) each layer is a "layer" span and each fit
-and transform a "stage" span of its trace; inside
+and transform a "stage" span of its trace; `apply_dag(..., traced=False)`
+(the serving path, WorkflowModel.score_fixed) keeps neither spans nor
+walls; inside
 `utils.sanitizers.debug_nans()` / `debug_infs()` every column a stage
 outputs is checked for NaN / Inf it produced. Missing response columns at
 scoring time are synthesized as all-NaN columns so (label, features) stages
@@ -24,6 +26,7 @@ score without labels.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -68,7 +71,10 @@ class LayerRunner:
             stage.device = self.device
 
     def _timed(self, stage: str, op: str, fn: Callable[[], Any],
-               uid: str = "", n_rows: int = 0, n_fused: int = 1) -> Any:
+               uid: str = "", n_rows: int = 0, n_fused: int = 1,
+               traced: bool = True) -> Any:
+        if not traced:
+            return fn()
         t0 = time.perf_counter()
         with collector.span(stage[:120], uid, op, n_rows=n_rows,
                             n_stages_fused=n_fused):
@@ -89,7 +95,8 @@ class LayerRunner:
     # -- one layer ---------------------------------------------------------
     def apply_layer(self, ds: Dataset,
                     transformers: Sequence[Transformer],
-                    sinks: Optional[Tuple[Dict, Dict]] = None) -> Dataset:
+                    sinks: Optional[Tuple[Dict, Dict]] = None,
+                    traced: bool = True) -> Dataset:
         producer_views, combiner_plans = sinks or ({}, {})
         for st in transformers:
             self._bind(st)
@@ -105,7 +112,7 @@ class LayerRunner:
                              "fused-transform",
                              lambda: self._apply_tensor_stages(ds, tensor),
                              uid=tensor[0].uid, n_rows=len(ds),
-                             n_fused=len(tensor))
+                             n_fused=len(tensor), traced=traced)
             self._check(ds, tensor)
         for st in host:
             plan = combiner_plans.get(st.uid)
@@ -119,7 +126,7 @@ class LayerRunner:
             else:
                 run = (lambda st=st, d=ds: st.transform(d))
             ds = self._timed(st.stage_name, "transform", run, uid=st.uid,
-                             n_rows=len(ds))
+                             n_rows=len(ds), traced=traced)
             self._check(ds, [st])
         return ds
 
@@ -232,9 +239,12 @@ class LayerRunner:
         return producer_views, combiner_plans
 
     # -- whole DAG ---------------------------------------------------------
-    def apply_dag(self, ds: Dataset, dag: StagesDAG) -> Dataset:
+    def apply_dag(self, ds: Dataset, dag: StagesDAG,
+                  traced: bool = True) -> Dataset:
         """Score path: every stage must already be a transformer (reference
-        OpWorkflowCore.applyTransformationsDAG:290)."""
+        OpWorkflowCore.applyTransformationsDAG:290). traced=False skips the
+        per-layer and per-stage spans and walls (the serving path,
+        WorkflowModel.score_fixed)."""
         for layer in dag.layers:
             for st in layer:
                 if isinstance(st, Estimator):
@@ -244,10 +254,12 @@ class LayerRunner:
         self.walls = []
         sinks = self._plan_sinks(ds, dag)
         for i, layer in enumerate(dag.layers):
-            with collector.trace_span(f"layer_{i}", kind="layer",
-                                      n_stages=len(layer)):
+            span = collector.trace_span(f"layer_{i}", kind="layer",
+                                        n_stages=len(layer)) if traced \
+                else contextlib.nullcontext()
+            with span:
                 ds = self.apply_layer(ds, layer,  # type: ignore[arg-type]
-                                      sinks)
+                                      sinks, traced=traced)
         return ds
 
     def fit_dag(self, ds: Dataset, dag: StagesDAG,

@@ -8,11 +8,15 @@ into ``arrays.npz`` (stages/registry.pack_args); loading rebuilds every stage
 through the registry and re-wires the feature lineage graph. The keys, class
 names, uids and layers are the JAX package's, so a model saved by either
 package loads in the other. `load_model(path, device=...)` places every
-fitted stage on that device (None: CUDA, as at every entry point).
+fitted stage on that device (None: CUDA, as at every entry point) and
+remembers the directory as `model.source_path`.
 
-Not ported: the drift monitor's reference profile written beside the model
-(`save_profile_for`, monitor.json) and the serving manifest with its content
-hash (serve.json).
+The serving manifest (serve.json) records what `serve --prewarm-only`
+prewarmed beside the model, stamped with the model's content hash so a
+later start can tell whether it still describes this artifact. The drift
+monitor's reference profile (monitor.json) is the JAX package's
+(monitor/, not ported): the port writes none, and reads one only to
+stamp and verify the manifest as the JAX package does.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from .workflow import WorkflowModel
 
 MODEL_JSON = "op-model.json"
 ARRAYS_NPZ = "arrays.npz"
+SERVE_JSON = "serve.json"
+MONITOR_JSON = "monitor.json"
 FORMAT_VERSION = 1
 
 
@@ -181,9 +187,123 @@ def load_model(path: str,
         from ..filters.raw_feature_filter import RawFeatureFilterResults
         rff = RawFeatureFilterResults.from_json(doc["raw_feature_filter"])
 
-    return WorkflowModel(
+    model = WorkflowModel(
         result_features=[feats[u] for u in doc["result_feature_uids"]],
         dag=dag, runner=LayerRunner(device),
         blacklist=doc.get("blacklisted_features", []),
         rff_results=rff,
     )
+    # where the artifact lives: the serving engine reads the prewarm
+    # manifest (serve.json) beside it
+    model.source_path = path
+    return model
+
+
+# -- serving prewarm manifest -------------------------------------------------
+# `serve --prewarm-only` records the bucket ladder and template record it
+# prewarmed beside the model; a later `serve <dir>` prewarms the same
+# ladder. The manifest stamps the model's content hash and whether a
+# monitor profile existed at prewarm time, and adoption verifies both: a
+# model re-saved after the prewarm no longer matches what was prewarmed.
+
+def model_content_hash(model_dir: Optional[str]) -> Optional[str]:
+    """Content hash of the model artifact (op-model.json + arrays.npz), 16
+    hex chars: the identity serve.json stamps at --prewarm-only time and
+    every adoption re-computes. None when there is no artifact."""
+    import hashlib
+
+    if not model_dir or not os.path.exists(os.path.join(model_dir,
+                                                        MODEL_JSON)):
+        return None
+    h = hashlib.sha256()
+    for fname in (MODEL_JSON, ARRAYS_NPZ):
+        p = os.path.join(model_dir, fname)
+        h.update(fname.encode())
+        if not os.path.exists(p):
+            h.update(b"|absent")
+            continue
+        with open(p, "rb") as fh:
+            for chunk in iter(lambda: fh.read(1 << 20), b""):
+                h.update(chunk)
+    return h.hexdigest()[:16]
+
+
+def manifest_stamp(model_dir: Optional[str]) -> Dict[str, Any]:
+    """The freshness fields `serve --prewarm-only` stamps into serve.json:
+    the model content hash and whether a monitor.json reference profile was
+    present when the ladder was prewarmed."""
+    return {
+        "model_hash": model_content_hash(model_dir),
+        "monitor_profile": bool(
+            model_dir
+            and os.path.exists(os.path.join(model_dir, MONITOR_JSON))),
+    }
+
+
+def verify_serve_manifest(model_dir: Optional[str],
+                          manifest: Optional[Dict[str, Any]]
+                          ) -> List[str]:
+    """Mismatch strings for a manifest adopted against the artifact as it
+    is now; an empty list means fresh (a manifest without the stamp
+    verifies vacuously). The serving engine warns on any mismatch and
+    `serve --strict-manifest` refuses to start on it (rc 2)."""
+    problems: List[str] = []
+    if not manifest or not model_dir:
+        return problems
+    stamped = manifest.get("model_hash")
+    if stamped is not None:
+        now = model_content_hash(model_dir)
+        if now != stamped:
+            problems.append(
+                f"model_hash {now} != manifest {stamped} (model re-saved "
+                f"after `serve --prewarm-only`; prewarm will miss the "
+                f"persistent cache)")
+    if "monitor_profile" in manifest:
+        has_prof = os.path.exists(os.path.join(model_dir, MONITOR_JSON))
+        if bool(manifest["monitor_profile"]) != has_prof:
+            problems.append(
+                f"monitor.json {'appeared' if has_prof else 'vanished'} "
+                f"since the manifest was written (monitor_profile="
+                f"{manifest['monitor_profile']})")
+    return problems
+
+
+def save_serve_manifest(model_dir: str, manifest: Dict[str, Any]) -> str:
+    p = os.path.join(model_dir, SERVE_JSON)
+    with open(p, "w") as fh:
+        json.dump(manifest, fh, indent=1, default=str)
+    return p
+
+
+def load_serve_manifest(model_dir: Optional[str]) -> Optional[Dict[str, Any]]:
+    if not model_dir:
+        return None
+    p = os.path.join(model_dir, SERVE_JSON)
+    if not os.path.exists(p):
+        return None
+    try:
+        with open(p) as fh:
+            doc = json.load(fh)
+        return doc if isinstance(doc, dict) else None
+    except (OSError, json.JSONDecodeError):
+        return None  # a corrupt manifest must not block serving startup
+
+
+def load_monitor_profile(model_dir: Optional[str]
+                         ) -> Optional[Dict[str, Any]]:
+    """The JAX package's drift-monitor reference profile beside a model
+    (monitor.json), or None when absent or unreadable. The port has no
+    drift monitor: `serve` reads this only to say that it serves such a
+    model unmonitored."""
+    if not model_dir:
+        return None
+    p = os.path.join(model_dir, MONITOR_JSON)
+    if not os.path.exists(p):
+        return None
+    try:
+        with open(p) as fh:
+            doc = json.load(fh)
+        return doc if isinstance(doc, dict) and doc.get("features") \
+            is not None else None
+    except (OSError, json.JSONDecodeError):
+        return None

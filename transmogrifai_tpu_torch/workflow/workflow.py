@@ -18,14 +18,16 @@ each fold; `with_model_stages` reuses a fitted model's stages;
 package's format. train(), transform() and score() run with the cyclic
 garbage collector paused (utils/gcpause.py) and, while the run-metrics
 collector is on, as "workflow" spans of its trace. The runner
-(workflow/runner.py) drives a workflow by run type. Not ported yet:
-insights and serving.
+(workflow/runner.py) drives a workflow by run type. A fitted model serves
+through `score_fixed` (the engine's fixed-shape batches, no spans),
+`score_function()` (local/scoring.py, one record replayed on the CPU) and
+`serving_engine()` (serve/engine.py). Not ported yet: insights.
 """
 from __future__ import annotations
 
 import json
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -299,6 +301,8 @@ class WorkflowModel:
         self.rff_results = rff_results
         self._train_data: Optional[Dataset] = None
         self._reader: Optional[Reader] = None
+        # the directory a loaded model came from (workflow/io.load_model)
+        self.source_path: Optional[str] = None
 
     @property
     def device(self) -> DeviceLike:
@@ -342,6 +346,17 @@ class WorkflowModel:
         if keep_raw_features:
             keep = [f.name for f in self.raw_features() if f.name in full] \
                 + keep
+        return full.select(keep)
+
+    def score_fixed(self, ds: Dataset) -> Dataset:
+        """Fixed-shape serving entry (serve/engine.py): the stages of
+        score() on the model's devices with no per-call span, wall or gc
+        bookkeeping, which a request loop must not grow. The caller pads
+        each batch to a prewarmed bucket, so the caching allocator reuses
+        the blocks the bucket's first batch reserved."""
+        full = self.runner.apply_dag(ds, self.dag, traced=False)
+        keep = [KEY_COLUMN] if KEY_COLUMN in full else []
+        keep += [f.name for f in self.result_features if f.name in full]
         return full.select(keep)
 
     def score_and_evaluate(self, evaluator: Evaluator,
@@ -450,3 +465,18 @@ class WorkflowModel:
         not travel (lambda stages)."""
         from .io import load_model
         return load_model(path, custom_stages=custom_stages, device=device)
+
+    # -- local scoring (reference local/OpWorkflowModelLocal) --------------
+    def score_function(self) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+        """The per-record scorer (local/scoring.py): replays the fitted
+        stages on one record dict, on the CPU."""
+        from ..local.scoring import score_function
+        return score_function(self)
+
+    # -- serving (serve/engine.py) -----------------------------------------
+    def serving_engine(self, **kwargs) -> Any:
+        """A ServingEngine over this fitted model: shape-bucketed batches
+        prewarmed at startup; keyword args go to
+        serve.engine.ServingEngine."""
+        from ..serve.engine import ServingEngine
+        return ServingEngine(self, **kwargs)
