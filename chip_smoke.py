@@ -10,7 +10,9 @@ Phases, each of which fails the run on error:
              power limit as nvidia-smi reports them;
 2. build   — compiles csrc/tree_kernels.cu with nvcc (seconds), prints
              ptxas's registers and spills and, from cuobjdump's SASS, the
-             shared-memory atomics of each kernel;
+             shared-memory atomics of each kernel; fails if route_hist's
+             sorted histogram kernel holds an f32 shared atomic (a CAS
+             loop: ATOMS.CAS*);
 3. kernels — each of the four kernels at every shape the main path gives
              it (hist_folds at the root, with uniform and skewed bins, and
              at the rank-metric shapes of the tree sweep, 5 lanes, and of
@@ -27,7 +29,9 @@ Phases, each of which fails the run on error:
              (CUDA events, warm, median), the kernel's rows path (the
              row-mapped kernels) timed in turns beside the chosen path
              (old, new, new, old; where the planner chose the rows path,
-             it alone, twice, and `earlier_ms` null), the plain version's
+             it alone, twice, and `earlier_ms` null; on route_hist's
+             sorted path also its sort alone, `sort_ms`, and its share of
+             the launch, `sort_share`), the plain version's
              time (one warm call where it takes over 0.2 s), one library
              call's time where one computes the same function, its bound
              on this card and, for the histograms, the shared-memory floor
@@ -140,9 +144,11 @@ Phases, each of which fails the run on error:
              every (kernel, F, S, channels C, lanes Fo) key of train()
              (a forest's, a boosted sweep's and a refit's launches apart),
              on the inputs of its first launch there, against its plain
-             version (rows of the kernels line, phase "workflow");
-             then one statistics pass over the whole matrix, streamed,
-             against the fused route;
+             version (rows of the kernels line, phase "workflow"); the
+             forest's and boosted tree's sweep walls and the winner beside
+             those of route_hist's rows path (ROWS_PATH_SWEEP_S,
+             ROWS_PATH_WINNER); then one statistics pass over the whole
+             matrix, streamed, against the fused route;
 16. workflow-regression — op_boston's flow at user scale
              (`housing_columns`: 1 000 000 rows, all 13 predictors of
              HOUSING_COLUMNS, chas a PickList, rad an Integral, the Reals
@@ -278,6 +284,22 @@ MLP_GRID_SEED = 7             # RandomParamBuilder's seed of the MLP's grid
 MLP_FOLD_TOL = 0.25
 MLP_STEPS = 100               # the multiclass selector's MLP: Adam steps
 #                               (the default 200 halved for the CPU leg)
+# workflow-main's forest and boosted-tree sweep walls (s), winner and its
+# CV AuPR with route_hist's levels on the rows path, before the sorted
+# path: this script at 10M rows on an NVIDIA H100 80GB HBM3, 700.00 W
+ROWS_PATH_SWEEP_S = {"OpRandomForestClassifier": 157.605309327,
+                     "OpGBTClassifier": 39.41479733400001}
+ROWS_PATH_WINNER = ["OpGBTClassifier", {"max_depth": 12,
+                                        "min_instances_per_node": 100,
+                                        "min_info_gain": 0.1,
+                                        "max_iter": 20, "step_size": 0.1}]
+ROWS_PATH_WINNER_CV = 0.7845017075538635
+# a winner other than the rows path's is a tie where the rows path's
+# winner scores within this of the new winner in this run: card runs sum
+# the boosted trees' f32 histograms in a changing order (atomic flushes),
+# and workflow-main's boosted cells move by up to 3.1e-4 between runs,
+# more than the 3.1e-5 to 3.1e-4 between its best depth-12 grid points
+WINNER_TIE_TOL = 1e-3
 XGB_GRID = [dict(num_round=10, max_depth=d, eta=e, reg_lambda=lam,
                  max_bins=32)
             for d in (4, 6) for e in (0.05, 0.1, 0.2, 0.3) for lam in (1.0, 5.0)]
@@ -491,6 +513,11 @@ def kernel_rows(shapes: list, phase: str = "tree",
         ms = statistics.mean(turns[None])
         earlier_ms = (statistics.mean(turns["rows"]) if "rows" in turns
                       else None)
+        # the sorted path's sort alone (its first three kernels): its
+        # share of the launch
+        sort_ms = (HP.cuda_ms(lambda: TK.route_hist_sort(*args, **kw),
+                              reps=7)
+                   if path == "sorted" else None)
         plain_ms = HP.cuda_ms(lambda: HP.plain(name, args, kw),
                               reps=1 if slow_plain else 3,
                               warm=0 if slow_plain else 1)
@@ -517,6 +544,7 @@ def kernel_rows(shapes: list, phase: str = "tree",
                    plain_rel_err=acc["plain_rel_err"],
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms, path=path, earlier_ms=earlier_ms,
+                   sort_ms=sort_ms, sort_share=sort_ms and sort_ms / ms,
                    smem_floor_ms=n_adds and smem_floor_ms(n_adds),
                    copy_ms=copy_ms, moved_bytes=moved,
                    check_s=check_s, timing_s=time.perf_counter() - t_timing,
@@ -527,6 +555,7 @@ def kernel_rows(shapes: list, phase: str = "tree",
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
             f"ms={ms:.4f} earlier_ms={earlier_ms} ({path} vs rows) "
+            f"sort_ms={sort_ms} sort_share={row['sort_share']} "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"smem_floor_ms={row['smem_floor_ms']} copy_ms={copy_ms} "
             f"library_ms={library_ms} check_s={check_s:.2f} "
@@ -3596,6 +3625,25 @@ def workflow_main_phase(rows: int, seed: int):
         capture_launches=capture_launches, stream_stats=stream_pass, fused_stats=fused_pass,
         stream_vs_fused_max_diff=stats_err, stream_counts_exact=stats_exact)
     log("workflow-main: " + json.dumps(res))
+    # the rows path's winner in this run: the same cell, or a tie
+    was_key = (f"{ROWS_PATH_WINNER[0]} "
+               f"{json.dumps(ROWS_PATH_WINNER[1], sort_keys=True)}")
+    was_cv = res["cells"].get(was_key, [None])[0]
+    same_winner = res["winner"] == ROWS_PATH_WINNER
+    winner_tie = (not same_winner and was_cv is not None
+                  and best["mean_metric"] - was_cv <= WINNER_TIE_TOL)
+    log("workflow-main sweeps against the rows path's: " + json.dumps({
+        fam: dict(sweep_s=families.get(fam, {}).get("sweep_s"),
+                  rows_path_sweep_s=was)
+        for fam, was in ROWS_PATH_SWEEP_S.items()})
+        + f"; winner {json.dumps(res['winner'])} CV "
+        f"{best['mean_metric']}, the rows path's "
+        f"{json.dumps(ROWS_PATH_WINNER)} CV {ROWS_PATH_WINNER_CV} there and "
+        f"{was_cv} here; same: {same_winner}"
+        + (f"; tie witness: the rows path's winner "
+           f"{best['mean_metric'] - was_cv:.3g} below this run's best "
+           f"(<= {WINNER_TIE_TOL}): {winner_tie}"
+           if not same_winner and was_cv is not None else ""))
     # the depth-12 grid points' deepest levels: route_hist at 1024 slots,
     # route at 2048 nodes, the lookup over 4096 leaves
     deep = ("route_hist F=164 S=1024", "route F=164 S=2048",
@@ -3614,7 +3662,7 @@ def workflow_main_phase(rows: int, seed: int):
           and best["mean_metric"] > prevalence + 0.1
           and sel.holdout_evaluation["au_pr"] > prevalence + 0.1
           and stream_pass["driver"] == "streamed" and stats_exact
-          and stats_err < 1e-4)
+          and stats_err < 1e-4 and (same_winner or winner_tie))
     return ok, shape_launches, capture_launches, wf_rows
 
 
@@ -4058,15 +4106,16 @@ def tf32_phase() -> bool:
     return tf32 is False and prec == "highest"
 
 
-def sass_phase(lib_path: str) -> None:
+def sass_phase(lib_path: str):
     """Shared-memory atomics in the built kernels, from the SASS: how many
     ATOMS instructions of each kind each kernel holds (a CAS loop shows as
-    ATOMS.CAST.SPIN / ATOMS.CAS, a native add as ATOMS.ADD)."""
+    ATOMS.CAST.SPIN / ATOMS.CAS, a native add as ATOMS.ADD). Returns the
+    counts by kernel, None where cuobjdump is missing."""
     from transmogrifai_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
         log("sass: not measured (no cuobjdump beside nvcc)")
-        return
+        return None
     out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=300, check=True).stdout
     counts, fn = {}, None
@@ -4080,6 +4129,20 @@ def sass_phase(lib_path: str) -> None:
         if m and fn:
             counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
     log("sass: " + json.dumps(counts, sort_keys=True))
+    return counts
+
+
+def sorted_hist_atomics(counts) -> list:
+    """The f32 shared-memory atomics (a CAS loop: ATOMS.CAS*, ATOMS.CAST*)
+    that the sorted path's histogram kernel holds, by kernel instance; the
+    kernel is built to hold none. Raises where the SASS shows no instance of
+    it (cuobjdump missing, or the kernel not built)."""
+    if not counts or not any("sorted_hist_kernel" in fn for fn in counts):
+        raise RuntimeError("sass: no sorted_hist_kernel in the SASS")
+    return [f"{fn}: {kind} x{n}" for fn, kinds in sorted(counts.items())
+            if "sorted_hist_kernel" in fn
+            for kind, n in sorted(kinds.items()) if kind.startswith(
+                ("ATOMS.CAS", "ATOMS.CAST"))]
 
 
 def main() -> int:
@@ -4116,9 +4179,9 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
-    sass_phase(lib._name)
-
-    failures = []
+    failures = [f"sass: f32 shared atomic in the sorted histogram "
+                f"kernel ({a})"
+                for a in sorted_hist_atomics(sass_phase(lib._name))]
     if not tf32_phase():
         failures.append("TF32 is on")
     rows = kernel_phase(SEED)

@@ -533,8 +533,9 @@ def test_plans_at_the_depth_12_shapes():
     """Every launch of a depth-12 forest tree at workflow-main's sweep
     shapes (F = 164, B = 33, 5 lanes, 1M rows, 3 payload channels + the
     count; an H100's 132 SMs) has a plan that fits a block's shared memory:
-    the root on the private path, route_hist on the rows path with slot
-    tiles covering every slot, route at 2048 nodes on the rows path (its
+    the root on the private path, route_hist on the sorted path with every
+    slot in its sort and one feature tile (the rows path, forced, with slot
+    tiles covering every slot), route at 2048 nodes on the rows path (its
     82 KB of tables fail the staged rule), the 4096-leaf lookup on rows."""
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
     F, B, lanes, N, n_sm = 164, 33, 5, 1_000_000, 132
@@ -542,6 +543,10 @@ def test_plans_at_the_depth_12_shapes():
     assert root.path == "private" and root.smem_bytes <= TK._SMEM_BLOCK_MAX
     for S in (2, 32, 256, 1024):
         tl = TK.plan_hist(F, S, 4, B, lanes, N, n_sm, route=True)
+        assert tl.path == "sorted" and tl.s_tile == S and tl.f_tile >= F
+        assert tl.smem_bytes <= TK._SMEM_BLOCK_MAX
+        tl = TK.plan_hist(F, S, 4, B, lanes, N, n_sm, route=True,
+                          path="rows")
         assert tl.path == "rows"
         assert tl.s_tile * -(-S // tl.s_tile) >= S
         assert tl.f_tile * -(-F // tl.f_tile) >= F

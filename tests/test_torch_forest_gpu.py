@@ -136,3 +136,44 @@ def test_fit_on_the_card_matches_the_cpu(deep, make):
     dprob = np.abs(models["cuda"].predict_arrays(X)[2][:, 1]
                    - models["cpu"].predict_arrays(X)[2][:, 1])
     assert dprob.max() <= 1e-5 + slack, (float(dprob.max()), slack)
+
+
+@pytest.fixture
+def sorted_levels(monkeypatch):
+    """route_hist on the sorted path at every level (the planner's own
+    choice at F = 12 is the features path): the slot counts it planned."""
+    taken = []
+    plan = TK.plan_hist
+
+    def forced(*args, route=False, path=None, **kw):
+        if route and path is None:
+            path = "sorted"
+            taken.append(args[1])
+        return plan(*args, route=route, path=path, **kw)
+    monkeypatch.setattr(TK, "plan_hist", forced)
+    return taken
+
+
+@pytest.mark.parametrize("make", [
+    lambda dev: OpRandomForestClassifier(device=dev, num_trees=3,
+                                         max_depth=12,
+                                         min_instances_per_node=5),
+    lambda dev: OpGBTClassifier(device=dev, max_iter=2, max_depth=12),
+], ids=["forest", "gbt"])
+def test_depth_12_refit_on_the_sorted_path(deep, sorted_levels, make):
+    """A depth-12 forest and Spark GBT refit with every route_hist on the
+    sorted path, on the card against the CPU: the split decisions
+    identical, or the first node where they differ a tie within the f32
+    noise of the two devices' histograms (chip_smoke.split_witness)."""
+    X, y = _data(30_000, 11)
+    levels = {}
+    for dev in ("cpu", "cuda"):
+        with chip_smoke.record_refit_levels([]) as lv:
+            make(dev).fit_arrays(X, y)
+        levels[dev] = lv
+    assert sorted_levels and max(sorted_levels) == 1024
+    first = chip_smoke.first_divergence(levels["cpu"], levels["cuda"])
+    if first is not None:
+        w = chip_smoke.split_witness(levels["cpu"], levels["cuda"], *first,
+                                     12, [f"x{j}" for j in range(12)])
+        assert w["tie"], w

@@ -281,3 +281,132 @@ def test_cuda_route_out_of_range_ids_and_features(cuda_device, path, N):
     torch.cuda.synchronize()
     assert TK.launches["route"] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _sorted_case(F, S, Fo, N, dtype, B, C, variant, seed=17):
+    """Seeded inputs of one route_hist launch for the sorted path: bins
+    partly outside [0, B), C payload channels a lane (the last a hessian,
+    20% zero), node ids over the S slots, split features partly outside
+    [0, F). `variant`: "one_slot" (every row in slot S - 1), "empty" (only
+    every fourth slot holds rows), "odd_ids" (node ids -1, S, S + 3, NaN,
+    -0.5 and S - 0.5 in the first six rows) or None."""
+    rng = np.random.default_rng(seed)
+    lo = 0 if dtype == np.uint8 else -3
+    Xb_t = rng.integers(lo, B + 3, size=(F, N)).astype(dtype)
+    pay = rng.normal(size=(Fo * C, N)).astype(np.float32)
+    last = pay.reshape(Fo, C, N)[:, C - 1]
+    last[:] = np.where(rng.uniform(size=(Fo, N)) < 0.2, 0.0,
+                       np.abs(last) + 0.1)
+    node = rng.integers(0, S, size=(Fo, N)).astype(np.float32)
+    if variant == "one_slot":
+        node[:] = S - 1
+    elif variant == "empty":
+        node = np.floor(node / 4) * 4
+    elif variant == "odd_ids":
+        node[:, :6] = [-1.0, S, S + 3, np.nan, -0.5, S - 0.5]
+    tables = [rng.integers(-2, F + 2, size=(Fo, S)).astype(np.int32),
+              rng.integers(0, B, size=(Fo, S)).astype(np.int32),
+              rng.integers(0, 2, size=(Fo, S)).astype(np.int32)]
+    return Xb_t, pay, node, tables
+
+
+def _route_hist_reference(Xb_t, pay, node, tables, S, B):
+    """The route_hist contract in numpy and the plain histogram: new node
+    ids (node ids outside [0, S) or NaN route on feature 0, threshold 0,
+    missing direction 0; split features outside [0, F) on feature 0), and
+    the slots whose rows the histogram counts (S: not counted)."""
+    tf, tt, tm = tables
+    Fo, N = node.shape
+    inside = (node >= 0) & (node < S)
+    nid = np.where(inside, node, 0).astype(np.int64)
+    f = np.where(inside, np.take_along_axis(tf, nid, 1), 0)
+    f = np.where((f < 0) | (f >= Xb_t.shape[0]), 0, f)
+    t = np.where(inside, np.take_along_axis(tt, nid, 1), 0)
+    m = np.where(inside, np.take_along_axis(tm, nid, 1), 0)
+    x = Xb_t[f, np.arange(N)[None, :]].astype(np.int64)
+    right = (x > t) | ((x == 0) & (m > 0))
+    new = (node * 2 + right).astype(np.float32)
+    slots = np.where(inside & ~right, node, S).astype(np.float32)
+    return new, slots
+
+
+# (F, S, Fo, N, bin dtype, B, payload channels a lane, variant, forced):
+# forced runs path="sorted" where the planner takes another (F = 7 and 9,
+# the owned path's F = 64 at S = 4, 257 bins, fewer than 32 768 rows); the
+# others must be planned "sorted". N is no multiple of 4 but once.
+SORTED_CASES = [
+    (7, 2, 3, 40_003, np.int8, 33, 2, None, True),
+    (9, 16, 1, 40_003, np.uint8, 33, 3, "odd_ids", True),
+    (64, 4, 5, 40_000, np.int8, 33, 2, "one_slot", True),
+    (65, 8, 5, 70_003, np.uint8, 65, 2, None, False),
+    (164, 2, 5, 100_003, np.int8, 33, 3, "one_slot", False),
+    (164, 32, 5, 100_003, np.int8, 33, 3, "odd_ids", False),
+    (164, 256, 5, 70_001, np.int32, 33, 2, None, False),
+    (164, 1024, 5, 100_003, np.int8, 33, 3, "empty", False),
+    (650, 4, 3, 70_001, np.int8, 33, 3, None, False),
+    (650, 16, 3, 30_001, np.uint8, 33, 2, "odd_ids", True),
+    (48, 2, 7, 30_001, np.int32, 257, 2, None, True),
+    (48, 4, 3, 20_001, np.int32, 257, 9, "empty", True),
+    (64, 32, 3, 70_001, np.int8, 65, 4, "odd_ids", False),
+    (164, 64, 2, 20_001, np.uint8, 33, 9, None, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", SORTED_CASES,
+    ids=lambda c: f"F{c[0]}-S{c[1]}-Fo{c[2]}-N{c[3]}-"
+                  f"{np.dtype(c[4]).name}-B{c[5]}-C{c[6]}+1"
+                  f"{'-' + c[7] if c[7] else ''}{'-forced' if c[8] else ''}")
+def test_cuda_sorted_path_matches_plain(cuda_device, case):
+    """route_hist's sorted path against the plain histogram on the same
+    inputs: node ids exact (the numpy contract, out-of-range ids and
+    features included), counts exact, g/h cells held to the float64 sums
+    within 1e-4 of a cell's sum of |terms| or the plain f32 version's own
+    error (as `hist_paths.accuracy`); and the sort's lists, read back from
+    its workspace, equal to `slot_order_plain`."""
+    F, S, Fo, N, dtype, B, C, variant, forced = case
+    Xb_t, pay, node, tables = _sorted_case(F, S, Fo, N, dtype, B, C,
+                                           variant)
+    new_want, slots = _route_hist_reference(Xb_t, pay, node, tables, S, B)
+    Co = C + 1
+    tl = TK.plan_hist(F, S, Co, B, Fo, N, n_sm=132,
+                      itemsize=np.dtype(dtype).itemsize, route=True)
+    assert (tl.path != "sorted") if forced else (tl.path == "sorted")
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+           for a in (Xb_t, pay, node, *tables)]
+    xb_rows = dev[0].T.contiguous()
+    kw = dict(n_nodes=S, n_bins=B, derive_count=True)
+    before = TK.launches["route_hist"]
+    hist, new_node = TK.route_hist(*dev, **kw, xb_rows=xb_rows,
+                                   path="sorted" if forced else None)
+    torch.cuda.synchronize()
+    assert TK.launches["route_hist"] == before + 1
+    np.testing.assert_array_equal(new_node.cpu().numpy(), new_want)
+    cpu = [torch.from_numpy(a) for a in (Xb_t, pay, slots)]
+    hkw = dict(n_slots=S, n_bins=B, derive_count=True)
+    exact = TK.hist_folds_plain(cpu[0], cpu[1].double(), cpu[2], **hkw)
+    scale = TK.hist_folds_plain(cpu[0], cpu[1].double().abs(), cpu[2],
+                                **hkw)
+    plain = TK.hist_folds_plain(*cpu, **hkw)
+
+    def rel(h):
+        err = (h.double() - exact).abs()
+        return float(torch.where(scale > 0, err / scale.clamp(min=1e-300),
+                                 torch.where(err > 0, float("inf"),
+                                             0.0)).max())
+    got = hist.cpu()
+    assert got.shape == plain.shape
+    assert rel(got) <= max(1e-4, rel(plain)), (rel(got), rel(plain))
+    cnt = [h.reshape(-1, Co, h.shape[1])[:, C] for h in (got, plain)]
+    assert torch.equal(*cnt)
+    # the sort alone: its lists and slot starts, read from its workspace
+    new_sort, order, start = TK.route_hist_sort(*dev, **kw, xb_rows=xb_rows)
+    torch.cuda.synchronize()
+    want_order, want_start = TK.slot_order_plain(
+        torch.from_numpy(node), torch.from_numpy(new_want), S)
+    np.testing.assert_array_equal(new_sort.cpu().numpy(), new_want)
+    assert torch.equal(start.cpu().long(), want_start)
+    for k in range(Fo):
+        n = int(want_start[k, -1])
+        assert torch.equal(order[k, :n].cpu().long(), want_order[k, :n])

@@ -286,7 +286,9 @@ def _tile_cover(tl, F, S, lanes):
     n_ft, n_st = -(-F // tl.f_tile), -(-S // tl.s_tile)
     seen = {}
     for o in range(lanes * n_ft * n_st):
-        if tl.path == "rows":   # grid (row ranges, tiles, lanes)
+        if tl.path == "sorted":   # grid (pieces, lanes x feature tiles)
+            k, ft, st = o // n_ft, o % n_ft, 0
+        elif tl.path == "rows":   # grid (row ranges, tiles, lanes)
             k, ft, st = o // (n_ft * n_st), o % n_ft, (o % (n_ft * n_st)) // n_ft
         else:                   # blockIdx.x % (lanes x tiles)
             ft, st, k = o % n_ft, (o // n_ft) % n_st, o // (n_ft * n_st)
@@ -319,15 +321,55 @@ def _tile_cover(tl, F, S, lanes):
     (9, 4, 3, 33, 3, 5_000, 1, False, "owned"),
     (3, 2, 3, 9, 2, 100, 1, False, "rows"),              # tiny
     (7, 2, 3, 9, 2, 100, 1, True, "rows"),
+    # route_hist at a depth-12 tree's levels: the sorted path
+    (164, 2, 4, 33, 5, 1_000_000, 1, True, "sorted"),    # workflow-main
+    (164, 1024, 3, 33, 5, 1_000_000, 1, True, "sorted"),
+    (650, 16, 4, 33, 3, 900_000, 1, True, "sorted"),     # workflow-wide
 ])
 def test_hist_tiling_fits_shared_memory(F, S, Co, B, lanes, N, itemsize,
                                         route, path):
     tl = TK.plan_hist(F, S, Co, B, lanes, N, n_sm=132, itemsize=itemsize,
                       route=route)
     assert tl.path == path
+    _check_hist_tiling(tl, F, S, Co, B, lanes, N, itemsize, route)
+
+
+# the shapes above where route_hist's planner takes the sorted path: the
+# rows path, forced, still plans and fits there
+@pytest.mark.parametrize("F,S,Co,B,lanes,N,itemsize", [
+    (164, 2, 4, 33, 5, 1_000_000, 1),
+    (164, 1024, 3, 33, 5, 1_000_000, 1),
+    (650, 16, 4, 33, 3, 900_000, 1),
+])
+def test_forced_rows_tiling_fits_shared_memory(F, S, Co, B, lanes, N,
+                                               itemsize):
+    tl = TK.plan_hist(F, S, Co, B, lanes, N, n_sm=132, itemsize=itemsize,
+                      route=True, path="rows")
+    assert tl.path == "rows"
+    _check_hist_tiling(tl, F, S, Co, B, lanes, N, itemsize, True)
+
+
+def _check_hist_tiling(tl, F, S, Co, B, lanes, N, itemsize, route):
+    path = tl.path
     assert tl.smem_bytes <= TK._SMEM_BLOCK_MAX
     assert set(_tile_cover(tl, F, S, lanes).values()) == {1}
     assert len(_tile_cover(tl, F, S, lanes)) == lanes * S * F
+    if path == "sorted":
+        # a warp of 32 features a block, two blocks an SM where they fit,
+        # feature tiles of equal width, pieces of 256 to 64 x B entries
+        # (rounded up to 256), as many as N rows could fill
+        warps = tl.f_tile // 32
+        assert tl.f_tile % 32 == 0 and 1 <= warps <= 16
+        assert tl.smem_bytes == TK.sorted_smem_bytes(tl.f_tile, B, Co)
+        assert warps == 1 or 2 * (tl.smem_bytes + 1024) <= TK._SMEM_SM
+        n_ft = -(-F // tl.f_tile)
+        assert n_ft == 1 or -(-(-(-F // 32)) // n_ft) == warps
+        assert tl.blocks * tl.rows_per_block >= N > (tl.blocks - 1) * \
+            tl.rows_per_block
+        assert tl.rows_per_block % 256 == 0
+        assert 256 <= tl.rows_per_block <= -(-64 * B // 256) * 256
+        assert tl.sort_rows == max(4096, 16 * S)
+        return
     if path == "rows":
         assert tl.smem_bytes <= TK._SMEM_BUDGET
         assert tl.blocks * tl.rows_per_block >= N
@@ -528,3 +570,197 @@ def test_histogram_accuracy_is_held_to_float64_sums():
     miscounted = rounded.clone()
     miscounted[2, 1] += 1.0
     assert not HP.accuracy("hist_folds", miscounted, plain, args, kw)["ok"]
+
+
+# -- route_hist's sorted path: the sort, its pieces, its plans ---------------
+
+def _sorted_inputs(n, f, b, folds, n_nodes, C, seed, dtype=np.int8,
+                   heavy=False, wild_bins=False):
+    """route_hist inputs with integer payloads (exact sums in any order):
+    with `wild_bins` bins partly outside [0, b) (the port's contract: they
+    add nothing; the JAX package is held to in-range bins), and with
+    `heavy` two thirds of the rows in slot 1."""
+    rng = np.random.default_rng(seed)
+    lo = 0 if dtype == np.uint8 or not wild_bins else -2
+    Xb_t = rng.integers(lo, b + 2 * wild_bins, size=(f, n)).astype(dtype)
+    _, pay, _ = _hist_inputs(n, f, b, folds, n_nodes, C, seed=seed + 1,
+                             int_payload=True)
+    node = rng.integers(0, n_nodes, size=(folds, n)).astype(np.float32)
+    if heavy:
+        node[:, rng.uniform(size=n) < 2 / 3] = min(1, n_nodes - 1)
+    f_lvl = rng.integers(0, f, size=(folds, n_nodes)).astype(np.int32)
+    t_lvl = rng.integers(0, b, size=(folds, n_nodes)).astype(np.int32)
+    m_lvl = rng.integers(0, 2, size=(folds, n_nodes)).astype(np.int32)
+    return Xb_t, pay, node, f_lvl, t_lvl, m_lvl
+
+
+@pytest.mark.parametrize("n,folds,n_nodes,seed", [
+    (1, 1, 1, 0), (517, 3, 4, 1), (2000, 5, 64, 2), (3001, 2, 1024, 3),
+    (800, 4, 2, 4),
+])
+def test_slot_order_plain_matches_numpy_stable_argsort(n, folds, n_nodes,
+                                                       seed):
+    """The sorted path's list of a lane: the rows whose node id lies in
+    [0, n_nodes) and that route left (new id = 2 x node), by slot (the
+    node id truncated), rows ascending inside a slot: numpy's stable
+    argsort of the slots, with right rows, NaN, negative, fractional and
+    out-of-range ids left out, and each slot's start in the list."""
+    rng = np.random.default_rng(seed)
+    node = rng.integers(-2, n_nodes + 3, size=(folds, n)).astype(np.float32)
+    node[:, ::7] = np.nan
+    node[:, 3::11] += 0.5
+    right = rng.uniform(size=(folds, n)) < 0.4
+    new = np.where(np.isnan(node), np.nan, 2 * node + right)
+    new = new.astype(np.float32)
+    order, start = TK.slot_order_plain(torch.from_numpy(node),
+                                       torch.from_numpy(new), n_nodes)
+    assert order.shape == (folds, n) and start.shape == (folds, n_nodes + 1)
+    for k in range(folds):
+        listed = (node[k] >= 0) & (node[k] < n_nodes) & ~right[k]
+        slot = np.where(listed, np.trunc(np.nan_to_num(node[k])), n_nodes)
+        want = np.argsort(slot, kind="stable")[:int(listed.sum())]
+        got = order[k].numpy()
+        np.testing.assert_array_equal(got[:len(want)], want)
+        assert (got[len(want):] == -1).all()
+        np.testing.assert_array_equal(
+            start[k].numpy(),
+            np.concatenate([[0], np.cumsum(np.bincount(
+                slot[listed].astype(np.int64), minlength=n_nodes))]))
+
+
+@pytest.mark.parametrize("n,f,b,folds,n_nodes,C,dtype", [
+    (6000, 5, 33, 3, 4, 3, np.int8),     # a slot of ~4000 rows: split
+    (60_001, 3, 257, 2, 8, 2, np.int32),  # 257 bins, int32
+    (24_000, 40, 65, 1, 64, 4, np.uint8),  # C = 4 + 1: two channel groups
+])
+def test_sorted_pieces_cover_each_listed_row_once(n, f, b, folds, n_nodes,
+                                                  C, dtype):
+    """The sorted path's plan on its lists: the pieces of a lane cover its
+    listed entries exactly once and in order, no more pieces than the
+    grid's blocks, a slot with more rows than a piece split over several,
+    one slot's histogram a warp within a block's shared memory, and the
+    pieces' plain histograms summed equal to route_hist_plain (integer
+    payloads: exact)."""
+    args = _port(*_sorted_inputs(n, f, b, folds, n_nodes, C, seed=n,
+                                 dtype=dtype, heavy=True, wild_bins=True))
+    kw = dict(n_nodes=n_nodes, n_bins=b, derive_count=True)
+    hist, new_node = TK.route_hist_plain(*args, **kw)
+    order, start = TK.slot_order_plain(args[2], new_node, n_nodes)
+    Co = C + 1
+    tl = TK.plan_hist(f, n_nodes, Co, b, folds, n, n_sm=132,
+                      itemsize=np.dtype(dtype).itemsize, route=True,
+                      path="sorted")
+    width = TK.channel_groups(Co)[1] if Co > 4 else Co
+    assert tl.smem_bytes == TK.sorted_smem_bytes(tl.f_tile, b, width) \
+        <= TK._SMEM_BLOCK_MAX
+    pieces = TK.sorted_pieces(start, tl.rows_per_block)
+    counts = np.diff(start.numpy(), axis=1)
+    assert counts.max() > tl.rows_per_block         # a heavy slot ...
+    total = torch.zeros_like(hist).reshape(folds, n_nodes * Co, -1)
+    for k in range(folds):
+        mine = [(p0, p1) for kk, p0, p1 in pieces if kk == k]
+        assert len(mine) <= tl.blocks
+        covered = np.concatenate([np.arange(p0, p1) for p0, p1 in mine])
+        np.testing.assert_array_equal(covered, np.arange(int(start[k, -1])))
+        for s in np.flatnonzero(counts[k] > tl.rows_per_block):
+            a, z = int(start[k, s]), int(start[k, s + 1])
+            assert sum(p0 < z and p1 > a for p0, p1 in mine) >= 2  # ... split
+        for p0, p1 in mine:
+            total[k] += TK.sorted_piece_hist_plain(
+                args[0], args[1], order, start, (k, p0, p1), **kw)
+    assert torch.equal(total.reshape(hist.shape), hist)
+
+
+@pytest.mark.parametrize("n,f,b,folds,n_nodes,C,dtype", [
+    (700, 4, 33, 3, 2, 3, np.int8),
+    (650, 3, 33, 2, 16, 4, np.uint8),
+    (600, 3, 33, 1, 64, 9, np.int8),
+    (500, 2, 257, 2, 8, 3, np.int32),
+    (450, 2, 257, 1, 4, 9, np.int32),
+])
+def test_sorted_pieces_sum_to_pallas_route_hist(n, f, b, folds, n_nodes, C,
+                                                dtype):
+    """The sorted path's pieces (a piece of 96 list entries, so that every
+    slot's rows spread over pieces), their plain histograms summed, against
+    the JAX package's route_hist in interpret mode and its jnp twin, and
+    the plain route's node ids against theirs: integer payloads, exact."""
+    arrays = _sorted_inputs(n, f, b, folds, n_nodes, C, seed=n + 5,
+                            dtype=dtype)
+    args = _port(*arrays)
+    kw = dict(n_nodes=n_nodes, n_bins=b, derive_count=True)
+    hist, new_node = TK.route_hist_plain(*args, **kw)
+    order, start = TK.slot_order_plain(args[2], new_node, n_nodes)
+    total = torch.zeros_like(hist).reshape(folds, -1, hist.shape[1])
+    for k, p0, p1 in TK.sorted_pieces(start, 96):
+        total[k] += TK.sorted_piece_hist_plain(args[0], args[1], order,
+                                               start, (k, p0, p1), **kw)
+    total = total.reshape(hist.shape)
+    assert torch.equal(total, hist)
+    jargs = [jnp.asarray(a) for a in arrays]
+    for want_hist, want_node in (PH.route_hist(*jargs, interpret=True, **kw),
+                                 PH.route_hist(*jargs, **kw)):
+        np.testing.assert_array_equal(new_node.numpy(), np.asarray(want_node))
+        _check_hist(total, want_hist, exact=True)
+
+
+# (F, S, channels a cell, B, lanes, N, bin itemsize, path) at the
+# workflows' keys: workflow-main's forest and boosted levels (1M rows, 5
+# lanes), -wide's (F = 650, 900 000 rows, 3 lanes), -events' (F = 595,
+# 180 000), -titanic's (F = 572, 90 000): the sorted path; -multiclass's
+# softmax XGBoost (256 bins + missing, int32, 21 class lanes): the rows
+# path, faster there on the card; its forest (C = 8 + 1, two channel
+# groups) and op_iris's 135 rows: the features path or rows
+WORKFLOW_KEYS = (
+    [(164, S, Co, 33, 5, 1_000_000, 1, "sorted") for S in (2, 32, 256, 1024)
+     for Co in (4, 3)]
+    + [(650, S, Co, 33, 3, 900_000, 1, "sorted") for S in (2, 4, 16)
+       for Co in (4, 3)]
+    + [(595, S, 4, 33, 3, 180_000, 1, "sorted") for S in (2, 16)]
+    + [(572, S, 4, 33, 3, 90_000, 1, "sorted") for S in (2, 64, 1024)]
+    + [(48, S, 3, 257, 21, 522_911, 4, "rows") for S in (2, 4)]
+    + [(48, S, 9, 33, 3, 522_911, 1, "features") for S in (2, 16)]
+    + [(8, S, 5, 33, 3, 135, 1, "rows") for S in (64, 1024)])
+
+
+@pytest.mark.parametrize("F,S,Co,B,lanes,N,itemsize,path", WORKFLOW_KEYS)
+def test_planner_takes_the_sorted_path_at_the_workflow_keys(F, S, Co, B,
+                                                            lanes, N,
+                                                            itemsize, path):
+    """route_hist at the S >= 2 keys of the workflows that the rows path
+    took: the sorted path, its block within shared memory (two an SM at
+    B = 33, one feature tile up to F = 192); the forced rows path still
+    plans; where the card showed rows (257 bins, 135 rows) or the
+    features path faster, those stay, and the sorted path, forced, still
+    plans."""
+    tl = TK.plan_hist(F, S, Co, B, lanes, N, n_sm=132, itemsize=itemsize,
+                      route=True)
+    if path == "features":
+        assert tl.path in ("private", "owned")
+    else:
+        assert tl.path == path
+    # a lane of more channels launches as channel groups (kernel lanes)
+    groups, width = TK.channel_groups(Co) if Co > 4 else (1, Co)
+    _check_hist_tiling(tl, F, S, width, B, lanes * groups, N, itemsize, True)
+    if path == "sorted":
+        assert 2 * (tl.smem_bytes + 1024) <= TK._SMEM_SM
+        assert F > 192 or tl.f_tile >= F
+    forced = "rows" if path == "sorted" else "sorted"
+    tl = TK.plan_hist(F, S, Co, B, lanes, N, n_sm=132, itemsize=itemsize,
+                      route=True, path=forced)
+    assert tl.path == forced
+    _check_hist_tiling(tl, F, S, width, B, lanes * groups, N, itemsize, True)
+
+
+def test_sorted_path_is_route_hists_alone():
+    """hist_folds has no routing to sort by: its planner refuses the
+    sorted path, and route_hist's refuses it where a warp's histogram or
+    the sort's offsets do not fit shared memory."""
+    with pytest.raises(ValueError, match="route_hist's alone"):
+        TK.plan_hist(164, 4, 4, 33, 5, 1000, n_sm=132, path="sorted")
+    with pytest.raises(ValueError, match="does not fit"):
+        TK.plan_hist(64, 8192, 4, 33, 5, 1000, n_sm=132, route=True,
+                     path="sorted")
+    with pytest.raises(ValueError, match="does not fit"):
+        TK.plan_hist(64, 4, 4, 4096, 5, 1000, n_sm=132, itemsize=4,
+                     route=True, path="sorted")
+    assert TK.sorted_work_words(5, 1000, 8, 4096) == 5 * (6000 + 8 + 9)

@@ -3,7 +3,8 @@
 // One kernel family for each Pallas kernel of transmogrifai_tpu/ops/pallas_hist.py:
 //
 //   hist_fm_kernel<ROUTE=false>, hist_kernel  <- _kernel            (hist_folds)
-//   hist_fm_kernel<ROUTE=true>, route_hist_kernel
+//   hist_fm_kernel<ROUTE=true>, route_hist_kernel, sort_count_kernel +
+//   sort_scan_kernel + sort_scatter_kernel + sorted_hist_kernel
 //                                             <- _route_hist_kernel (route_hist)
 //   route_staged_kernel, route_kernel         <- _route_kernel      (route)
 //   lookup_kernel                             <- _lookup_kernel     (table_lookup)
@@ -16,16 +17,20 @@
 // histogram output is [Fo * S * Co, F * B] f32 with row (k * S + s) * Co + c
 // and column f * B + b.
 //
-// The histograms have three paths, chosen per shape by plan_hist in
+// The histograms have four paths, chosen per shape by plan_hist in
 // ops/tree_kernels.py:
 //   private, owned (hist_fm_kernel): threads map to features over a row
 //     tile staged in shared memory, with a histogram copy per warp (a
 //     tree's root) or copies whose slots the warps own (its deeper levels);
 //     the main path (F = 64, 33 bins) takes them;
+//   sorted (route_hist only: sort_*_kernel, sorted_hist_kernel): each
+//     lane's left rows listed by slot once, then counted by warps that map
+//     threads to features and hold one slot's histogram at a time; the
+//     levels below the root of wide trees (F = 164, 650, 257 bins), whose
+//     histograms take the features path too many passes over the rows;
 //   rows (hist_kernel, route_hist_kernel): threads map to rows and scatter
 //     with shared atomics; kept for narrow F (the rank-metric counts have
-//     F = 1), where mapping threads to features would idle most of a warp,
-//     and for histograms too wide for one pass of the features path.
+//     F = 1), where mapping threads to features would idle most of a warp.
 // Routing has two paths, chosen per shape by plan_route: staged
 // (route_staged_kernel: every lane of a row tile in one block, the tile's
 // bins of the features the tables use copied into shared memory) where
@@ -953,6 +958,334 @@ __global__ void __launch_bounds__(kStagedThreads, 6)
   }
 }
 
+// -- sorted path of route_hist ------------------------------------------------
+//
+// B2, sorted path. Replaces _route_hist_kernel (pallas_hist.py:713) at the
+// deep levels of wide trees: the same function as route_hist_kernel, in
+// four launches on one stream.
+//   1. sort_count_kernel routes every row once (go_right), writes its new
+//      node id and counts each lane's left rows by slot (the old node id),
+//      one count row per unit of unit_rows rows;
+//   2. sort_scan_kernel turns each lane's [slot][unit] counts into offsets
+//      and each slot's start in the lane's list;
+//   3. sort_scatter_kernel lists every counted row at its offset: a lane's
+//      list holds its left rows ordered by slot, rows ascending inside a
+//      slot (a stable partition: units in order, a unit's 256-row chunks in
+//      order, a chunk's warps and lanes in order), with the row's payload
+//      and derived count packed as a float4;
+//   4. sorted_hist_kernel counts the lists.
+// Bound on this card: the shared-memory read-modify-writes of the counting,
+// as on the features path. What it repairs in the rows path: that path
+// re-reads every row for each (slot tile, feature tile) pair, 984 pairs a
+// lane at F = 164 and 1024 slots, and counts with f32 shared atomicAdd,
+// which sm_90 runs as a compare-and-swap loop. Here each row is routed and
+// listed once, and the counting reads only listed rows:
+// - a warp takes 32 features of a feature tile (a thread one feature) and
+//   one piece of piece_rows entries of a lane's list, and walks it in list
+//   order, so it holds one slot's histogram at a time; every cell it
+//   touches is its own thread's (layout [bin][channel][32 features]: the
+//   thread's own bank), so counting is plain shared loads and stores, with
+//   no atomics and no barriers;
+// - the bins of a listed row come from the row-major copy [N, F]: the warp
+//   reads its 32 features' bins of one row as one contiguous run, where the
+//   [F, N] matrix would cost a 32-byte sector a bin; the 32 rows of a batch
+//   are loaded before any is counted;
+// - when the slot changes, the warp adds its slot's cells into the output
+//   and zeroes them: a plain store where its piece holds the whole slot
+//   (the one writer of those cells), else a global atomicAdd (a heavy slot,
+//   split over pieces so that it keeps many SMs busy).
+// Payloads sum in list order inside a piece, so a slot that lies in one
+// piece sums alike on every run.
+
+constexpr int kSortThreads = 256;    // sort_count / sort_scatter block
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kScanThreads = 1024;   // sort_scan block
+constexpr int kMaxSortSlots = 4096;  // the scatter's offsets fit shared memory
+constexpr int kSortedMaxThreads = 512;   // sorted_hist block: 16 warps
+
+struct SortedArgs {
+  const void* xb;        // [F, N] bins
+  const void* xb_rows;   // [N, F] the same bins, row-major
+  const float* pay;      // [lanes * C, N] payload channels
+  const float* node;     // [lanes, N] node ids
+  const int* tf;         // [lanes, S] split tables
+  const int* tt;
+  const int* tm;
+  float* out;            // [lanes * S * Co, F * B]
+  float* node_out;       // [lanes, N] next node ids
+  float4* lpay;          // [lanes, N] listed payloads (workspace)
+  int* lrow;             // [lanes, N] listed row ids
+  int* lslot;            // [lanes, N] listed slots
+  int* counts;           // [lanes, S, n_units] counts, then offsets
+  int* start;            // [lanes, S + 1] each slot's first list entry
+  long long N;
+  int F, C, derive, S, B, lanes;
+  int unit_rows, n_units;     // the sort's row units
+  int piece_rows, n_pieces;   // the histogram's list pieces
+  int f_tile, n_ftiles;       // features of a histogram block (32 a warp)
+};
+
+// Words (4 bytes) of the sorted path's workspace, in the order of
+// SortedArgs: lpay, lrow, lslot, counts, start. plan_hist mirrors it.
+__host__ __device__ inline long long sorted_work_words(int lanes, long long N,
+                                                       int S, int n_units) {
+  return (long long)lanes * (6 * N + (long long)S * n_units + S + 1);
+}
+
+// Shared memory of one sorted_hist_kernel block: a [B][Co][32] f32
+// histogram a warp. plan_hist mirrors it.
+__host__ __device__ inline long long sorted_smem_bytes(int f_tile, int B,
+                                                       int Co) {
+  return 4LL * f_tile * B * Co;
+}
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Step 1: route the unit's rows of lane blockIdx.y, write their new node
+// ids, and count its left rows whose slot (node id) lies in [0, S); a
+// warp's rows of one slot add their count once (an integer shared atomic,
+// native on sm_90).
+template <typename XT>
+__global__ void __launch_bounds__(kSortThreads)
+    sort_count_kernel(const SortedArgs a) {
+  extern __shared__ int sort_smem[];
+  const int S = a.S, k = blockIdx.y, u = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  int* cnt = sort_smem;        // [S]
+  int* tbl = sort_smem + S;    // [3][S]
+  for (int j = threadIdx.x; j < S; j += kSortThreads) {
+    cnt[j] = 0;
+    tbl[j] = a.tf[(long long)k * S + j];
+    tbl[S + j] = a.tt[(long long)k * S + j];
+    tbl[2 * S + j] = a.tm[(long long)k * S + j];
+  }
+  __syncthreads();
+  const long long r0 = (long long)u * a.unit_rows;
+  const long long r1 = min(a.N, r0 + a.unit_rows);
+  const float* node_k = a.node + (long long)k * a.N;
+  float* new_k = a.node_out + (long long)k * a.N;
+  const XT* xb = static_cast<const XT*>(a.xb);
+  for (long long i0 = r0; i0 < r1; i0 += kSortThreads) {
+    const long long i = i0 + threadIdx.x;
+    int s = -1;
+    if (i < r1) {
+      const float nd = node_k[i];
+      const int right = go_right(xb, a.N, i, a.F, nd, S, tbl, tbl + S,
+                                 tbl + 2 * S);
+      new_k[i] = 2.f * nd + (float)right;
+      if (!right && nd >= 0.f && nd < (float)S) s = (int)nd;
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, s);
+    if (s >= 0 && lane == __ffs(peers) - 1) atomicAdd(cnt + s, __popc(peers));
+  }
+  __syncthreads();
+  int* cnt_k = a.counts + (long long)k * S * a.n_units;
+  for (int j = threadIdx.x; j < S; j += kSortThreads)
+    cnt_k[(long long)j * a.n_units + u] = cnt[j];
+}
+
+// Step 2: lane blockIdx.x's counts [S][n_units], read in that order, become
+// exclusive offsets in place; start[s] is the offset of (s, unit 0) and
+// start[S] the lane's count of listed rows. Each thread scans a contiguous
+// segment; one block-wide scan joins the segments.
+__global__ void __launch_bounds__(kScanThreads)
+    sort_scan_kernel(const SortedArgs a) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int k = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long M = (long long)a.S * a.n_units;
+  int* c = a.counts + (long long)k * M;
+  int* st = a.start + (long long)k * (a.S + 1);
+  const long long per = (M + kScanThreads - 1) / kScanThreads;
+  const long long j0 = min(M, threadIdx.x * per), j1 = min(M, j0 + per);
+  int sum = 0;
+  for (long long j = j0; j < j1; ++j) sum += c[j];
+  int x = sum;   // inclusive scan of the segments' sums, warp then block
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_sums[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  int run = x - sum + (warp ? warp_sums[warp - 1] : 0);
+  for (long long j = j0; j < j1; ++j) {
+    const int v = c[j];
+    c[j] = run;
+    if (j % a.n_units == 0) st[j / a.n_units] = run;
+    run += v;
+  }
+  if (threadIdx.x == kScanThreads - 1) st[a.S] = run;
+}
+
+// Step 3: list the unit's counted rows of lane blockIdx.y in order. A row
+// counts where its node id lies in [0, S) and its new id is 2 * node (it
+// went left). Per 256-row chunk: each warp ranks its rows among the warp's
+// rows of the same slot (__match_any_sync), notes each slot's count in
+// wcnt[warp][slot], and a row's place is the unit's running offset of its
+// slot + the counts of the warps before it + its rank.
+__global__ void __launch_bounds__(kSortThreads)
+    sort_scatter_kernel(const SortedArgs a) {
+  extern __shared__ int sort_smem[];
+  const int S = a.S, k = blockIdx.y, u = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* off = sort_smem;         // [S]
+  int* wcnt = sort_smem + S;    // [kSortWarps][S]
+  const int* c_k = a.counts + (long long)k * S * a.n_units;
+  for (int j = threadIdx.x; j < S; j += kSortThreads)
+    off[j] = c_k[(long long)j * a.n_units + u];
+  for (int j = threadIdx.x; j < kSortWarps * S; j += kSortThreads) wcnt[j] = 0;
+  __syncthreads();
+  const long long N = a.N;
+  const long long r0 = (long long)u * a.unit_rows;
+  const long long r1 = min(N, r0 + a.unit_rows);
+  const float* node_k = a.node + (long long)k * N;
+  const float* new_k = a.node_out + (long long)k * N;
+  const float* pay_k = a.pay + (long long)k * a.C * N;
+  float4* lp = a.lpay + (long long)k * N;
+  int* lr = a.lrow + (long long)k * N;
+  int* ls = a.lslot + (long long)k * N;
+  const unsigned below = lanemask_lt();
+  for (long long i0 = r0; i0 < r1; i0 += kSortThreads) {
+    const long long i = i0 + threadIdx.x;
+    int s = -1;
+    if (i < r1) {
+      const float nd = node_k[i];
+      if (nd >= 0.f && nd < (float)S && new_k[i] == 2.f * nd) s = (int)nd;
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, s);
+    const int rank = __popc(peers & below);
+    const bool lead = s >= 0 && rank == 0;
+    if (lead) wcnt[warp * S + s] = __popc(peers);
+    __syncthreads();
+    if (s >= 0) {
+      int pos = off[s] + rank;
+      for (int w = 0; w < warp; ++w) pos += wcnt[w * S + s];
+      float p[kMaxChannels] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < a.C; ++c) p[c] = pay_k[(long long)c * N + i];
+      if (a.derive) p[a.C] = p[a.C - 1] > 0.f ? 1.f : 0.f;
+      lp[pos] = make_float4(p[0], p[1], p[2], p[3]);
+      lr[pos] = (int)i;
+      ls[pos] = s;
+    }
+    __syncthreads();   // every place is taken before the offsets move on
+    if (lead) {
+      atomicAdd(off + s, __popc(peers));
+      wcnt[warp * S + s] = 0;
+    }
+    __syncthreads();
+  }
+}
+
+// Add this thread's cells of slot s (its feature, every bin and channel)
+// into the output and zero them: a store where the piece [p0, p1) holds the
+// whole slot, else an atomicAdd. Zero cells are skipped (the output starts
+// at 0).
+template <int CO>
+__device__ __forceinline__ void flush_slot(float* h, float* out_f, int s,
+                                           const int* st, long long p0,
+                                           long long p1, int B, int co,
+                                           long long FB, bool has) {
+  const int Co = CO > 0 ? CO : co;
+  const bool own = st[s] >= p0 && st[s + 1] <= p1;
+  float* o = out_f + (long long)s * Co * FB;
+  for (int b = 0; b < B; ++b) {
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) {
+      if (c >= Co) break;
+      float* cell = h + (b * Co + c) * 32;
+      const float v = *cell;
+      if (v == 0.f) continue;
+      *cell = 0.f;
+      if (!has) continue;
+      if (own)
+        o[c * FB + b] = v;
+      else
+        atomicAdd(o + c * FB + b, v);
+    }
+  }
+}
+
+// Step 4: grid (n_pieces, lanes x n_ftiles), a warp per 32 features of the
+// block's feature tile. Warps without features, and pieces past the lane's
+// listed rows, return at once. CO as in hist_fm_kernel (3 or 4 fixed, 0
+// read from the arguments).
+template <typename XT, int CO>
+__global__ void __launch_bounds__(kSortedMaxThreads)
+    sorted_hist_kernel(const SortedArgs a) {
+  extern __shared__ __align__(16) float sorted_smem[];
+  const int Co = CO > 0 ? CO : a.C + a.derive;
+  const int k = blockIdx.y / a.n_ftiles, ft = blockIdx.y % a.n_ftiles;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fw = ft * a.f_tile + warp * 32;   // the warp's first feature
+  if (fw >= a.F) return;
+  const int f = fw + lane;
+  const bool has = f < a.F;
+  const long long N = a.N;
+  const int* st = a.start + (long long)k * (a.S + 1);
+  const long long L = st[a.S];
+  const long long p0 = (long long)blockIdx.x * a.piece_rows;
+  if (p0 >= L) return;
+  const long long p1 = min(L, p0 + a.piece_rows);
+  float* h = sorted_smem + warp * a.B * Co * 32 + lane;   // this thread's
+  for (int j = 0; j < a.B * Co; ++j) h[j * 32] = 0.f;
+  const XT* xr = static_cast<const XT*>(a.xb_rows) + (has ? f : 0);
+  const float4* lp = a.lpay + (long long)k * N;
+  const int* lr = a.lrow + (long long)k * N;
+  const int* ls = a.lslot + (long long)k * N;
+  const long long FB = (long long)a.F * a.B;
+  float* out_f = a.out + (long long)k * a.S * Co * FB + (long long)f * a.B;
+  int cur = -1;
+  for (long long q0 = p0; q0 < p1; q0 += 32) {
+    const long long q = q0 + lane;
+    const bool in = q < p1;
+    const int er = in ? __ldg(lr + q) : 0;
+    const int es = in ? __ldg(ls + q) : -1;
+    const float4 ep = in ? __ldg(lp + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int n = (int)min(32LL, p1 - q0);
+    int bn[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int r = __shfl_sync(0xffffffffu, er, j);
+      bn[j] = (has && j < n) ? (int)__ldg(xr + (long long)r * a.F) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (j >= n) break;
+      const int s = __shfl_sync(0xffffffffu, es, j);
+      if (s != cur) {
+        if (cur >= 0)
+          flush_slot<CO>(h, out_f, cur, st, p0, p1, a.B, Co, FB, has);
+        cur = s;
+      }
+      const float v[kMaxChannels] = {__shfl_sync(0xffffffffu, ep.x, j),
+                                     __shfl_sync(0xffffffffu, ep.y, j),
+                                     __shfl_sync(0xffffffffu, ep.z, j),
+                                     __shfl_sync(0xffffffffu, ep.w, j)};
+      if ((unsigned)bn[j] < (unsigned)a.B) {
+        float* cell = h + bn[j] * Co * 32;
+#pragma unroll
+        for (int c = 0; c < kMaxChannels; ++c)
+          if (c < Co) cell[c * 32] += v[c];
+      }
+    }
+  }
+  if (cur >= 0) flush_slot<CO>(h, out_f, cur, st, p0, p1, a.B, Co, FB, has);
+}
+
 // Launch a kernel with `smem` bytes of dynamic shared memory.
 template <typename Kernel, typename... Args>
 int launch(Kernel kern, dim3 grid, int threads, int smem, cudaStream_t stream,
@@ -1043,6 +1376,43 @@ int launch_route_hist(const void* xb, const float* pay, const float* node,
   return launch_fm<XT, true>(a, path, blocks, smem, stream);
 }
 
+// The sorted path: check the plan against the kernels' own layout, then
+// launch the sort (count, scan, scatter) and, with `hist`, the histogram.
+template <typename XT>
+int launch_route_hist_sorted(SortedArgs a, void* work, int hist, int smem,
+                             cudaStream_t stream) {
+  const int Co = a.C + a.derive;
+  if (a.C < 1 || Co > kMaxChannels || a.S < 1 || a.S > kMaxSortSlots ||
+      a.unit_rows < 1 || a.piece_rows < 1 || a.f_tile < 32 ||
+      a.f_tile % 32 != 0 || a.f_tile > kSortedMaxThreads ||
+      smem != sorted_smem_bytes(a.f_tile, a.B, Co) ||
+      reinterpret_cast<unsigned long long>(work) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  a.n_units = (int)((a.N + a.unit_rows - 1) / a.unit_rows);
+  a.n_pieces = (int)((a.N + a.piece_rows - 1) / a.piece_rows);
+  a.n_ftiles = (a.F + a.f_tile - 1) / a.f_tile;
+  const long long LN = (long long)a.lanes * a.N;
+  a.lpay = static_cast<float4*>(work);
+  a.lrow = reinterpret_cast<int*>(a.lpay + LN);
+  a.lslot = a.lrow + LN;
+  a.counts = a.lslot + LN;
+  a.start = a.counts + (long long)a.lanes * a.S * a.n_units;
+  int e = launch(sort_count_kernel<XT>, dim3(a.n_units, a.lanes),
+                 kSortThreads, 16 * a.S, stream, a);
+  if (e) return e;
+  e = launch(sort_scan_kernel, dim3(a.lanes), kScanThreads, 0, stream, a);
+  if (e) return e;
+  e = launch(sort_scatter_kernel, dim3(a.n_units, a.lanes), kSortThreads,
+             4 * (1 + kSortWarps) * a.S, stream, a);
+  if (e || !hist) return e;
+  const dim3 grid(a.n_pieces, a.lanes * a.n_ftiles);
+  if (Co == 3)
+    return launch(sorted_hist_kernel<XT, 3>, grid, a.f_tile, smem, stream, a);
+  if (Co == 4)
+    return launch(sorted_hist_kernel<XT, 4>, grid, a.f_tile, smem, stream, a);
+  return launch(sorted_hist_kernel<XT, 0>, grid, a.f_tile, smem, stream, a);
+}
+
 // route: the rows path on a grid (blocks, lanes) of `threads`; the staged
 // path on a persistent grid of `blocks`, after checking the launch shape
 // against the kernel's own layout.
@@ -1110,6 +1480,28 @@ int tk_route_hist(const void* xb, int xb_kind, const float* pay,
         xb, pay, node, tf, tt, tm, out, node_out, F, N, Fo, C, derive,
         n_nodes, B, path, f_tile, s_tile, copies, blocks, rows_per_block,
         smem, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// route_hist's sorted path (plan_hist's "sorted"): xb_rows the bins
+// row-major [N, F]; work a 16-byte aligned workspace of sorted_work_words
+// words; f_tile the features of a histogram block (its threads); unit_rows
+// the sort's rows a count unit, piece_rows the histogram's list entries a
+// block; hist = 0 runs the sort alone (its time, and its lists in work).
+int tk_route_hist_sorted(const void* xb, const void* xb_rows, int xb_kind,
+                         const float* pay, const float* node, const int* tf,
+                         const int* tt, const int* tm, float* out,
+                         float* node_out, void* work, int F, long long N,
+                         int Fo, int C, int derive, int n_nodes, int B,
+                         int f_tile, int unit_rows, int piece_rows, int hist,
+                         int smem, void* stream) {
+  const SortedArgs a{xb, xb_rows, pay, node, tf, tt, tm, out, node_out,
+                     nullptr, nullptr, nullptr, nullptr, nullptr, N, F, C,
+                     derive, n_nodes, B, Fo, unit_rows, 0, piece_rows, 0,
+                     f_tile, 0};
+  return by_kind(xb_kind, [&](auto tag) {
+    return launch_route_hist_sorted<decltype(tag)>(
+        a, work, hist, smem, static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -37,6 +37,9 @@ _SIGNATURES = {
                 _I, _I, _L, _I, _P),
     "tk_route_hist": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _L, _I, _P),
+    "tk_route_hist_sorted": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
     "tk_route": (_P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
                  _I, _P),
     "tk_lookup": (_P, _P, _P, _I, _L, _I, _I, _I, _P),

@@ -12,7 +12,11 @@ the JAX signature and output layout (binned matrix [F, N], lane planes
 
 `plan_hist` picks the launch shape of the first two, `plan_route` and
 `plan_lookup` that of the last two; each dispatcher takes `path=` to force
-one (measurement and tests).
+one (measurement and tests). route_hist's "sorted" path lists each lane's
+left rows by slot before it counts them; its sort runs alone through
+`route_hist_sort`, and `slot_order_plain`, `sorted_pieces` and
+`sorted_piece_hist_plain` are the plain versions of its sort and of its
+histogram's pieces.
 
 A dispatcher runs its plain PyTorch version when its inputs lie on the CPU
 and launches the hand-written CUDA kernel (csrc/tree_kernels.cu) when they
@@ -75,8 +79,29 @@ _FM_MIN_FEATURES = 8         # narrower F takes the rows path
 # owned path's (hist_folds at F = 64 and 164, B = 33, 3 payload channels +
 # count, 5 lanes: 0.87-0.88 on an H100, `tools/hist_paths --kernels roots`)
 _PRIVATE_GAIN = 0.88
-PATHS = ("rows", "private", "owned")
-_PATH_CODES = {p: i for i, p in enumerate(PATHS)}
+PATHS = ("rows", "private", "owned", "sorted")
+_PATH_CODES = {p: i for i, p in enumerate(PATHS[:3])}   # tk_hist's codes
+# route_hist's sorted path (sort_*_kernel, sorted_hist_kernel): the slots
+# its sort takes (kMaxSortSlots); the rows of a count unit (at least 4096,
+# and 16 a slot, so that the [slot, unit] counts stay a small share of the
+# rows); the list entries of a histogram block, at most 64 a bin (rounded
+# up to 256: a split slot's flush of B x Co cells a thread stays small
+# beside the piece's counting), fewer where that fills the resident blocks
+# twice over; the planner takes the path from 32 features (a warp's worth),
+# 32 768 rows and 4 resident warps an SM. Below those the rows path or the
+# features path was faster on an H100 (`tools/hist_paths --kernels small`
+# and `levels`, PERF.md §6: at F = 164 rows wins below 16 000 rows and the
+# sorted path from 64 000; at F = 8 rows or owned up to 64 000; at 257
+# bins, whose warp histogram of 98.7 KB leaves 2 warps an SM, 17.1-17.2 ms
+# against the rows path's 10.5-11.0 at 1M rows)
+_SORT_MAX_SLOTS = 4096
+_SORT_UNIT_ROWS = 4096
+_SORT_UNIT_PER_SLOT = 16
+_SORT_PIECE_PER_BIN = 64
+_SORTED_MAX_WARPS = 16       # sorted_hist_kernel's block (kSortedMaxThreads)
+_SORTED_MIN_FEATURES = 32
+_SORTED_MIN_ROWS = 1 << 15
+_SORTED_MIN_SM_WARPS = 4
 # route's staged path: kStagedThreads, kStagedRows, the blocks an SM its
 # __launch_bounds__ keep resident
 ROUTE_PATHS = ("rows", "staged")
@@ -147,7 +172,11 @@ class HistTiling:
     (`copies` histograms, each shared by warps that own its slots) of
     hist_fm_kernel: a persistent grid of `blocks` blocks, a multiple of
     lanes x feature tiles x slot tiles, striding over staged row tiles of
-    `rows_per_block` rows."""
+    `rows_per_block` rows. Path "sorted" (route_hist only): a sort of each
+    lane's left rows by slot in units of `sort_rows` rows, then one block
+    per (piece of `rows_per_block` list entries, lane x feature tile),
+    `blocks` pieces a lane (as many as N rows could fill), a warp per 32
+    of the tile's `f_tile` features; `s_tile` is every slot."""
 
     path: str
     f_tile: int
@@ -156,6 +185,7 @@ class HistTiling:
     blocks: int
     rows_per_block: int
     smem_bytes: int
+    sort_rows: int = 0
 
 
 def fm_smem_bytes(itemsize: int, f_tile: int, s_tile: int, channels: int,
@@ -196,6 +226,50 @@ def _fm_tiles(n_feat, n_slots, channels, n_bins, itemsize, private,
             key = (n_st * n_ft, n_ft, -copies, n_st)
             best = key if best is None or key < best else best
     return None if best is None else (best[3], best[1], -best[2])
+
+
+def sorted_smem_bytes(f_tile: int, n_bins: int, channels: int) -> int:
+    """Shared memory of one sorted_hist_kernel block (sorted_smem_bytes in
+    the source): a [B, Co, 32] f32 histogram for each warp of 32 features."""
+    return 4 * f_tile * n_bins * channels
+
+
+def sorted_work_words(lanes: int, n_rows: int, n_slots: int,
+                      sort_rows: int) -> int:
+    """Words of the sorted path's workspace (sorted_work_words in the
+    source): per lane a float4 payload, a row id and a slot for each row
+    the list may hold, the [S, units] counts and the S + 1 slot starts."""
+    return lanes * (6 * n_rows + n_slots * -(-n_rows // sort_rows)
+                    + n_slots + 1)
+
+
+def _sorted_sm_blocks(smem: int) -> int:
+    """sorted_hist_kernel blocks of `smem` bytes resident on one SM."""
+    return _SMEM_SM // (smem + _SMEM_BLOCK_RESERVED)
+
+
+def _plan_sorted(n_feat, n_slots, channels, n_bins, lanes, n_rows, n_sm):
+    """Sorted path: as many warps (32 features each) a block as keep two
+    blocks resident on an SM (at least one), in feature tiles of equal
+    width; pieces of at most 64 list entries a bin, fewer where the lanes'
+    lists (about half the rows each) would not fill the resident blocks
+    twice; None where one warp's histogram does not fit a block or the
+    slots do not fit the sort's shared memory."""
+    per_warp = sorted_smem_bytes(32, n_bins, channels)
+    if per_warp > _SMEM_BLOCK_MAX or n_slots > _SORT_MAX_SLOTS:
+        return None
+    groups = -(-n_feat // 32)
+    two = (_SMEM_SM // 2 - _SMEM_BLOCK_RESERVED) // per_warp
+    warps = max(1, min(groups, two, _SORTED_MAX_WARPS))
+    n_ft = -(-groups // warps)
+    warps = -(-groups // n_ft)
+    smem = sorted_smem_bytes(32 * warps, n_bins, channels)
+    fill = -(-2 * n_sm * _sorted_sm_blocks(smem) // (lanes * n_ft))
+    piece = min(-(-_SORT_PIECE_PER_BIN * n_bins // 256),
+                max(1, -(-n_rows // (2 * 256 * fill)))) * 256
+    return HistTiling("sorted", 32 * warps, n_slots, 1,
+                      -(-n_rows // piece), piece, smem,
+                      max(_SORT_UNIT_ROWS, _SORT_UNIT_PER_SLOT * n_slots))
 
 
 def channel_groups(channels: int) -> tuple:
@@ -246,7 +320,12 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
     do and every warp owns
     a slot (copies x s_tile >= _FM_WARPS); otherwise "rows" (narrow F, or
     wide histograms split into slot tiles: at B = 257 each slot tile
-    re-reads every row while most of its warps own no slot). A given
+    re-reads every row while most of its warps own no slot). Where that
+    leaves route_hist on "rows", "sorted" from _SORTED_MIN_FEATURES
+    features and _SORTED_MIN_ROWS rows where it keeps
+    _SORTED_MIN_SM_WARPS warps resident an SM: its lists read only each
+    slot's own rows, once (every deeper level of a wide tree, B = 65
+    included; 257 bins keep the rows path). A given
     `path` is forced (measurement and tests), and raises where it does not
     fit. `channels` and `lanes` are the histogram's own: a lane of more
     than _GROUP_CHANNELS channels is planned as the launch takes it,
@@ -256,7 +335,10 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
         lanes *= groups
     n_tables = n_slots if route else 0
     fit = {p: _fm_tiles(n_feat, n_slots, channels, n_bins, itemsize,
-                        p == "private", n_tables) for p in PATHS[1:]}
+                        p == "private", n_tables) for p in ("private",
+                                                            "owned")}
+    fit["sorted"] = _plan_sorted(n_feat, n_slots, channels, n_bins, lanes,
+                                 n_rows, n_sm) if route else None
     if path is None:
         path, owned, private = "rows", fit["owned"], fit["private"]
         if n_feat >= _FM_MIN_FEATURES and owned is not None:
@@ -276,15 +358,27 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
                     n_st * n_ft == 2
                     and copies * -(-n_slots // n_st) >= _FM_WARPS):
                 path = "owned"
+        tl = fit["sorted"]
+        if (path == "rows" and tl is not None
+                and n_feat >= _SORTED_MIN_FEATURES
+                and n_rows >= _SORTED_MIN_ROWS
+                and _sorted_sm_blocks(tl.smem_bytes) * tl.f_tile // 32
+                >= _SORTED_MIN_SM_WARPS):
+            path = "sorted"
     if path == "rows":
         return _plan_rows(n_feat, n_slots, channels, n_bins, lanes, n_rows,
                           n_sm, 3 * 4 * n_tables)
     if path not in PATHS:
         raise ValueError(f"unknown histogram path {path!r}; one of {PATHS}")
+    if path == "sorted" and not route:
+        raise ValueError("path 'sorted' is route_hist's alone: hist_folds "
+                         "has no routing to sort its rows")
     if fit[path] is None:
         raise ValueError(f"path {path!r}: a histogram of {n_bins} bins x "
-                         f"{channels} channels does not fit a block's shared "
-                         f"memory")
+                         f"{channels} channels at {n_slots} slots does not "
+                         f"fit a block's shared memory")
+    if path == "sorted":
+        return fit[path]
     n_st, n_ft, copies = fit[path]
     s_tile = -(-n_slots // n_st)
     f_tile = -(-n_feat // n_ft)
@@ -595,9 +689,11 @@ def route(Xb_t: torch.Tensor, node_t: torch.Tensor, f_lvl: torch.Tensor,
 # -- B2: fused route + next-level histogram -----------------------------------
 
 def route_hist_plain(Xb_t, pay_t, node_t, f_lvl, t_lvl, m_lvl, *,
-                     n_nodes: int, n_bins: int, derive_count: bool = False):
+                     n_nodes: int, n_bins: int, derive_count: bool = False,
+                     xb_rows=None):
     """Plain version of route_hist: the plain route, then the plain
-    histogram with right rows moved past the slot range."""
+    histogram with right rows moved past the slot range. `xb_rows` (the
+    row-major bins of the sorted path) is ignored."""
     new_node = route_plain(Xb_t, node_t, f_lvl, t_lvl, m_lvl)
     right = new_node - 2.0 * node_t
     slots = node_t + float(n_nodes) * right
@@ -606,16 +702,10 @@ def route_hist_plain(Xb_t, pay_t, node_t, f_lvl, t_lvl, m_lvl, *,
     return hist, new_node
 
 
-def route_hist(Xb_t: torch.Tensor, pay_t: torch.Tensor, node_t: torch.Tensor,
-               f_lvl: torch.Tensor, t_lvl: torch.Tensor, m_lvl: torch.Tensor,
-               *, n_nodes: int, n_bins: int, derive_count: bool = False,
-               path: str | None = None):
-    """Route one level AND histogram the next level's left children in one
-    pass over the binned matrix, for every lane. Returns (hist [Fo *
-    n_nodes * Co, F * n_bins], new_node [Fo, N]); a left row's slot is its
-    old node id, right rows are dropped (their histograms come from sibling
-    subtraction), and new_node is exactly what `route` returns. `path` as
-    in `hist_folds`."""
+def _route_hist_args(Xb_t, pay_t, node_t, f_lvl, t_lvl, m_lvl, n_nodes,
+                     derive_count, xb_rows):
+    """Check route_hist's inputs; (F, N, lanes, payload channels a lane,
+    on the CPU)."""
     _need(Xb_t, "Xb_t", _BIN_KINDS)
     _need(pay_t, "pay_t", (torch.float32,))
     _need(node_t, "node_t", (torch.float32,))
@@ -625,7 +715,73 @@ def route_hist(Xb_t: torch.Tensor, pay_t: torch.Tensor, node_t: torch.Tensor,
         raise ValueError("Xb_t, pay_t and node_t must share the row axis")
     C = _lane_channels(pay_t, Fo, derive_count)
     _check_tables(f_lvl, t_lvl, m_lvl, Fo, n_nodes)
-    if _is_cpu(Xb_t, pay_t, node_t, f_lvl, t_lvl, m_lvl):
+    tensors = [Xb_t, pay_t, node_t, f_lvl, t_lvl, m_lvl]
+    if xb_rows is not None:
+        _need(xb_rows, "xb_rows", (Xb_t.dtype,))
+        if tuple(xb_rows.shape) != (N, F):
+            raise ValueError(f"xb_rows: expected the bins row-major, shape "
+                             f"{(N, F)}, got {tuple(xb_rows.shape)}")
+        tensors.append(xb_rows)
+    return F, N, Fo, C, _is_cpu(*tensors)
+
+
+def _kernel_lanes(pay_t, node_t, tables, Fo: int, C: int,
+                  derive_count: bool):
+    """route_hist's launch lanes: (payload, node plane, split tables,
+    groups, kernel lanes, channels and derive of a kernel lane); a lane of
+    more than _GROUP_CHANNELS channels as `channel_groups` kernel lanes
+    that share its node plane and tables."""
+    if C + int(derive_count) <= _GROUP_CHANNELS:
+        return pay_t, node_t, tables, 1, Fo, C, int(derive_count)
+    pay_t, node_t, groups, C = _grouped(pay_t, node_t, Fo, C, derive_count)
+    return (pay_t, node_t,
+            tuple(t.repeat_interleave(groups, dim=0) for t in tables),
+            groups, Fo * groups, C, 0)
+
+
+def _launch_sorted(lib, tl, Xb_t, xb_rows, pay_t, node_t, f_lvl, t_lvl,
+                   m_lvl, lanes, C, derive, n_nodes, n_bins, hist=True):
+    """The sorted path on kernel lanes (channel groups made already):
+    (hist [lanes * n_nodes * (C + derive), F * n_bins] or None without
+    `hist`, new_node [lanes, N], the workspace of int32 words). Without
+    `xb_rows` the launch makes its own row-major copy of the bins."""
+    F, N = Xb_t.shape
+    if xb_rows is None:
+        xb_rows = Xb_t.T.contiguous()
+    work = torch.empty(sorted_work_words(lanes, N, n_nodes, tl.sort_rows),
+                       dtype=torch.int32, device=Xb_t.device)
+    out = torch.zeros((lanes * n_nodes * (C + derive), F * n_bins),
+                      dtype=torch.float32, device=Xb_t.device) \
+        if hist else None
+    new_node = torch.empty_like(node_t)
+    _build.check(lib, lib.tk_route_hist_sorted(
+        Xb_t.data_ptr(), xb_rows.data_ptr(), _BIN_KINDS[Xb_t.dtype],
+        pay_t.data_ptr(), node_t.data_ptr(), f_lvl.data_ptr(),
+        t_lvl.data_ptr(), m_lvl.data_ptr(),
+        out.data_ptr() if hist else None, new_node.data_ptr(),
+        work.data_ptr(), F, N, lanes, C, derive, n_nodes, n_bins, tl.f_tile,
+        tl.sort_rows, tl.rows_per_block, int(hist), tl.smem_bytes,
+        _stream()), "route_hist")
+    return out, new_node, work
+
+
+def route_hist(Xb_t: torch.Tensor, pay_t: torch.Tensor, node_t: torch.Tensor,
+               f_lvl: torch.Tensor, t_lvl: torch.Tensor, m_lvl: torch.Tensor,
+               *, n_nodes: int, n_bins: int, derive_count: bool = False,
+               path: str | None = None, xb_rows: torch.Tensor | None = None):
+    """Route one level AND histogram the next level's left children in one
+    pass over the binned matrix, for every lane. Returns (hist [Fo *
+    n_nodes * Co, F * n_bins], new_node [Fo, N]); a left row's slot is its
+    old node id, right rows are dropped (their histograms come from sibling
+    subtraction), and new_node is exactly what `route` returns. `path` as
+    in `hist_folds`. `xb_rows` [N, F], the same bins row-major, is what
+    the sorted path reads a listed row's bins from (a fit makes it once);
+    without it that path copies the bins itself, and every other path and
+    the CPU ignore it."""
+    F, N, Fo, C, cpu = _route_hist_args(Xb_t, pay_t, node_t, f_lvl, t_lvl,
+                                        m_lvl, n_nodes, derive_count,
+                                        xb_rows)
+    if cpu:
         return route_hist_plain(Xb_t, pay_t, node_t, f_lvl, t_lvl, m_lvl,
                                 n_nodes=n_nodes, n_bins=n_bins,
                                 derive_count=derive_count)
@@ -637,29 +793,115 @@ def route_hist(Xb_t: torch.Tensor, pay_t: torch.Tensor, node_t: torch.Tensor,
                 torch.empty_like(node_t))
     tl = plan_hist(F, n_nodes, Co, n_bins, Fo, N, _n_sm(Xb_t.device),
                    itemsize=Xb_t.element_size(), route=True, path=path)
-    groups, lanes, derive = 1, Fo, int(derive_count)
-    if Co > _GROUP_CHANNELS:
-        pay_t, node_t, groups, C = _grouped(pay_t, node_t, Fo, C,
-                                            derive_count)
-        f_lvl, t_lvl, m_lvl = (t.repeat_interleave(groups, dim=0)
-                               for t in (f_lvl, t_lvl, m_lvl))
-        lanes, derive = Fo * groups, 0
-    hist = torch.zeros((lanes * n_nodes * (C + derive), F * n_bins),
-                       dtype=torch.float32, device=Xb_t.device)
-    new_node = torch.empty_like(node_t)
-    _build.check(lib, lib.tk_route_hist(
-        Xb_t.data_ptr(), _BIN_KINDS[Xb_t.dtype], pay_t.data_ptr(),
-        node_t.data_ptr(), f_lvl.data_ptr(), t_lvl.data_ptr(),
-        m_lvl.data_ptr(), hist.data_ptr(), new_node.data_ptr(), F, N, lanes,
-        C, derive, n_nodes, n_bins, _PATH_CODES[tl.path], tl.f_tile,
-        tl.s_tile, tl.copies, tl.blocks, tl.rows_per_block, tl.smem_bytes,
-        _stream()),
-        "route_hist")
+    pay_t, node_t, (f_lvl, t_lvl, m_lvl), groups, lanes, C, derive = \
+        _kernel_lanes(pay_t, node_t, (f_lvl, t_lvl, m_lvl), Fo, C,
+                      derive_count)
+    if tl.path == "sorted":
+        hist, new_node, _ = _launch_sorted(
+            lib, tl, Xb_t, xb_rows, pay_t, node_t, f_lvl, t_lvl, m_lvl,
+            lanes, C, derive, n_nodes, n_bins)
+    else:
+        hist = torch.zeros((lanes * n_nodes * (C + derive), F * n_bins),
+                           dtype=torch.float32, device=Xb_t.device)
+        new_node = torch.empty_like(node_t)
+        _build.check(lib, lib.tk_route_hist(
+            Xb_t.data_ptr(), _BIN_KINDS[Xb_t.dtype], pay_t.data_ptr(),
+            node_t.data_ptr(), f_lvl.data_ptr(), t_lvl.data_ptr(),
+            m_lvl.data_ptr(), hist.data_ptr(), new_node.data_ptr(), F, N,
+            lanes, C, derive, n_nodes, n_bins, _PATH_CODES[tl.path],
+            tl.f_tile, tl.s_tile, tl.copies, tl.blocks, tl.rows_per_block,
+            tl.smem_bytes, _stream()),
+            "route_hist")
     _count_launch("route_hist", F, n_nodes)
     if groups == 1:
         return hist, new_node
     return (_ungrouped(hist, Fo, groups, C, n_nodes, Co),
             new_node[::groups].contiguous())
+
+
+def route_hist_sort(Xb_t: torch.Tensor, pay_t: torch.Tensor,
+                    node_t: torch.Tensor, f_lvl: torch.Tensor,
+                    t_lvl: torch.Tensor, m_lvl: torch.Tensor, *,
+                    n_nodes: int, n_bins: int, derive_count: bool = False,
+                    xb_rows: torch.Tensor | None = None):
+    """The sorted path's sort alone, on the card, as route_hist would
+    launch it (its first three kernels): (new_node [Fo, N], order [Fo, N]
+    int32 row ids, start [Fo, n_nodes + 1] int32) of each lane, its list as
+    sorted_hist_kernel reads it (entries past start[:, -1] are unset).
+    For the card tests, against `slot_order_plain`, and for timing the
+    sort's share of a launch; it counts no launch."""
+    F, N, Fo, C, cpu = _route_hist_args(Xb_t, pay_t, node_t, f_lvl, t_lvl,
+                                        m_lvl, n_nodes, derive_count,
+                                        xb_rows)
+    if cpu:
+        raise ValueError("route_hist_sort runs the sorted path's sort on a "
+                         "CUDA device; its plain version is "
+                         "slot_order_plain")
+    if N == 0:
+        return (torch.empty_like(node_t),
+                torch.empty((Fo, 0), dtype=torch.int32, device=node_t.device),
+                torch.zeros((Fo, n_nodes + 1), dtype=torch.int32,
+                            device=node_t.device))
+    Co = C + int(derive_count)
+    tl = plan_hist(F, n_nodes, Co, n_bins, Fo, N, _n_sm(Xb_t.device),
+                   itemsize=Xb_t.element_size(), route=True, path="sorted")
+    pay_t, node_t, (f_lvl, t_lvl, m_lvl), groups, lanes, C, derive = \
+        _kernel_lanes(pay_t, node_t, (f_lvl, t_lvl, m_lvl), Fo, C,
+                      derive_count)
+    _, new_node, work = _launch_sorted(
+        _build.library(), tl, Xb_t, xb_rows, pay_t, node_t, f_lvl, t_lvl,
+        m_lvl, lanes, C, derive, n_nodes, n_bins, hist=False)
+    LN = lanes * N
+    order = work[4 * LN:5 * LN].view(lanes, N)[::groups]
+    start = work[-lanes * (n_nodes + 1):].view(lanes, n_nodes + 1)[::groups]
+    return new_node[::groups], order, start
+
+
+def slot_order_plain(node_t: torch.Tensor, new_node: torch.Tensor,
+                     n_nodes: int):
+    """Plain version of the sorted path's sort: each lane's list of the
+    rows its histogram counts (node id in [0, n_nodes) and routed left:
+    new id = 2 x node), ordered by slot (the node id, truncated), rows
+    ascending inside a slot. Returns (order [Fo, N] int64 row ids, -1 past
+    each lane's count; start [Fo, n_nodes + 1] int64: slot s's first
+    entry, and the lane's count last)."""
+    Fo, N = node_t.shape
+    left = (node_t >= 0) & (node_t < n_nodes) & (new_node == 2.0 * node_t)
+    slot = torch.where(left, node_t, float(n_nodes)).long()
+    order = torch.sort(slot, dim=1, stable=True).indices
+    counts = torch.zeros((Fo, n_nodes + 1), dtype=torch.long,
+                         device=node_t.device).scatter_add_(
+        1, slot, torch.ones_like(slot))[:, :n_nodes]
+    start = torch.cat([counts.new_zeros((Fo, 1)), counts.cumsum(1)], 1)
+    listed = torch.arange(N, device=node_t.device)[None, :] < start[:, -1:]
+    return torch.where(listed, order, -1), start
+
+
+def sorted_pieces(start: torch.Tensor, piece_rows: int) -> list:
+    """The sorted path's pieces [(lane, p0, p1)]: each lane's list cut into
+    runs of `piece_rows` entries, one sorted_hist_kernel block each (for
+    every feature tile)."""
+    return [(k, p0, min(n, p0 + piece_rows))
+            for k, n in enumerate(start[:, -1].tolist())
+            for p0 in range(0, n, piece_rows)]
+
+
+def sorted_piece_hist_plain(Xb_t, pay_t, order, start, piece, *,
+                            n_nodes: int, n_bins: int,
+                            derive_count: bool = False) -> torch.Tensor:
+    """Plain version of one sorted_hist_kernel piece (lane, p0, p1): the
+    histogram [n_nodes * Co, F * n_bins] that lane's listed rows order[lane,
+    p0:p1] add, each into the slot whose run of the list holds its entry.
+    The pieces' histograms of a lane sum to its histogram."""
+    k, p0, p1 = piece
+    rows = order[k, p0:p1]
+    slot = torch.searchsorted(start[k, 1:].contiguous(),
+                              torch.arange(p0, p1, device=order.device),
+                              right=True)
+    C = pay_t.shape[0] // order.shape[0]
+    return hist_folds_plain(Xb_t[:, rows], pay_t[k * C:(k + 1) * C][:, rows],
+                            slot.float()[None], n_slots=n_nodes,
+                            n_bins=n_bins, derive_count=derive_count)
 
 
 # -- B4: per-lane table lookup ------------------------------------------------

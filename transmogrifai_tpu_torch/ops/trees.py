@@ -310,7 +310,7 @@ def _grow_tree_folds(Xb_t, G, H, *, depth, n_bins, reg_lambda,
                      max_delta_step=0.0, level_feature_frac=1.0,
                      generator=None, feature_mask_count=None,
                      leaf_mode="newton", normalize_gain=False,
-                     node_masks=None, leaf_rows=True):
+                     node_masks=None, leaf_rows=True, Xb_rows=None):
     """Grow one tree PER LANE, level by level, in shared kernel passes: the
     grower of every tree family (boosted rounds, forest trees, single
     trees), the counterpart of the reference's grow_tree vmapped over lanes.
@@ -330,6 +330,9 @@ def _grow_tree_folds(Xb_t, G, H, *, depth, n_bins, reg_lambda,
     a colsample_bylevel subset per level drawn from `generator`; and per
     node `node_masks`, a callable level d -> mask [2^d, F] or [Fo, 2^d, F]
     (Spark's featureSubsetStrategy; `ForestDraws.node_masks`).
+
+    `Xb_rows` [N, F], the same bins row-major (the fit's own binned
+    matrix), is what route_hist's sorted path reads a row's bins from.
 
     Returns (Tree with a leading [Fo] axis, leaf_rows): the learning-rate-
     scaled leaf payloads of every row, [Fo, N] for a 2-D G and [Fo, K, N]
@@ -375,7 +378,7 @@ def _grow_tree_folds(Xb_t, G, H, *, depth, n_bins, reg_lambda,
         if d < depth - 1:
             hist, node = TK.route_hist(Xb_t, pay, node, f_lvl, t_lvl, m_lvl,
                                        n_nodes=n_nodes, n_bins=B,
-                                       derive_count=True)
+                                       derive_count=True, xb_rows=Xb_rows)
         elif leaf_rows:
             node = TK.route(Xb_t, node, f_lvl, t_lvl, m_lvl, n_nodes=n_nodes)
     del prev, full, hist
@@ -431,7 +434,7 @@ def grow_tree(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor, *,
         max_delta_step=max_delta_step, level_feature_frac=level_feature_frac,
         generator=generator, feature_mask_count=feature_mask_count,
         leaf_mode=leaf_mode, normalize_gain=normalize_gain,
-        node_masks=node_masks, leaf_rows=False)
+        node_masks=node_masks, leaf_rows=False, Xb_rows=Xb.contiguous())
     return Tree(*(t[0] for t in tree))
 
 
@@ -549,7 +552,7 @@ def fit_forest_folds(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor, *,
         draws = ForestDraws(seed, N, F, subsample=subsample,
                             feature_frac=feature_frac, bootstrap=bootstrap,
                             device=Xb.device)
-    Xb_t = Xb.T.contiguous()
+    Xb_t, Xb_rows = Xb.T.contiguous(), Xb.contiguous()
     trees, agg = [], None
     for t in range(n_trees):
         rw = draws.row_weights(t).to(Xb.device)
@@ -559,7 +562,8 @@ def fit_forest_folds(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor, *,
             min_instances=min_instances, min_info_gain=min_info_gain,
             gamma=0.0, learning_rate=1.0, feature_mask=None,
             leaf_mode=leaf_mode, normalize_gain=True,
-            node_masks=draws.node_masks(t), leaf_rows=predict)
+            node_masks=draws.node_masks(t), leaf_rows=predict,
+            Xb_rows=Xb_rows)
         trees.append(tree)
         if predict:
             agg = rows if agg is None else agg + rows
@@ -647,7 +651,7 @@ def fit_gbt_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor, *,
         base = torch.log(p0 / (1 - p0))
     else:
         base = wy / wsum
-    Xb_t = Xb.T.contiguous()
+    Xb_t, Xb_rows = Xb.T.contiguous(), Xb.contiguous()
     fm_count = max(1, int(round(feature_frac * F))) \
         if feature_frac < 1.0 else None
     margin = base[:, None].expand(Fo, N).clone()
@@ -667,7 +671,7 @@ def fit_gbt_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor, *,
             gamma=gamma, learning_rate=learning_rate, feature_mask=fm,
             alpha=alpha, max_delta_step=max_delta_step,
             level_feature_frac=colsample_bylevel, generator=generator,
-            feature_mask_count=fm_count)
+            feature_mask_count=fm_count, Xb_rows=Xb_rows)
         margin = margin + leaf_rows
         rounds.append(tree)
     trees = Tree(*(torch.stack(parts) for parts in zip(*rounds)))
@@ -737,7 +741,7 @@ def fit_gbt_softmax_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
     dev = Xb.device
     W = W.to(torch.float32)[:, None, :]                        # [Fo, 1, N]
     Y = torch.nn.functional.one_hot(y.long(), K).T.to(torch.float32)[None]
-    Xb_t = Xb.T.contiguous()
+    Xb_t, Xb_rows = Xb.T.contiguous(), Xb.contiguous()
     fm_count = max(1, int(round(feature_frac * F))) \
         if feature_frac < 1.0 else None
     margin = torch.zeros((Fo, K, N), dtype=torch.float32, device=dev)
@@ -761,7 +765,8 @@ def fit_gbt_softmax_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
             reg_lambda=reg_lambda, min_child_weight=min_child_weight,
             min_instances=1.0, min_info_gain=0.0, gamma=gamma,
             learning_rate=learning_rate, feature_mask=fm, alpha=alpha,
-            max_delta_step=max_delta_step, node_masks=node_masks)
+            max_delta_step=max_delta_step, node_masks=node_masks,
+            Xb_rows=Xb_rows)
         margin = margin + leaf_rows.reshape(Fo, K, N)
         rounds.append(Tree(*(t.reshape(Fo, K, *t.shape[1:]) for t in tree)))
     trees = Tree(*(torch.stack(parts) for parts in zip(*rounds)))

@@ -13,7 +13,10 @@ lanes), `table_lookup` at 16 and 64 leaves; `--kernels deep` takes the
 shapes of a depth-12 tree instead (`deep_shapes`, a forest's and a boosted
 fit's), `--kernels roots` the one-slot histograms (`root_shapes`: both
 kernels at S = 1 over F = 64, 164, 512, B = 33, 65 and 2 or 3 payload
-channels + the count). Each path that
+channels + the count), `--kernels levels` route_hist below the root at
+the workflows' widths (`level_shapes`: F = 164, 650, 48 at 257 bins, and
+op_iris's 8), `--kernels small` route_hist at 135 to 262 144 rows
+(`small_shapes`: where the sorted path starts to pay). Each path that
 fits the shape
 (`TK.PATHS`, `TK.ROUTE_PATHS` or `TK.LOOKUP_PATHS`) is checked once
 against the plain version (`accuracy`) and timed in turns, forward
@@ -170,6 +173,79 @@ def root_shapes(rows: int, seed: int, dev: str = "cuda") -> list:
     return shapes
 
 
+LEVEL_SHAPES = (   # (F, B, lanes, payload channels, S...) of route_hist
+    (164, 33, 5, 3, (2, 8, 32, 128, 512, 1024)),   # workflow-main's forest
+    (164, 33, 5, 2, (2, 32, 1024)),                # and boosted levels
+    (650, 33, 3, 3, (2, 4, 16)),                   # workflow-wide's
+    (48, 257, 21, 2, (2, 4)),                      # multiclass XGBoost
+    (8, 33, 6, 3, (64, 1024)),                     # op_iris (a lane: 2)
+)
+
+
+def level_shapes(rows: int, seed: int, dev: str = "cuda") -> list:
+    """(label, kernel, S, args, kwargs) of route_hist below the root at the
+    workflows' widths (LEVEL_SHAPES; op_iris's at 135 rows, whatever
+    `rows`): seeded bins (int8 up to 128 bins, int32 beyond, 5% missing),
+    payloads as `deep_inputs` draws them, node ids uniform over the level,
+    and the bins row-major (`xb_rows`) as a fit passes them."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = []
+    for F, B, Fo, C, levels in LEVEL_SHAPES:
+        N = 135 if F == 8 else rows
+        Xb = torch.randint(1, B, (F, N), generator=gen, device=dev,
+                           dtype=torch.int8 if B <= 128 else torch.int32)
+        Xb[torch.rand((F, N), generator=gen, device=dev) < 0.05] = 0
+        w = torch.poisson(torch.ones((Fo, N), device=dev), generator=gen)
+        y = (torch.rand((N,), generator=gen, device=dev) < 0.3).float()
+        p = torch.rand((Fo, N), generator=gen, device=dev)
+        pay = (torch.stack([w * (1 - y), w * y, w], 1) if C == 3 else
+               torch.stack([p - y, p * (1 - p)], 1)).reshape(C * Fo, N)
+        rows_t = Xb.T.contiguous()
+        for S in levels:
+            node = torch.randint(0, S, (Fo, N), generator=gen,
+                                 device=dev).float()
+            tables = [torch.randint(0, hi, (Fo, S), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                      for hi in (F, B, 2)]
+            shapes.append((f"level S={S}: F={F} B={B} Fo={Fo} C={C}+1",
+                           "route_hist", S,
+                           (Xb, pay.contiguous(), node, *tables),
+                           dict(n_nodes=S, n_bins=B, derive_count=True,
+                                xb_rows=rows_t)))
+    return shapes
+
+
+SMALL_ROWS = (135, 1_000, 4_000, 16_000, 64_000, 262_144)
+
+
+def small_shapes(seed: int, dev: str = "cuda") -> list:
+    """(label, kernel, S, args, kwargs) of route_hist where few rows make
+    each launch short: F = 8 and 164, S = 8 and 256, at each of SMALL_ROWS
+    rows (3 lanes, 3 payload channels + the count, 33 bins, int8), seeded
+    as `level_shapes`, with the row-major bins (`xb_rows`)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = []
+    Fo, B = 3, 33
+    for F in (8, 164):
+        for N in SMALL_ROWS:
+            Xb = torch.randint(0, B, (F, N), generator=gen, device=dev,
+                               dtype=torch.int8)
+            pay = torch.rand((3 * Fo, N), generator=gen, device=dev)
+            for S in (8, 256):
+                node = torch.randint(0, S, (Fo, N), generator=gen,
+                                     device=dev).float()
+                tables = [torch.randint(0, hi, (Fo, S), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                          for hi in (F, B, 2)]
+                shapes.append((f"level S={S}: F={F} B={B} Fo={Fo} C=3+1",
+                               "route_hist", S, (Xb, pay, node, *tables),
+                               dict(n_nodes=S, n_bins=B, derive_count=True,
+                                    xb_rows=Xb.T.contiguous())))
+    return shapes
+
+
 def deep_inputs(rows: int, seed: int, dev: str = "cuda") -> dict:
     """Seeded inputs at the shapes of a depth-12 forest tree of the
     selector's default grids (F = 164, B = 33, 5 fold lanes, int8 bins with
@@ -180,7 +256,8 @@ def deep_inputs(rows: int, seed: int, dev: str = "cuda") -> dict:
     clamped to 1e-12 as fit_gbt_folds clamps it) and, for route_hist at S = 32, 256 and 1024 slots,
     route at 2048 nodes and table_lookup over 4096 leaves, node planes
     drawn uniformly over the level's nodes with each lane's split tables
-    drawn apart."""
+    drawn apart; `Xrows` holds the bins row-major, as a fit passes them to
+    route_hist (`xb_rows`)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
     N, F, B, Fo = rows, DEEP_FEATURES, 33, 5
@@ -200,7 +277,8 @@ def deep_inputs(rows: int, seed: int, dev: str = "cuda") -> dict:
     p = torch.rand((Fo, N), generator=gen, device=dev)
     gpay = torch.stack([mask * (p - y), torch.clamp(mask * p * (1 - p),
                                                     min=1e-12)], 1)
-    out = dict(N=N, F=F, B=B, Fo=Fo, Xb=Xb, pay=pay.contiguous(),
+    out = dict(N=N, F=F, B=B, Fo=Fo, Xb=Xb, Xrows=Xb.T.contiguous(),
+               pay=pay.contiguous(),
                gpay=gpay.reshape(2 * Fo, N).contiguous(),
                slot0=torch.zeros((Fo, N), device=dev))
     for S in (*DEEP_NODES, 2048):
@@ -229,7 +307,7 @@ def deep_shapes(d: dict, boosted: bool = False) -> list:
         shapes.append((f"{fit} level S={S}: F={F} B={B} Fo={Fo} C={C}+1",
                        "route_hist", S,
                        (d["Xb"], pay, d[f"node{S}"], *d[f"tables{S}"]),
-                       dict(hkw, n_nodes=S)))
+                       dict(hkw, n_nodes=S, xb_rows=d["Xrows"])))
     if boosted:
         return shapes
     shapes.append((f"forest last level 2048 nodes: F={F} Fo={Fo}", "route",
@@ -406,11 +484,14 @@ def main() -> int:
     ap.add_argument("--bins", type=int, default=33,
                     help="histogram bins B (max_bins + 1)")
     ap.add_argument("--kernels",
-                    choices=("all", "hist", "lanes", "deep", "roots"),
+                    choices=("all", "hist", "lanes", "deep", "roots",
+                             "levels", "small"),
                     default="all", help="the histogram kernels, route and "
                     "table_lookup (lanes), both, the depth-12 shapes (deep: "
-                    "F = 164, 3 or 4 channels, S up to 1024), or the "
-                    "one-slot histograms (roots)")
+                    "F = 164, 3 or 4 channels, S up to 1024), the "
+                    "one-slot histograms (roots), route_hist below the "
+                    "root at the workflows' widths (levels) or at 135 to "
+                    "262 144 rows (small; --rows is ignored)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -427,6 +508,10 @@ def main() -> int:
         shapes = deep_shapes(d) + deep_shapes(d, boosted=True)
     elif args.kernels == "roots":
         shapes = root_shapes(args.rows, args.seed)
+    elif args.kernels == "levels":
+        shapes = level_shapes(args.rows, args.seed)
+    elif args.kernels == "small":
+        shapes = small_shapes(args.seed)
     else:
         d = kernel_inputs(args.rows, args.seed, n_bins=args.bins,
                           hist=args.kernels != "lanes")
