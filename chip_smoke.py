@@ -69,10 +69,26 @@ Phases, each of which fails the run on error:
              metric kernel must have launched at the grid chunk's 8 lanes;
 9. baseline — one validate over the 48 LR grids and the 16 XGBoost
              configs on the same data: the port's whole BASELINE sweep;
-10. glm-profile — one round of the streamed route (240 lanes, 5 Newton
+10. tree-sweep-10M-fused — main's sweep (its X and y, the 16 configs)
+             with TMOG_GRID_FUSE on: each depth's 8 configs as one fit of
+             40 lanes (the lane planner's chunk printed), the wall beside
+             main's, peak device memory, launches by kernel, shape and
+             lanes, each fold metric within 1e-3 of main's or its tie
+             witness (`split_witness` on the two fits' first differing
+             node), the same winner or a tie within WINNER_TIE_TOL; then
+             every kernel at each 40-lane key of a one-round fit of each
+             depth group, timed at the full rows and held to its plain
+             version on its first 2M rows (rows of the kernels line,
+             phase "fused");
+11. baseline-bf16 — baseline's sweep with sweep_dtype=torch.bfloat16 and
+             fusion on (the BASELINE sweep as bench.py runs it on the
+             TPU): wall, routes, winner, peak memory, X's bytes against
+             the f32 sweep's, every cell's gap to its f32 cell, the best
+             CV AuPR within 1e-3 of baseline's;
+12. glm-profile — one round of the streamed route (240 lanes, 5 Newton
              iterations) under torch.profiler: the device's busy share
              and the top operations;
-11. workflow-small — the user's flow (FeatureBuilder -> transmogrify ->
+13. workflow-small — the user's flow (FeatureBuilder -> transmogrify ->
              SanityChecker -> BinaryClassificationModelSelector ->
              Workflow.train() -> score()) on 50 000 titanic-shaped
              records through ListReader, on the CPU (plain versions) and
@@ -84,10 +100,10 @@ Phases, each of which fails the run on error:
              where the first such node must be a tie within the f32 noise
              of the two histograms (the witness is printed); the second
              card run is held to the first the same way;
-12. workflow-titanic — the port's example flow
+14. workflow-titanic — the port's example flow
              (examples/op_titanic_simple.py: a Text name hashed into 512
              bins, DSL arithmetic, pivot, fill + z-normalize, a lambda
-             map) on `titanic_named_records`: CPU against card at 8 000
+             map) on `titanic_named_records`: CPU against card at 5 000
              records (LR's 2 least regularised default grid points, RF
              10 trees at depth {3, 5}: the
              matrix and metadata identical, the same drops and winner,
@@ -99,7 +115,7 @@ Phases, each of which fails the run on error:
              against the prevalence; every kernel at each (kernel, F, S,
              C, Fo) key of train() (F ~ 590) against its plain version
              (rows of the kernels line, phase "titanic");
-13. workflow-wide — bench.py's wide schema (PickLists of 50 and 12
+15. workflow-wide — bench.py's wide schema (PickLists of 50 and 12
              categories, a Text, two Reals, a Date, a RealMap) with one
              feature of each date, map, geolocation and structured text
              group (Email, URL, Phone, Base64, Geolocation, DateList,
@@ -118,7 +134,7 @@ Phases, each of which fails the run on error:
              key of train() (F = 650) against its plain version (rows of
              the kernels line, phase "wide"), while the CPU's leg trains
              in a thread;
-14. workflow-events — an event log through the data-prep flow
+16. workflow-events — an event log through the data-prep flow
              (`event_log`: 200 000 users' profiles, 1.5M events over 60
              days): the profiles through an AggregateReader keyed by user,
              left-outer joined with the events and re-aggregated around a
@@ -134,7 +150,7 @@ Phases, each of which fails the run on error:
              against its plain version (phase "events"); the leg at 2 500
              users on the CPU and on the card: readers, drops, reasons,
              matrix and winner identical, scores within 1e-5 or a tie;
-15. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
+17. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
              5 folds, the selector's default model types and grids: LR,
              RF, GBT and SVC, max_depth up to 12): the wall of each stage
              and of each family's sweep, each host-to-device copy, peak
@@ -149,7 +165,7 @@ Phases, each of which fails the run on error:
              those of route_hist's rows path (ROWS_PATH_SWEEP_S,
              ROWS_PATH_WINNER); then one statistics pass over the whole
              matrix, streamed, against the fused route;
-16. workflow-regression — op_boston's flow at user scale
+18. workflow-regression — op_boston's flow at user scale
              (`housing_columns`: 1 000 000 rows, all 13 predictors of
              HOUSING_COLUMNS, chas a PickList, rad an Integral, the Reals
              2% missing): transmogrify, SanityChecker() and a 3-fold
@@ -166,7 +182,7 @@ Phases, each of which fails the run on error:
              the card: the matrix identical, the same winner, CV fold
              metrics within 1e-3 relative or a tie witness in that cell's
              fits, scores within 1e-5 relative or a tie witness;
-17. workflow-multiclass — a Covertype-shaped flow (`covertype_columns`:
+19. workflow-multiclass — a Covertype-shaped flow (`covertype_columns`:
              581 012 rows, UCI Covertype's published counts of its 7 cover
              types, 10 quantitative columns 1% missing, wilderness area and
              soil type PickLists of 4 and 40) through transmogrify,
@@ -186,7 +202,7 @@ Phases, each of which fails the run on error:
              CV fold metrics within 1e-3 or a tie witness in that fold's
              lanes, the scores (predicted class, probabilities) within 1e-5
              relative or a tie witness;
-18. serve — the model workflow-wide trained at 1M rows (saved there)
+20. serve — the model workflow-wide trained at 1M rows (saved there)
              through the real CLI in subprocesses: `serve DIR
              --prewarm-only --max-batch 64` (rc 0, buckets 1, 8, 16, 32 and
              64 with each one's wall, serve.json's model_hash equal to
@@ -213,7 +229,9 @@ Float32 products stay in full f32: the run fails unless TF32 is off
 The last three lines of standard output are {"kernels": [...]} (each
 row's `launches` at its (kernel, F, S) key in the phase it names, a
 workflow, titanic, wide, events, regression, multiclass or iris row's at
-its (kernel, F, S, C, Fo) key inside its phase's train(), and, for the
+its (kernel, F, S, C, Fo) key inside its phase's train(), a fused row's at
+that key inside tree-sweep-10M-fused's sweep (with `full_rows_ms`, its
+time at the sweep's rows), and, for the
 tree, GLM and
 workflow rows,
 `workflow_launches` at that key inside workflow-main's train()), the
@@ -255,7 +273,7 @@ REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
 }
 GLM_EVAL_LANES = 8            # the streamed eval's grid chunk
 TITANIC_ROWS = 100_000        # workflow-titanic's main path (PERF.md §4)
-TITANIC_LEG_ROWS = 8_000      # its CPU-against-card leg (PERF.md §4)
+TITANIC_LEG_ROWS = 5_000      # its CPU-against-card leg (PERF.md §4)
 WIDE_ROWS = 1_000_000         # bench.py's wide_rows: workflow-wide's main path
 WIDE_LEG_ROWS = 8_000         # workflow-wide's CPU-against-card leg
 WIDE_SCORE_ROWS = 100_000     # new rows workflow-wide scores
@@ -550,7 +568,7 @@ def kernel_rows(shapes: list, phase: str = "tree",
                    check_s=check_s, timing_s=time.perf_counter() - t_timing,
                    key=capture_key(key, name, args, kw)
                    if phase in ("workflow", "titanic", "wide", "events",
-                                "regression", "multiclass", "iris")
+                                "regression", "multiclass", "iris", "fused")
                    else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
@@ -565,11 +583,15 @@ def kernel_rows(shapes: list, phase: str = "tree",
     return rows_out
 
 
+BINCOUNT_WEIGHT_BYTES = 40e9   # expanded bincount weights held at once
+
+
 def _bincount_hist(Xb_t, pay, F, B, lanes, n_slots, slot=None,
                    derive_count=False):
     """One torch.bincount per (lane, channel) over precomputed (slot,
     feature, bin) ids — the library yardstick for the histogram kernel
-    (the ids and weights are built outside the timed call)."""
+    (the ids and weights are built outside the timed call, the weights
+    inside it where they would pass BINCOUNT_WEIGHT_BYTES)."""
     import torch
     N = Xb_t.shape[1]
     C = pay.shape[0] // lanes
@@ -580,8 +602,16 @@ def _bincount_hist(Xb_t, pay, F, B, lanes, n_slots, slot=None,
     chans = [pay[k * C + c] for k in range(lanes) for c in range(C)]
     if derive_count:
         chans += [(pay[k * C + C - 1] > 0).float() for k in range(lanes)]
-    weights = [c.expand(F, N).reshape(-1) for c in chans]
     size = n_slots * F * B
+    if len(chans) * ids.numel() * 4 > BINCOUNT_WEIGHT_BYTES:
+        # too many lanes to hold every expanded weight at once (a fused
+        # sweep's 40): each is expanded inside the call, just before its
+        # bincount (a copy of F x N floats beside a bincount over them)
+        def run_lazy():
+            return [torch.bincount(ids, weights=c.expand(F, N).reshape(-1),
+                                   minlength=size) for c in chans]
+        return run_lazy
+    weights = [c.expand(F, N).reshape(-1) for c in chans]
 
     def run():
         return [torch.bincount(ids, weights=w, minlength=size)
@@ -696,7 +726,8 @@ def main_phase(rows: int, n_configs: int, seed: int, dev=None):
           and bool(torch.isfinite(torch.as_tensor(prob)).all())
           and best.best_metric > prevalence + 0.1
           and train_aupr > prevalence + 0.1)
-    return ok, launches, shape_launches, (X, y, best.best_grid)
+    return ok, launches, shape_launches, (X, y, best.best_grid,
+                                          dict(res, validated=best.validated))
 
 
 def device_time(prof):
@@ -922,13 +953,16 @@ def baseline_phase(X, y) -> bool:
         if top is None or v.mean_metric > top[1]:
             by_family[v.model_name] = (v.grid, v.mean_metric)
     routes = [v.route for v in best.validated]
-    log("baseline: " + json.dumps(dict(
+    res = dict(
         rows=X.shape[0], features=X.shape[1], folds=5, cells=len(routes),
         wall_s=wall, winner=best.name, winner_grid=best.best_grid,
         winner_cv_aupr=best.best_metric, best_by_family=by_family,
-        routes={r: routes.count(r) for r in set(routes)})))
-    return (routes.count("streamed") == 48 and routes.count("mask_folds") == 16
-            and all(v.mean_metric == v.mean_metric for v in best.validated))
+        family_walls_s=dict(cv.family_walls),
+        routes={r: routes.count(r) for r in set(routes)})
+    log("baseline: " + json.dumps(res))
+    ok = (routes.count("streamed") == 48 and routes.count("mask_folds") == 16
+          and all(v.mean_metric == v.mean_metric for v in best.validated))
+    return ok, dict(res, validated=best.validated)
 
 
 def glm_profile_phase(X, y) -> bool:
@@ -985,6 +1019,276 @@ def glm_profile_phase(X, y) -> bool:
         top=[dict(op=k[:80], ms=ms, calls=c, share=ms / busy)
              for k, (ms, c) in top])))
     return busy > 0
+
+
+# a fused sweep's fold metric against the same cell of the per-config
+# sweep: the card-against-card bound of the boosted fold metrics
+# (workflow-regression's and workflow-multiclass's legs); beyond it, the
+# first node the two fits split apart must be a tie (`split_witness`)
+FUSED_CELL_TOL = 1e-3
+# the best CV AuPR of the bf16 BASELINE sweep against the f32 one
+# (BASELINE.md: the device-against-host parity bound)
+BF16_BEST_TOL = 1e-3
+# lanes of each fused fit: a depth's 8 configs x 5 folds
+FUSED_LANES = 40
+
+
+@contextlib.contextmanager
+def grid_fuse_on():
+    """TMOG_GRID_FUSE=1 inside the block only."""
+    was = os.environ.get("TMOG_GRID_FUSE")
+    os.environ["TMOG_GRID_FUSE"] = "1"
+    try:
+        yield
+    finally:
+        if was is None:
+            del os.environ["TMOG_GRID_FUSE"]
+        else:
+            os.environ["TMOG_GRID_FUSE"] = was
+
+
+@contextlib.contextmanager
+def record_plans(store: list):
+    """Inside the block, every answer of the lane planner
+    (`TK.plan_lane_chunk`) is appended to `store`."""
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    original = TK.plan_lane_chunk
+
+    def planning(n_feat, n_bins, n_folds, n_configs, depth, n_rows, **kw):
+        chunk = original(n_feat, n_bins, n_folds, n_configs, depth, n_rows,
+                         **kw)
+        store.append(dict(configs=n_configs, folds=n_folds, depth=depth,
+                          rows=n_rows, chunk=chunk, lanes=chunk * n_folds))
+        return chunk
+    TK.plan_lane_chunk = planning
+    try:
+        yield store
+    finally:
+        TK.plan_lane_chunk = original
+
+
+def cut_rows(name: str, args: tuple, kw: dict, n: int):
+    """(args, kwargs) of a kernel launch on its first `n` rows: contiguous
+    copies of every operand with a row axis, the split and leaf tables as
+    they are."""
+    axis = {"hist_folds": (0, 1, 2), "route_hist": (0, 1, 2),
+            "route": (0, 1), "table_lookup": (1,)}[name]
+    args = tuple(a[:, :n].contiguous() if i in axis else a
+                 for i, a in enumerate(args))
+    kw = dict(kw)
+    if kw.get("xb_rows") is not None:
+        kw["xb_rows"] = kw["xb_rows"][:n].contiguous()
+    return args, kw
+
+
+def fused_cell_witnesses(ctx, y, w, masks, group: list, cells: list,
+                         depth: int) -> list:
+    """Why each (config index, fold) of `cells`, configs of one fused
+    `group`, scores otherwise than its per-config fit: the group's fused
+    fit and each such config's own fit again with every lane's levels
+    recorded, and the first node of that fold's tree where they split
+    apart (`first_divergence`) with its `split_witness`; {"divergence":
+    None, "tie": False} where the trees agree."""
+    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+    est = OpXGBoostClassifier()
+    with record_refit_levels([], all_lanes=True) as fused:
+        est.mask_fit_scores_grid(ctx, y, w, masks, group)
+    names = [f"x{j}" for j in range(ctx[0].shape[1])]
+    out = []
+    for ci in sorted({c for c, _ in cells}):
+        with record_refit_levels([], all_lanes=True) as per:
+            est.copy(**group[ci]).mask_fit_scores(ctx, y, w, masks)
+        for fold in sorted(f for c, f in cells if c == ci):
+            a = [r for r in per if r["lane"] == fold]
+            b = [r for r in fused if r["lane"] == fold * len(group) + ci]
+            at = first_divergence(a, b)
+            wit = (dict(divergence=None, tie=False) if at is None else
+                   dict(divergence=list(at), **split_witness(
+                       a, b, at[0], at[1], depth, names)))
+            out.append(dict(grid=group[ci], fold=fold, **wit))
+        del per
+    return out
+
+
+def fused_sweep_phase(rows: int, seed: int, main: dict):
+    """tree-sweep-10M-fused: main_phase's sweep (the same X and y, 5 folds,
+    the 16 XGBoost configs, 10 rounds, 32 bins) with TMOG_GRID_FUSE on, so
+    that each depth's 8 configs fit as one fit of 40 lanes: the planner's
+    chunks and lanes a launch, the wall beside main_phase's, peak device
+    memory, launches by kernel and shape, each fold metric against
+    main_phase's (FUSED_CELL_TOL, else a tie witness), the winner (the same
+    or a tie within WINNER_TIE_TOL); then each fused launch shape (Fo = 40)
+    captured from a one-round fit of each depth group, timed at the full
+    rows and checked against its plain version on its first KERNEL_ROWS
+    rows (the plain versions take seconds a call at 40 lanes x 10M rows).
+    Returns (ok, launches by capture key, kernel rows)."""
+    import torch
+    from transmogrifai_tpu_torch.automl.tuning.validators import \
+        CrossValidation
+    from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
+    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
+
+    t_phase = time.perf_counter()
+    X, y = make_data(rows, seed)
+    cv = CrossValidation(Evaluators.BinaryClassification.au_pr(),
+                         num_folds=5)
+    counts = collections.Counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TK.reset_launches()
+    with grid_fuse_on(), record_plans([]) as plans, \
+            capture_kernel_inputs({}, counts, clone=False):
+        t0 = time.perf_counter()
+        best = cv.validate([(OpXGBoostClassifier(),
+                             [dict(g) for g in XGB_GRID])], X, y)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches, shape_launches = dict(TK.launches), dict(TK.shape_launches)
+    lanes = sorted({int(k.split("Fo=")[1]) for k in counts
+                    if k.startswith(("route ", "route_hist", "table_lookup"))
+                    or "C=3" in k})
+    per = {json.dumps(v.grid, sort_keys=True): v
+           for v in main["validated"]}
+    cells, worst, beyond = {}, 0.0, []
+    for v in best.validated:
+        key = json.dumps(v.grid, sort_keys=True)
+        gaps = [a - b for a, b in zip(v.fold_metrics,
+                                      per[key].fold_metrics)]
+        cells[key] = dict(fused=v.mean_metric, per_config=per[key].mean_metric,
+                          fold_gaps=gaps, route=v.route)
+        worst = max([worst] + [abs(g) for g in gaps])
+        beyond += [(v.grid, f) for f, g in enumerate(gaps)
+                   if abs(g) > FUSED_CELL_TOL]
+    by_grid = {json.dumps(v.grid, sort_keys=True): v.mean_metric
+               for v in best.validated}
+    was = by_grid[json.dumps(main["winner"], sort_keys=True)]
+    same_winner = best.best_grid == main["winner"]
+    winner_ok = same_winner or best.best_metric - was <= WINNER_TIE_TOL
+    res = dict(rows=rows, features=int(X.shape[1]), folds=5,
+               configs=len(XGB_GRID), plans=plans, lanes_a_launch=lanes,
+               sweep_s=sweep_s, per_config_sweep_s=main["sweep_s"],
+               peak_mem_gb=peak_gb,
+               per_config_peak_mem_gb=main["peak_mem_gb"],
+               winner=best.best_grid, winner_cv_aupr=best.best_metric,
+               per_config_winner=main["winner"],
+               per_config_winner_cv_aupr=main["winner_cv_aupr"],
+               same_winner=same_winner,
+               per_config_winner_here=was, worst_fold_gap=worst,
+               launches=launches, shape_launches=shape_launches,
+               capture_launches=dict(counts), cells=cells)
+    log("tree-sweep-10M-fused: " + json.dumps(res))
+
+    # the kernels at the fused shapes, captured from one round of each
+    # depth group on the sweep's own binned matrix and folds
+    est = OpXGBoostClassifier()
+    ctx = est.copy(max_bins=32).mask_sweep_context(X)
+    w = torch.ones_like(y)
+    masks = torch.as_tensor(cv.fold_masks(y.cpu().numpy()), device=X.device)
+    groups = {d: [g for g in XGB_GRID if g["max_depth"] == d]
+              for d in sorted({g["max_depth"] for g in XGB_GRID})}
+    witnesses = []
+    for d, group in groups.items():
+        here = [(group.index(g), f) for g, f in beyond if g in group]
+        if here:
+            witnesses += fused_cell_witnesses(ctx, y, w, masks, group, here,
+                                              d)
+    for wit in witnesses:
+        log(f"tree-sweep-10M-fused witness: {json.dumps(wit)}")
+    captured = {}
+    with grid_fuse_on(), capture_kernel_inputs(captured,
+                                               collections.Counter()):
+        for d, group in groups.items():
+            est.mask_fit_scores_grid(ctx, y, w, masks,
+                                     [dict(g, num_round=1) for g in group])
+    torch.cuda.synchronize()
+    keys = sorted(k for k in captured if k.endswith(f"Fo={FUSED_LANES}"))
+    full_ms, shapes = {}, []
+    for key in keys:
+        name, args, kw = captured[key]
+        full_ms[key] = HP.cuda_ms(
+            lambda: getattr(TK, name)(*args, **kw), reps=5)
+        cut, cut_kw = cut_rows(name, args, kw, KERNEL_ROWS)
+        shapes.append(captured_shape(key, name, cut, cut_kw,
+                                     prefix="tree-sweep-10M-fused"))
+    del captured, ctx, X, y, masks, w
+    torch.cuda.empty_cache()
+    kernel_out = kernel_rows(shapes, phase="fused")
+    for r in kernel_out:
+        r.update(full_rows=rows, full_rows_ms=full_ms[r["key"]],
+                 check_rows=KERNEL_ROWS)
+        log(f"kernel {r['name']} [{r['shape']}] at {rows} rows: "
+            f"{r['full_rows_ms']:.4f} ms a launch")
+    log(f"tree-sweep-10M-fused: phase {time.perf_counter() - t_phase:.1f}s")
+    fused_routes = {c["route"] for c in cells.values()}
+    ok = (fused_routes == {"mask_folds:grid_fused"}
+          and lanes == [FUSED_LANES] and set(keys) == {r["key"] for r in kernel_out}
+          and all(p["chunk"] == 8 for p in plans)
+          and all(n > 0 for n in launches.values())
+          and winner_ok
+          and all(wi["tie"] for wi in witnesses))
+    return ok, dict(counts), kernel_out
+
+
+def baseline_bf16_phase(X, y, base: dict) -> bool:
+    """baseline-bf16: baseline_phase's sweep (48 LR grids and 16 XGBoost
+    configs in one validate) with sweep_dtype=torch.bfloat16 and fusion
+    on, the BASELINE sweep as bench.py runs it on the TPU: wall, routes,
+    winner, peak device memory, the bytes of the sweep's X against the
+    f32 sweep's, each cell's gap to its f32 cell, and the best CV AuPR
+    within BF16_BEST_TOL of the f32 sweep's."""
+    import torch
+    from transmogrifai_tpu_torch.automl.tuning.validators import \
+        CrossValidation
+    from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
+    from transmogrifai_tpu_torch.ops import glm as G
+
+    cv = CrossValidation(Evaluators.BinaryClassification.au_pr(),
+                         num_folds=5, sweep_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with grid_fuse_on(), record_plans([]) as plans:
+        t0 = time.perf_counter()
+        best = cv.validate([
+            (OpLogisticRegression(max_iter=15, standardization=False),
+             glm_grid()),
+            (OpXGBoostClassifier(), [dict(g) for g in XGB_GRID])], X, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    f32_cells = {(v.model_name, json.dumps(v.grid, sort_keys=True)): v
+                 for v in base["validated"]}
+    gaps = {}
+    for v in best.validated:
+        key = (v.model_name, json.dumps(v.grid, sort_keys=True))
+        gaps[f"{key[0]} {key[1]}"] = v.mean_metric - f32_cells[key].mean_metric
+    routes = [v.route for v in best.validated]
+    res = dict(
+        rows=X.shape[0], features=X.shape[1], folds=5, cells=len(routes),
+        wall_s=wall, f32_wall_s=base["wall_s"],
+        family_walls_s=dict(cv.family_walls),
+        f32_family_walls_s=base["family_walls_s"], plans=plans,
+        routes={r: routes.count(r) for r in set(routes)},
+        winner=best.name, winner_grid=best.best_grid,
+        winner_cv_aupr=best.best_metric,
+        f32_winner=[base["winner"], base["winner_grid"]],
+        f32_winner_cv_aupr=base["winner_cv_aupr"],
+        best_gap=best.best_metric - base["winner_cv_aupr"],
+        worst_cell_gap=max(abs(g) for g in gaps.values()),
+        peak_mem_gb=peak_gb,
+        x_bytes=X.numel() * torch.empty((), dtype=torch.bfloat16)
+        .element_size(), f32_x_bytes=X.numel() * X.element_size(),
+        out_dtype_product=bool(G._OUT_DTYPE.get(("cuda", "mm"))),
+        cell_gaps=gaps)
+    log("baseline-bf16: " + json.dumps(res))
+    return (routes.count("streamed") == 48
+            and routes.count("mask_folds:grid_fused") == 16
+            and abs(res["best_gap"]) <= BF16_BEST_TOL
+            and all(v.mean_metric == v.mean_metric for v in best.validated))
 
 
 def titanic_records(n: int, seed: int):
@@ -3310,6 +3614,7 @@ def record_refit_levels(store: list, all_lanes: bool = False):
     each of its lanes as a record of its own (lane-major within the call;
     `lane` and `lanes` say which): a sweep's folds and a softmax fit's
     class trees."""
+    import torch
     from transmogrifai_tpu_torch.ops import trees as T
     original = T._level_split
 
@@ -3320,8 +3625,11 @@ def record_refit_levels(store: list, all_lanes: bool = False):
             for k in range(lanes):
                 masks = tuple(m[k:k + 1] if m is not None and m.dim() == 3
                               else m for m in (feature_mask, level_mask))
+                # a fused fit's per-lane scalars: this lane's own
+                kw_k = {n: float(v[k]) if isinstance(v, torch.Tensor)
+                        else v for n, v in split_kw.items()}
                 store.append(dict(full=full[k:k + 1].clone(),
-                                  split_kw=dict(split_kw), masks=masks,
+                                  split_kw=kw_k, masks=masks,
                                   split=[t[k].cpu() for t in out[:3]],
                                   lane=k, lanes=lanes))
         return out
@@ -3707,12 +4015,14 @@ def launch_key(capture: str) -> str:
 
 
 @contextlib.contextmanager
-def capture_kernel_inputs(store: dict, counts: collections.Counter):
+def capture_kernel_inputs(store: dict, counts: collections.Counter,
+                          clone: bool = True):
     """Inside the block, the first launch of each capture key (`capture_key`:
     the (kernel, F, S) key of `TK.shape_launches`, Fo and C) leaves a copy
     of its inputs in `store`: {key: (kernel, args, kwargs)} (tensors cloned
     once each, shared inputs such as the bin matrix shared), and `counts`
-    adds one a capture key wherever a dispatcher's own count rose."""
+    adds one a capture key wherever a dispatcher's own count rose. Without
+    `clone` it only counts (a timed run copies nothing)."""
     import torch
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
     originals = {name: getattr(TK, name) for name in TK.KERNELS}
@@ -3735,7 +4045,7 @@ def capture_kernel_inputs(store: dict, counts: collections.Counter):
                     continue
                 full = capture_key(key, name, args, kw)
                 counts[full] += n - before.get(key, 0)
-                if full not in store:
+                if clone and full not in store:
                     store[full] = (name, tuple(keep(a) for a in args),
                                    dict(kw))
             return out
@@ -4190,8 +4500,8 @@ def main() -> int:
     small_ok, _ = small_phase(SEED)
     if not small_ok:
         failures.append("small CPU/GPU sweep disagreement")
-    main_ok, launches, shape_launches, (X, y, winner) = main_phase(
-        args.rows, args.configs, SEED)
+    main_ok, launches, shape_launches, (X, y, winner, main_res) = \
+        main_phase(args.rows, args.configs, SEED)
     if not main_ok:
         failures.append("main path")
     if not profile_phase(X, y, winner):
@@ -4202,15 +4512,27 @@ def main() -> int:
     glm_ok, glm_launches, (X, y) = glm_main_phase(args.rows, SEED)
     if not glm_ok:
         failures.append("glm-main")
-    if not baseline_phase(X, y):
+    base_ok, base_res = baseline_phase(X, y)
+    if not base_ok:
         failures.append("baseline")
+    fused_ok, fused_launches, fused_rows = fused_sweep_phase(
+        args.rows, SEED, main_res)
+    if not fused_ok:
+        failures.append("tree-sweep-10M-fused")
+    failures += [f"kernel {r['name']} ({r['shape']})" for r in fused_rows
+                 if not r.pop("ok")]
+    rows += fused_rows
+    if not baseline_bf16_phase(X, y, base_res):
+        failures.append("baseline-bf16")
+    del main_res, base_res
     if not glm_profile_phase(X, y):
         failures.append("glm-profile: no device time")
     del X, y
     torch.cuda.empty_cache()
     if not workflow_small_phase(SEED):
         failures.append("workflow-small CPU/GPU disagreement")
-    counts = {"tree": shape_launches, "glm": glm_launches}
+    counts = {"tree": shape_launches, "glm": glm_launches,
+              "fused": fused_launches}
     for name, phase, n_rows, key in (
             ("workflow-titanic", workflow_titanic_phase, TITANIC_ROWS,
              "titanic"),

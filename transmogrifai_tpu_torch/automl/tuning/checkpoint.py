@@ -24,11 +24,15 @@ def data_fingerprint(X, y) -> str:
     sweep_key so a checkpoint file reused after the data changes invalidates
     instead of silently replaying stale fold metrics. X and y may be numpy
     arrays or tensors on any device: only the sampled rows are copied to
-    the host."""
+    the host (a bf16 sweep matrix's as f32: numpy has no bf16; the sweep's
+    path tag keeps the dtypes' cells apart)."""
     import numpy as np
 
     def host(a):
-        return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        if not hasattr(a, "cpu"):
+            return np.asarray(a)
+        a = a.cpu()
+        return (a.float() if str(a.dtype) == "torch.bfloat16" else a).numpy()
 
     h = hashlib.sha256()
     h.update(str(tuple(X.shape)).encode())

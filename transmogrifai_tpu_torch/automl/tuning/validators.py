@@ -16,7 +16,9 @@ them:
   chunk) lanes in one lane-batched solve (ops/glm.py);
 - mask folds (`_validate_mask_folds`): tree sweeps bin the matrix once per
   `max_bins` value and fit all folds of a grid point in one fold-fused
-  call;
+  call; with TMOG_GRID_FUSE on, the grid points of one structure
+  (`grid_fuse_signature`) fit together, lanes = configs x folds
+  (`mask_fit_scores_grid`, route "mask_folds:grid_fused");
 - sequential (`_validate_sequential`): every other estimator (generalized
   linear regression, naive Bayes) and every estimator under a custom
   evaluator: one `fit_arrays` a fold on its training rows, the evaluator
@@ -32,6 +34,11 @@ binned-counts kernel instead of a sort per lane; regression metrics are
 lane-batched sums. GLM cells can be checkpointed (`checkpoint_path`), and
 the streamed route also per retirement round. `validate(..., masks=)`
 takes the folds from outside (workflow-level CV runs one fold at a time).
+`sweep_dtype` (None: f32; or torch.bfloat16) is the dtype of the sweep's
+device-resident X on the streamed, vmapped and mask-fold routes: bf16
+halves it, the GLM solvers keep f32 state and f32 products out
+(ops/glm._mm), and trees read X only through binning; the sequential
+route fits on f32 X.
 While the run-metrics collector is on (utils/metrics.collector) each
 route's fits are a "sweep_fit" span, each finished (model x grid) cell a
 `sweep_cell_landed` event, each retirement round of the streamed route a
@@ -54,6 +61,7 @@ from ...device import DeviceLike, resolve_device, to_device
 from ...evaluators.evaluators import Evaluator
 from ...models.base import PredictorEstimator
 from ...models.prediction import make_prediction_column
+from ...ops import glm as G
 from ...ops import glm_sweep as GS
 from ...ops import metrics_ops as M
 from ...stages.params import ParamMap
@@ -108,6 +116,22 @@ STREAMED_SWEEP_MIN_ROWS = 200_000
 
 _RANK_METRICS = {"au_pr": M.au_pr, "au_roc": M.au_roc}
 PROBLEM_TYPES = ("binary", "multiclass", "regression")
+SWEEP_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def grid_fuse_enabled() -> bool:
+    """TMOG_GRID_FUSE on ("1", "true" or "on"): the mask-fold route fits
+    each same-signature group of grid points in one fused fit. Off by
+    default, as the reference's hand gate is (its plan-time autotuner is
+    not ported)."""
+    return os.environ.get("TMOG_GRID_FUSE", "").strip().lower() \
+        in ("1", "true", "on")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """"float32" / "bfloat16": the reference's dtype names in checkpoint
+    path tags."""
+    return str(dtype).replace("torch.", "")
 
 
 def _lanes_metric_fn(metric: str, problem_type: str, rank_bins):
@@ -184,7 +208,9 @@ def _streamed_eval(X, y, vw, Bc, b0c, thr, *, metric, problem_type,
 class Validator:
     """Base validator (reference OpValidator.scala:94). `device` is where
     the sweep runs: None means CUDA. `grid_chunk` is the number of grid
-    points per vmapped-route call (None: from the memory budget)."""
+    points per vmapped-route call (None: from the memory budget).
+    `sweep_dtype` is the dtype of the sweep's device-resident X (None:
+    f32; torch.bfloat16 halves it)."""
 
     # the streamed route scores each fold in grid chunks of this many
     # lanes, one metric-kernel call each
@@ -192,12 +218,17 @@ class Validator:
 
     def __init__(self, evaluator: Evaluator, seed: int = 42,
                  stratify: bool = False, device: DeviceLike = None,
-                 grid_chunk: Optional[int] = None):
+                 grid_chunk: Optional[int] = None,
+                 sweep_dtype: Optional[torch.dtype] = None):
+        if sweep_dtype is not None and sweep_dtype not in SWEEP_DTYPES:
+            raise ValueError(f"sweep_dtype must be None or one of "
+                             f"{SWEEP_DTYPES}, got {sweep_dtype!r}")
         self.evaluator = evaluator
         self.seed = int(seed)
         self.stratify = bool(stratify)
         self.device = device
         self.grid_chunk = grid_chunk
+        self.sweep_dtype = sweep_dtype
         # optional sweep checkpoint (resume skips finished model x grid
         # cells of the GLM routes; the streamed route also resumes at its
         # last retirement round)
@@ -261,7 +292,10 @@ class Validator:
         # candidate takes the sequential route, the only one that calls
         # evaluator.evaluate on host columns
         device_metric = getattr(self.evaluator, "device_metric", True)
-        Xd = to_device(X, dev, label="sweep")
+        dtype = self.sweep_dtype or torch.float32
+        Xd = to_device(X, dev, dtype=dtype, label="sweep")
+        # the sequential route fits on f32 X: made when first needed
+        X_seq = Xd if dtype == torch.float32 else None
         yd = torch.as_tensor(y_host, dtype=torch.float32, device=dev)
         wd = torch.ones_like(yd) if w is None else \
             torch.as_tensor(w, dtype=torch.float32, device=dev)
@@ -275,25 +309,26 @@ class Validator:
             t0 = time.perf_counter()
             if not grids:
                 grids = [dict()]
-            if not device_metric:
-                validated.extend(self._validate_sequential(
-                    est, grids, Xd, y_host, w, masks))
-            elif self._streamable(est, grids, problem_type, Xd,
-                                  md.shape[0]):
+            if device_metric and self._streamable(
+                    est, grids, problem_type, Xd, md.shape[0]):
                 validated.extend(self._validate_streamed(
                     est, grids, Xd, yd, wd, md, metric, problem_type))
-            elif self._vmappable(est, grids, problem_type):
+            elif device_metric and self._vmappable(est, grids,
+                                                   problem_type):
                 validated.extend(self._validate_vmapped(
                     est, grids, Xd, yd, wd, md, metric, problem_type,
                     n_classes))
-            elif (getattr(est, "supports_mask_folds", False)
+            elif (device_metric
+                  and getattr(est, "supports_mask_folds", False)
                   and problem_type in getattr(est, "problem_types", ())):
                 validated.extend(self._validate_mask_folds(
                     est, grids, Xd, yd, wd, md, metric, problem_type,
                     n_classes))
             else:
+                if X_seq is None:
+                    X_seq = to_device(X, dev, label="sweep")
                 validated.extend(self._validate_sequential(
-                    est, grids, Xd, y_host, w, masks))
+                    est, grids, X_seq, y_host, w, masks))
             name = type(est).__name__
             self.family_walls[name] = (self.family_walls.get(name, 0.0)
                                        + time.perf_counter() - t0)
@@ -467,10 +502,14 @@ class Validator:
 
     @staticmethod
     def _validated(est, grids, metric, results, route):
+        """The ValidatedModels of one estimator's grid: `route` one label
+        for every cell, or {grid index: label}."""
         return [
             ValidatedModel(model_name=type(est).__name__, model_uid=est.uid,
                            grid=g, metric_name=metric,
-                           fold_metrics=results[gi], route=route)
+                           fold_metrics=results[gi],
+                           route=route[gi] if isinstance(route, dict)
+                           else route)
             for gi, g in enumerate(grids)
         ]
 
@@ -491,14 +530,15 @@ class Validator:
         F, n = masks.shape
         ckpt, keys, results = self._cell_bookkeeping(
             est, grids, X, y, metric, F,
-            path=self._sweep_path("vmapped:float32"))
+            path=self._sweep_path(f"vmapped:{_dtype_name(X.dtype)}"))
         pending = [gi for gi in range(len(grids)) if gi not in results]
         if pending:
             lane_metrics = _lane_metrics(metric, problem_type,
                                          self._rank_bins(n),
                                          self._margin_threshold(est),
                                          n_classes)
-            chunk = self._auto_grid_chunk(n, X.shape[1], F, 4, len(pending))
+            chunk = self._auto_grid_chunk(n, X.shape[1], F,
+                                          X.element_size(), len(pending))
             dev = X.device
             w_fit = masks * w[None, :]                       # [F, n]
             w_eval = (1.0 - masks) * w[None, :]
@@ -517,7 +557,10 @@ class Validator:
                         kind="sweep_fit", folds=int(F), chunk=int(k)):
                     B, b0 = fit_one(X, y, lanes(w_fit), grid_vec(regs),
                                     grid_vec(alphas))
-                    if multiclass:     # B [F*k, d, c] -> [F*k, n, c]
+                    if X.dtype != torch.float32:   # f32 out of bf16 X
+                        scores = (G._mm(X, B) + b0[:, None, :] if multiclass
+                                  else (G._mm(X, B.T) + b0[None, :]).T)
+                    elif multiclass:   # B [F*k, d, c] -> [F*k, n, c]
                         scores = torch.matmul(X, B) + b0[:, None, :]
                     else:
                         scores = (X @ B.T + b0[None, :]).T   # [F*k, n]
@@ -607,7 +650,7 @@ class Validator:
         F = masks.shape[0]
         ckpt, keys, results = self._cell_bookkeeping(
             est, grids, X, y, metric, F,
-            path=self._sweep_path("streamed:float32"))
+            path=self._sweep_path(f"streamed:{_dtype_name(X.dtype)}"))
         pending = [gi for gi in range(len(grids)) if gi not in results]
         if pending:
             fit_kwargs = dict(
@@ -667,6 +710,8 @@ class Validator:
                                      self._margin_threshold(est), n_classes)
         multiclass = problem_type == "multiclass"
         w_eval = (1.0 - masks) * w[None, :]
+        fuse = grid_fuse_enabled()
+        sig_of = getattr(est, "grid_fuse_signature", lambda g: None)
 
         def bins_of(g):
             return g.get("max_bins", est.get_param("max_bins"))
@@ -675,20 +720,52 @@ class Validator:
         for gi, g in enumerate(grids):
             groups.setdefault(bins_of(g), []).append(gi)
         results: Dict[int, List[float]] = {}
+        routes: Dict[int, str] = {}
+
+        def record(gi, scores, route):
+            results[gi] = [float(v) for v in
+                           fold_metrics(scores, y, w_eval).cpu()]
+            routes[gi] = route
+            self._cell_event(est, gi, results[gi], route)
+
         for _, group in sorted(groups.items(), key=lambda kv: str(kv[0])):
             ctx = est.copy(**grids[group[0]]).mask_sweep_context(X)
+            # grid points of one structural signature differ only in the
+            # per-lane split and leaf scalars: with fusion on, a group of
+            # two or more fits in one fused call (lanes = configs x folds)
+            sig_groups: Dict[Any, List[int]] = {}
             for gi in group:
-                with collector.trace_span(
-                        f"mask_folds:{type(est).__name__}", kind="sweep_fit",
-                        folds=int(masks.shape[0]), grid_index=int(gi)):
-                    scores = est.copy(**grids[gi]).mask_fit_scores(
-                        ctx, y, w, masks, n_classes=n_classes,
-                        multiclass=multiclass)
-                    results[gi] = [float(v) for v in
-                                   fold_metrics(scores, y, w_eval).cpu()]
-                self._cell_event(est, gi, results[gi], "mask_folds")
+                sig = sig_of(grids[gi]) if fuse else None
+                key = ("solo", gi) if sig is None else ("fuse", sig)
+                sig_groups.setdefault(key, []).append(gi)
+            for key, gis in sig_groups.items():
+                fused = None
+                if key[0] == "fuse" and len(gis) > 1:
+                    # no fallback on failure: a fused fit that raises
+                    # raises out of validate()
+                    with collector.trace_span(
+                            f"mask_folds_grid_fused:{type(est).__name__}",
+                            kind="sweep_fit", folds=int(masks.shape[0]),
+                            configs=len(gis)):
+                        fused = est.mask_fit_scores_grid(
+                            ctx, y, w, masks, [grids[gi] for gi in gis],
+                            n_classes=n_classes, multiclass=multiclass)
+                        if fused is not None:
+                            route = "mask_folds:" + est._last_grid_route
+                            for k, gi in enumerate(gis):
+                                record(gi, fused[k], route)
+                if fused is not None:
+                    continue
+                for gi in gis:
+                    with collector.trace_span(
+                            f"mask_folds:{type(est).__name__}",
+                            kind="sweep_fit", folds=int(masks.shape[0]),
+                            grid_index=int(gi)):
+                        record(gi, est.copy(**grids[gi]).mask_fit_scores(
+                            ctx, y, w, masks, n_classes=n_classes,
+                            multiclass=multiclass), "mask_folds")
             del ctx  # free the binned matrix before the next group
-        return self._validated(est, grids, metric, results, "mask_folds")
+        return self._validated(est, grids, metric, results, routes)
 
 
     # -- sequential route ----------------------------------------------------

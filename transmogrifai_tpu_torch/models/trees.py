@@ -15,7 +15,12 @@ multiclass XGBoost grows each round's K class trees as K lanes of one fit
 collector is on, each fit is a "tree_fit" span of the trace and a kernel
 record: its synchronised wall, its analytic HBM bytes
 (ops/tree_kernels.fused_fit_bytes) and the launches of each kernel in it.
-The config-fused grid route comes later.
+Config-fused grid route (`mask_fit_scores_grid`): the boosted families'
+grid points of one structure (`grid_fuse_signature`) differ only in the
+split and leaf scalars (`_LANE_KEYS`), so a group of them fits as one
+fold-fused fit whose lanes are (config, fold) pairs, fold-major, each lane
+with its own scalars; the lane planner (ops/tree_kernels.plan_lane_chunk)
+bounds how many configs a fit takes.
 """
 from __future__ import annotations
 
@@ -213,6 +218,98 @@ class _TreeEstimator(PredictorEstimator):
                                  for k in TK.launches}))
         _TreeEstimator._WARM_SHAPES.add(sig)
         return out
+
+    # -- config-fused sweep (grid points batched into the lane axis) -------
+    # fit_gbt_folds' scalars that may vary a lane; every other keyword must
+    # match across a fused group
+    _LANE_KEYS = T.LANE_KEYS
+    _LANE_DEFAULTS = {"learning_rate": 0.1, "reg_lambda": 1.0,
+                      "min_child_weight": 0.0, "gamma": 0.0}
+    # the fused form of the last mask_fit_scores_grid call (the validator
+    # labels its cells "mask_folds:" + this)
+    _last_grid_route = "grid_fused"
+
+    def _sweep_kw(self) -> Optional[Dict[str, Any]]:
+        """The keywords this family passes to fit_gbt_folds (hook); None:
+        the family does not fuse."""
+        return None
+
+    def grid_fuse_signature(self, grid) -> Optional[tuple]:
+        """Hashable structural signature of a grid point: grid points of
+        equal signatures fit as lanes of one fit (they differ only in
+        `_LANE_KEYS`); None: this grid point does not fuse. The seed comes
+        from the grid-applied copy: a swept seed splits the group (one
+        generator drives the shared subsample and column draws)."""
+        est_g = self.copy(**grid)
+        kw = est_g._sweep_kw()
+        if kw is None:
+            return None
+        items = tuple(sorted((k, v) for k, v in kw.items()
+                             if k not in self._LANE_KEYS))
+        return items + (("loss", getattr(self, "_loss", "logistic")),
+                        ("seed", int(est_g.get_param("seed"))
+                         if est_g.has_param("seed") else 0))
+
+    def mask_fit_scores_grid(self, ctx, y, w, masks, grids,
+                             n_classes: int = 2, multiclass: bool = False
+                             ) -> Optional[torch.Tensor]:
+        """[G, F, n] scores of a group of same-signature grid points from
+        as few fused fits as the lane planner allows, or None (the
+        validator then fits config by config): a multiclass classifier, a
+        family without `_sweep_kw` (forests), fewer than 2 grid points,
+        mixed signatures, or a planner answer of 0. Lanes are fold-major,
+        lane = fold x chunk + config, over the shared binned matrix; each
+        config's W carries its own scale_pos_weight (`_apply_spw`) and its
+        lanes their own `_LANE_KEYS`; the group's generator is the first
+        grid point's."""
+        regression = (getattr(self, "_regression", False)
+                      or getattr(self, "_loss", "logistic") == "squared")
+        if (multiclass and not regression) or len(grids) < 2:
+            return None
+        kws = [self.copy(**g)._sweep_kw() for g in grids]
+        if any(k is None for k in kws):
+            return None
+        if len({self.grid_fuse_signature(g) for g in grids}) != 1:
+            return None
+        Xb, _, n_bins, _ = ctx
+        F, n = masks.shape
+        G = len(grids)
+        depth = kws[0]["depth"]
+        chunk = TK.plan_lane_chunk(Xb.shape[1], n_bins + 1, F, G, depth, n,
+                                   device=Xb.device,
+                                   xb_itemsize=Xb.element_size())
+        if chunk == 0:
+            return None
+        self._last_grid_route = "grid_fused"
+        dev = Xb.device
+        outs = []
+        for lo in range(0, G, chunk):
+            sub = kws[lo:lo + chunk]
+            g_here = len(sub)
+            w_cfg = torch.stack([
+                self.copy(**grids[gi])._apply_spw(y, w, multiclass)
+                if hasattr(self, "_apply_spw") else w
+                for gi in range(lo, lo + g_here)])            # [g, n]
+            W_lanes = (masks[:, None, :] * w_cfg[None]).reshape(
+                F * g_here, n)
+            lane_vec = {
+                key: torch.tensor(
+                    [float(k.get(key, self._LANE_DEFAULTS[key]))
+                     for k in sub], dtype=torch.float32,
+                    device=dev).repeat(F)
+                for key in self._LANE_KEYS}
+            shared = {k: v for k, v in sub[0].items()
+                      if k not in self._LANE_KEYS}
+            gen = self.copy(**grids[lo])._key(dev)
+            _, _, margins = self._timed_fit(
+                "tree_sweep_grid_fused", Xb, F * g_here, depth,
+                shared["n_rounds"],
+                lambda W_lanes=W_lanes, lane_vec=lane_vec, shared=shared,
+                gen=gen: T.fit_gbt_folds(
+                    Xb, y, W_lanes, n_bins=n_bins, loss=self._loss,
+                    generator=gen, **shared, **lane_vec))
+            outs.append(margins.reshape(F, g_here, n).transpose(0, 1))
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     def _key(self, device: torch.device) -> torch.Generator:
         """The fit's random stream, seeded from the `seed` param."""
@@ -468,6 +565,8 @@ class _GBTBase(_TreeEstimator):
             min_info_gain=float(self.get_param("min_info_gain")),
             subsample=float(self.get_param("subsampling_rate")))
 
+    _sweep_kw = _gbt_kw   # config-fused sweep hook
+
     def mask_fit_scores(self, ctx, y, w, masks, n_classes: int = 2,
                         multiclass: bool = False) -> torch.Tensor:
         """[F, n] margins (classifier) or values (regressor): every fold of
@@ -561,6 +660,8 @@ class _XGBBase(_TreeEstimator):
             max_delta_step=float(self.get_param("max_delta_step")),
             colsample_bylevel=float(self.get_param("colsample_bylevel")),
             base_score=None if base_score is None else float(base_score))
+
+    _sweep_kw = _common   # config-fused sweep hook
 
     def _apply_spw(self, y: torch.Tensor, w: torch.Tensor,
                    multiclass: bool = False) -> torch.Tensor:

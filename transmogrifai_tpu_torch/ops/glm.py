@@ -12,6 +12,12 @@ ops/glm_sweep.py). Every solver takes
 per-row weights, so fold masks enter as weights and no data moves between
 folds.
 
+X may be bfloat16 (the validator's `sweep_dtype`): the standardized copy
+and the data products then stay bf16 (`_mm`: bf16 operands, f32
+accumulation, f32 out), while coefficients, Hessians, solves and the
+standardization's statistics stay f32 (`_solver_dtype`); an f32 X takes
+exactly the f32 code it always took.
+
 The JAX package vmaps its per-lane `while_loop` over (fold x grid) lanes.
 Here the same fits are lane-batched: weights `w` [L, n] and penalties [L]
 give L fits at once, each stopping at its own `delta <= tol` (or
@@ -22,11 +28,78 @@ one-lane case: `w` [n] and scalar penalties.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 EPS = 1e-12
+_F32 = torch.float32
+
+# rows of the low-precision operand upcast at once where the device's
+# PyTorch has no f32-out low-precision product (the CPU): bounds the f32
+# copy of a bf16 X to one block
+_MM_BLOCK = 1 << 16
+
+
+def _solver_dtype(X: torch.Tensor) -> torch.dtype:
+    """Solver-state dtype: never below f32 even when X is bf16 (the
+    reference's `_solver_dtype`). Coefficients, Hessians and solves run
+    in it whatever X's dtype."""
+    return torch.promote_types(X.dtype, _F32)
+
+
+def _solver_input(X: torch.Tensor) -> torch.Tensor:
+    """X as the solvers take it: a bf16 sweep matrix stays bf16, any
+    other dtype becomes f32."""
+    return X if X.dtype == torch.bfloat16 else X.to(_F32)
+
+
+_OUT_DTYPE: dict = {}   # (device type, op) -> whether out_dtype= works
+
+
+def _out_dtype_ok(op, a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Does `op(a, b, out_dtype=torch.float32)` run on a's device (asked
+    once a device type and op, on two-element operands)?"""
+    key = (a.device.type, op.__name__)
+    if key not in _OUT_DTYPE:
+        try:
+            op(a[..., :1, :1].contiguous(), b[..., :1, :1].contiguous(),
+               out_dtype=_F32)
+            _OUT_DTYPE[key] = True
+        except (RuntimeError, TypeError, NotImplementedError):
+            _OUT_DTYPE[key] = False
+    return _OUT_DTYPE[key]
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with b cast to a's dtype, accumulated and returned in the
+    solver dtype (the reference's `_mm`): a bf16 a stays bf16, no f32
+    copy of it is made. An f32 a is a plain product. On a device whose
+    PyTorch computes low-precision products with `out_dtype` (CUDA
+    mm / bmm) that product runs; elsewhere the operands are upcast a block
+    of `_MM_BLOCK` rows (or, for a wide a, contraction columns) at a time.
+    bf16 x bf16 products are exact in f32, so both give the f32-accumulated
+    product up to summation order."""
+    out = _solver_dtype(a)
+    if a.dtype == out:
+        return torch.matmul(a, b.to(out))
+    b = b.to(a.dtype)
+    if a.is_cuda and a.dim() == b.dim() and a.dim() in (2, 3):
+        op = torch.mm if a.dim() == 2 else torch.bmm
+        if _out_dtype_ok(op, a, b):
+            return op(a, b, out_dtype=out)
+    rows, inner = a.shape[-2], a.shape[-1]
+    bf = b.to(out)
+    if rows >= inner:
+        return torch.cat([torch.matmul(a[..., r:r + _MM_BLOCK, :].to(out),
+                                       bf)
+                          for r in range(0, rows, _MM_BLOCK)], dim=-2)
+    acc = None
+    for k in range(0, inner, _MM_BLOCK):
+        part = torch.matmul(a[..., k:k + _MM_BLOCK].to(out),
+                            bf[..., k:k + _MM_BLOCK, :])
+        acc = part if acc is None else acc + part
+    return acc
 
 
 def _moments(X: torch.Tensor, w: torch.Tensor
@@ -39,15 +112,34 @@ def _moments(X: torch.Tensor, w: torch.Tensor
     A column constant over the rows a lane weighs has that value as its
     mean exactly, so it centers to 0 and standardizes to 0: the matmul's
     f32 sum of n equal terms need not divide back to the value, and the
-    rounding error over the clamped std would be a second intercept."""
+    rounding error over the clamped std would be a second intercept.
+
+    A bf16 X keeps its dtype as the reference's `_standardize` does: the
+    weights cast to it, each elementwise product rounded to it, the sums
+    over rows f32; `centered` is bf16, mean and std f32."""
     wsum = torch.clamp(w.sum(-1), min=EPS)
-    mean = (w @ X) / wsum[..., None]
+    low = X.dtype != _F32
+    if low:
+        wx = w.to(X.dtype)[..., :, None]
+        mean = (X * wx).sum(-2, dtype=_F32) / wsum[..., None]
+    else:
+        mean = (w @ X) / wsum[..., None]
     if X.shape[-2]:
         x0 = X[..., :1, :]
-        differs = (w > 0).to(X.dtype) @ (X != x0).to(X.dtype)
+        if low:
+            differs = ((w > 0)[..., :, None] & (X != x0)).sum(-2)
+            x0 = x0.to(_F32)
+        else:
+            differs = (w > 0).to(X.dtype) @ (X != x0).to(X.dtype)
         mean = torch.where(differs == 0, x0[..., 0, :], mean)
-    centered = X - mean[..., None, :]
-    var = (w[..., None, :] @ (centered * centered))[..., 0, :] / wsum[..., None]
+    if low:
+        centered = X - mean.to(X.dtype)[..., None, :]
+        var = (centered * centered * wx).sum(-2, dtype=_F32) \
+            / wsum[..., None]
+    else:
+        centered = X - mean[..., None, :]
+        var = (w[..., None, :] @ (centered * centered))[..., 0, :] \
+            / wsum[..., None]
     std = torch.sqrt(torch.clamp(var, min=EPS))
     return centered, mean, std
 
@@ -55,9 +147,9 @@ def _moments(X: torch.Tensor, w: torch.Tensor
 def _standardize(X: torch.Tensor, w: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Weighted column standardization; returns (Xs, mean, std), per lane
-    when `w` is [L, n]."""
+    when `w` is [L, n]. Xs keeps X's dtype; mean and std are f32."""
     centered, mean, std = _moments(X, w)
-    return centered / std[..., None, :], mean, std
+    return centered / std.to(X.dtype)[..., None, :], mean, std
 
 
 def _unstandardize_beta(beta: torch.Tensor, intercept: torch.Tensor,
@@ -73,14 +165,24 @@ def _soft_threshold(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def _lanes_eta(Xs: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """[L, n] linear predictors of the lanes' beta [L, d] on Xs, shared
-    [n, d] or per lane [L, n, d]."""
+    [n, d] or per lane [L, n, d] (a bf16 Xs: beta cast to bf16, f32
+    accumulation, as the reference's `_mm(Xs, beta)`)."""
+    if Xs.dtype != _F32:
+        if Xs.dim() == 2:
+            return _mm(Xs, beta.T).T
+        return _mm(Xs, beta[:, :, None])[..., 0]
     if Xs.dim() == 2:
         return beta @ Xs.T
     return torch.bmm(Xs, beta[:, :, None])[..., 0]
 
 
 def _lanes_xt(Xs: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """[L, d] = Xs^T r for each lane's row vector r [L, n]."""
+    """[L, d] = Xs^T r for each lane's row vector r [L, n] (a bf16 Xs: r
+    cast to bf16, as the reference's `_mm(Xs.T, r)`)."""
+    if Xs.dtype != _F32:
+        if Xs.dim() == 2:
+            return _mm(Xs.T, r.T).T
+        return _mm(Xs.transpose(1, 2), r[:, :, None])[..., 0]
     if Xs.dim() == 2:
         return r @ Xs
     return torch.bmm(r[:, None, :], Xs)[:, 0]
@@ -88,7 +190,10 @@ def _lanes_xt(Xs: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 def _lanes_gram(Xs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """[L, d, d] = Xs^T diag(s_l) Xs: each lane's row-scaled [n, d] copy,
-    as the reference's vmapped lanes build theirs."""
+    as the reference's vmapped lanes build theirs (in Xs's dtype, the
+    product accumulated in f32)."""
+    if Xs.dtype != _F32:
+        return _mm((Xs * s.to(Xs.dtype)[..., None]).transpose(-1, -2), Xs)
     return torch.matmul((Xs * s[..., None]).transpose(-1, -2), Xs)
 
 
@@ -148,7 +253,7 @@ def _fit(X, y, w, reg, alpha, max_iter, tol, fit_intercept, standardize,
          grad_hess):
     """The shared frame of the binary solvers: lanes, standardization,
     the Newton loop and the way back to raw feature units."""
-    X = X.to(torch.float32)
+    X = _solver_input(X)
     n, d = X.shape
     w, reg, alpha, single = _lanes(X, w, reg, alpha)
     L = w.shape[0]
@@ -334,9 +439,10 @@ def fit_softmax(X: torch.Tensor, Y: torch.Tensor, w: torch.Tensor, reg,
     and an unpenalized intercept step. `w` [n] with scalar penalties
     returns (B [d, c], b0 [c]); `w` [L, n] with [L] (or scalar) penalties
     returns L fits, ([L, d, c], [L, c]), each standardized with its own
-    weights."""
+    weights. A bf16 X keeps its products bf16 (`_mm`); the preconditioner
+    is the same float64 Gram of its values."""
     f32 = torch.float32
-    X = X.to(f32)
+    X = _solver_input(X)
     n, d = X.shape
     Y = Y.to(device=X.device, dtype=f32)
     c = Y.shape[1]
@@ -363,12 +469,13 @@ def fit_softmax(X: torch.Tensor, Y: torch.Tensor, w: torch.Tensor, reg,
     hdiag = torch.clamp(torch.diagonal(A, dim1=1, dim2=2), min=EPS)
     h0 = torch.clamp(coef * w.sum(-1) / wsum, min=1e-6)        # [L]
     XsT = Xs.transpose(-1, -2)
+    mm = torch.matmul if Xs.dtype == f32 else _mm
     B = torch.zeros((L, d, c), dtype=f32, device=X.device)
     b0 = torch.zeros((L, c), dtype=f32, device=X.device)
     for _ in range(int(max_iter)):
-        P = torch.softmax(torch.matmul(Xs, B) + b0[:, None, :], dim=-1)
+        P = torch.softmax(mm(Xs, B) + b0[:, None, :], dim=-1)
         R = (P - Y) * w[..., None]                              # [L, n, c]
-        G = torch.matmul(XsT, R) / wsum[:, None, None] + l2 * B
+        G = mm(XsT, R) / wsum[:, None, None] + l2 * B
         B = _soft_threshold(B - torch.cholesky_solve(G, chol),
                             l1 / hdiag[..., None])
         if fit_intercept:

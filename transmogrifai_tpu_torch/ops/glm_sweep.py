@@ -10,7 +10,11 @@ pairwise feature products (`_gram_fns`). The per-lane d x d Newton solves,
 proximal L1 and intercept steps are batched linear algebra on [L, d, d].
 The JAX package has no Pallas kernel here: its einsums, matmuls and
 batched solves are plain XLA products, so they are plain PyTorch products
-(f32; TF32 stays off, `device.resolve_device`).
+(f32; TF32 stays off, `device.resolve_device`). A bf16 X (the validator's
+`sweep_dtype`) stays bf16: each scan block is upcast alone, its on-the-fly
+standardization rounded back to X's dtype and the coefficients to it for
+the linear predictors, as the reference's bf16 contraction sees them; the
+accumulators, solves and scores are f32.
 
 Routes, as in the reference. The squared loss (linear regression) takes
 `sweep_glm_squared_gram`: its curvature is identically 1, so one pass over
@@ -288,6 +292,9 @@ class _Scan:
         g0A = torch.zeros(Lb, dtype=torch.float32, device=dev)
         h0A = torch.zeros(Lb, dtype=torch.float32, device=dev)
         dp = self.d_work - self.d
+        low = self.X.dtype != torch.float32
+        if low:   # the coefficients as the bf16 contraction reads them
+            Bt = Bt.to(self.X.dtype).to(torch.float32)
         for x_blk, y_blk, w_blk, m_blk in _blocked(self.X, self.y, self.w,
                                                    self.m, self.c):
             xf = x_blk.to(torch.float32)
@@ -295,6 +302,8 @@ class _Scan:
                 xf = Fn.pad(xf, (0, dp))
             if self.mean is not None:      # standardize on the fly
                 xf = (xf - self.mean) / self.std
+                if low:   # the standardized block in X's dtype, then f32
+                    xf = xf.to(self.X.dtype).to(torch.float32)
             eta = xf @ Bt + b0
             r0, s0 = self.rc(eta, y_blk)                # [c, Lb]
             wl = (m_blk.T * w_blk[:, None]) @ self.sel  # [c, Lb]
@@ -627,5 +636,8 @@ def sweep_glm_streamed_rounds(X, y, w, fold_masks, regs, alphas, *,
 
 def sweep_scores_fold(X: torch.Tensor, B_f: torch.Tensor,
                       b0_f: torch.Tensor) -> torch.Tensor:
-    """[n, Gc] margins for one fold's grid chunk: one product."""
+    """[n, Gc] margins for one fold's grid chunk: one product, f32 (a bf16
+    X stays bf16, the product accumulated in f32: `glm._mm`)."""
+    if X.dtype != torch.float32:
+        return G._mm(X, B_f.T) + b0_f[None, :]
     return X @ B_f.T.to(X.dtype) + b0_f[None, :]

@@ -41,6 +41,7 @@ the node ids of each lane's first group.
 """
 from __future__ import annotations
 
+import os
 from collections import Counter
 from dataclasses import dataclass
 
@@ -102,6 +103,14 @@ _SORTED_MAX_WARPS = 16       # sorted_hist_kernel's block (kSortedMaxThreads)
 _SORTED_MIN_FEATURES = 32
 _SORTED_MIN_ROWS = 1 << 15
 _SORTED_MIN_SM_WARPS = 4
+# from this many kernel lanes (a config-fused sweep: configs x folds)
+# route_hist takes the sorted path over the owned path too, under the
+# gates above: at 40 lanes x 10M rows, F = 64, B = 33, 2 payload channels
+# + count, the owned path took 1.5-2.7x the sorted path's time at S =
+# 2-16 on an H100 (`tools/hist_paths --kernels fused`, PERF.md §6); the
+# private path keeps a tree's first level, where a fit's own one-slot rows
+# were not timed on both paths in one call (PERF.md §7)
+_SORTED_MIN_LANES = 16
 # route's staged path: kStagedThreads, kStagedRows, the blocks an SM its
 # __launch_bounds__ keep resident
 ROUTE_PATHS = ("rows", "staged")
@@ -158,6 +167,116 @@ def fused_fit_bytes(n_rows: int, n_feat: int, lanes: int, depth: int,
     final_route = (xb + lanes * 2 * plane) if depth >= 1 else 0
     leaf_margin = lanes * 3 * plane
     return n_rounds * (level0 + mid + final_route + leaf_margin)
+
+
+# -- the config-fused sweep's lane planner -----------------------------------
+
+# Lanes of one config-fused fit at most (the reference's hand default of
+# TMOG_GRID_FUSE_HBM_LANES, which overrides it here too)
+GRID_FUSE_LANES = 64
+# Share of the device's free bytes one fused fit may hold resident
+GRID_FUSE_MEMORY_SHARE = 0.75
+# Copies of a lane's deepest full level histogram alive at once in the
+# split algebra: the routed half, the parent level, the full level, the
+# cumulative G / H / count sums and the two directions' gains
+_LEVEL_HIST_COPIES = 8
+
+
+def _sorted_unit_rows(n_slots: int) -> int:
+    return max(_SORT_UNIT_ROWS, _SORT_UNIT_PER_SLOT * n_slots)
+
+
+def fused_fit_resident_bytes(n_rows: int, n_feat: int, lanes: int,
+                             depth: int, n_bins: int, *, channels: int = 3,
+                             xb_itemsize: int = 1) -> int:
+    """Device bytes one fold-fused boosted fit (ops/trees.fit_gbt_folds)
+    of `lanes` lanes holds at its peak, beyond the caller's binned matrix:
+    the fit's own [F, N] copy of the bins, and per lane the f32 planes of
+    W, g, h, the margin and its update, the leaf rows, the payload's
+    `channels` - 1 stored channels (the count is derived), the node ids in
+    and out, route_hist's sorted-path workspace at the deepest routed
+    level (`sorted_work_words`) and the split algebra's copies of the
+    deepest full level histogram ([2^(depth-1), channels, F, n_bins]).
+    `fused_fit_bytes` counts the same fit's traffic, not its residency."""
+    plane = 4 * n_rows
+    planes = 7 + (channels - 1)
+    deep = 1 << max(depth - 2, 0)                  # last route_hist level
+    work = 4 * sorted_work_words(1, n_rows, deep, _sorted_unit_rows(deep))
+    hist = (_LEVEL_HIST_COPIES * 4 * (1 << max(depth - 1, 0)) * channels
+            * n_feat * n_bins)
+    return (n_rows * n_feat * xb_itemsize
+            + lanes * (planes * plane + work + hist))
+
+
+def grid_fuse_lane_cap() -> int:
+    """Lanes of one fused fit at most: TMOG_GRID_FUSE_HBM_LANES, else
+    GRID_FUSE_LANES."""
+    return int(os.environ.get("TMOG_GRID_FUSE_HBM_LANES",
+                              str(GRID_FUSE_LANES)))
+
+
+def _kernel_paths_fit(n_feat: int, n_bins: int, lanes: int, depth: int,
+                      n_rows: int, channels: int, itemsize: int,
+                      n_sm: int) -> bool:
+    """Do the launch planners find a path for every launch of a depth-
+    `depth` fit at `lanes` lanes: the root histogram, route_hist at 1 ...
+    2^(depth-2) slots, the last level's route and the leaf lookup?"""
+    try:
+        plan_hist(n_feat, 1, channels, n_bins, lanes, n_rows, n_sm,
+                  itemsize=itemsize)
+        for d in range(depth - 1):
+            plan_hist(n_feat, 1 << d, channels, n_bins, lanes, n_rows, n_sm,
+                      itemsize=itemsize, route=True)
+        plan_route(n_feat, 1 << (depth - 1), lanes, n_rows, n_sm,
+                   itemsize=itemsize)
+        plan_lookup(1 << depth, lanes, n_rows, n_sm)
+    except ValueError:
+        return False
+    return True
+
+
+def plan_lane_chunk(n_feat: int, n_bins: int, n_folds: int, n_configs: int,
+                    depth: int, n_rows: int, *, channels: int = 3,
+                    device=None, xb_itemsize: int = 1) -> int:
+    """Configs a config-fused fit takes at once (lanes = chunk x folds):
+    the largest chunk, halving from `n_configs` as the reference's
+    planner does, whose lanes pass every check; 0 where one config's fold
+    lanes already fail (the caller then fits config by config).
+
+    Checks: lanes <= `grid_fuse_lane_cap()`; on a CUDA `device`, also the
+    fit's resident bytes (`fused_fit_resident_bytes`) within
+    GRID_FUSE_MEMORY_SHARE of the bytes free to the allocator (the
+    device's free bytes plus the allocator's cached, unused ones), and a
+    launch path from `plan_hist`, `plan_route` and `plan_lookup` for every
+    level. On the CPU the lane cap alone decides. The reference's v5e
+    VMEM and out-block caps guard Mosaic compiles and have no counterpart
+    here. `n_bins` counts the missing bin (max_bins + 1)."""
+    cap = grid_fuse_lane_cap()
+    dev = None if device is None else torch.device(device)
+    cuda = dev is not None and dev.type == "cuda"
+    if cuda:
+        free, _ = torch.cuda.mem_get_info(dev)
+        free += torch.cuda.memory_reserved(dev) - \
+            torch.cuda.memory_allocated(dev)
+        budget = GRID_FUSE_MEMORY_SHARE * free
+        n_sm = _n_sm(dev)
+
+    def ok(chunk: int) -> bool:
+        lanes = chunk * n_folds
+        if lanes > cap:
+            return False
+        if not cuda:
+            return True
+        return (fused_fit_resident_bytes(
+            n_rows, n_feat, lanes, depth, n_bins, channels=channels,
+            xb_itemsize=xb_itemsize) <= budget
+            and _kernel_paths_fit(n_feat, n_bins, lanes, depth, n_rows,
+                                  channels, xb_itemsize, n_sm))
+
+    chunk = max(n_configs, 1)
+    while chunk > 1 and not ok(chunk):
+        chunk = (chunk + 1) // 2
+    return chunk if ok(chunk) else 0
 
 
 # -- tiling of the shared-memory histogram kernels ---------------------------
@@ -325,9 +444,11 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
     features and _SORTED_MIN_ROWS rows where it keeps
     _SORTED_MIN_SM_WARPS warps resident an SM: its lists read only each
     slot's own rows, once (every deeper level of a wide tree, B = 65
-    included; 257 bins keep the rows path). A given
-    `path` is forced (measurement and tests), and raises where it does not
-    fit. `channels` and `lanes` are the histogram's own: a lane of more
+    included; 257 bins keep the rows path). From _SORTED_MIN_LANES
+    kernel lanes (a config-fused sweep's 40) route_hist takes "sorted"
+    under the same gates where the others leave it on "owned" too. A
+    given `path` is forced (measurement and tests), and raises where it
+    does not fit. `channels` and `lanes` are the histogram's own: a lane of more
     than _GROUP_CHANNELS channels is planned as the launch takes it,
     `channel_groups` lanes of fewer."""
     if channels > _GROUP_CHANNELS:
@@ -359,7 +480,9 @@ def plan_hist(n_feat: int, n_slots: int, channels: int, n_bins: int,
                     and copies * -(-n_slots // n_st) >= _FM_WARPS):
                 path = "owned"
         tl = fit["sorted"]
-        if (path == "rows" and tl is not None
+        if ((path == "rows"
+             or (path == "owned" and lanes >= _SORTED_MIN_LANES))
+                and tl is not None
                 and n_feat >= _SORTED_MIN_FEATURES
                 and n_rows >= _SORTED_MIN_ROWS
                 and _sorted_sm_blocks(tl.smem_bytes) * tl.f_tile // 32

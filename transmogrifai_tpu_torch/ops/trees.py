@@ -26,11 +26,16 @@ Generators: a forest's from a draws object (`ForestDraws`: row_weights(t),
 node_masks(t)); they are not the JAX package's threefry bits, so the tests
 feed the reference's draws in through a stand-in of that object.
 The refit of a single model is the same fit with one lane.
+
+The boosted fit's split and leaf scalars (`LANE_KEYS`: learning rate, L2,
+minimum child weight, gamma) may be one float for every lane or a [lanes]
+tensor, one value a lane: the config-fused sweep fits the lanes of several
+grid points, (config, fold) pairs, in one growth.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +43,10 @@ import torch
 from . import tree_kernels as TK
 
 EPS = 1e-12
+# fit_gbt_folds' scalars that may vary a lane (the config-fused sweep's
+# per-lane algebra); every other argument is shared by the lanes
+LANE_KEYS = ("learning_rate", "reg_lambda", "min_child_weight", "gamma")
+LaneScalar = Union[float, torch.Tensor]
 _QUANTILE_SAMPLE = 131_072
 _BIN_CHUNK = 1 << 20      # rows per binning chunk (bounds the temporaries)
 
@@ -137,6 +146,14 @@ def thresholds_to_values(feat: torch.Tensor, thresh: torch.Tensor,
 
 # -- split algebra ------------------------------------------------------------
 
+def _lane(v: LaneScalar, like: torch.Tensor) -> LaneScalar:
+    """A lane scalar broadcast against `like` [lanes, ...]: a float as it
+    is, a [lanes] tensor with like's trailing axes as ones."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(-1, *([1] * (like.dim() - 1)))
+    return v
+
+
 def _soft_l1(G, alpha: float):
     """XGBoost's L1 soft-threshold on leaf gradient sums (alpha 0: identity)."""
     if alpha == 0.0:
@@ -154,11 +171,13 @@ def _split_scores(GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm, reg_lambda,
     GL/HL/CL: cumulative left sums [..., n, F, B(, K)] over the shifted bin
     axis (the missing bin is inside every prefix); Gt/Ht/Ct the node
     totals [..., n(, K)]; Gm/Hm/Cm the missing-bin mass [..., n, F(, K)].
-    Direction 0 keeps missing left, direction 1 moves it right. Returns
-    gain [..., n, F, B, 2], -inf at invalid candidates."""
+    Direction 0 keeps missing left, direction 1 moves it right.
+    reg_lambda, min_child_weight and gamma are floats or [lanes] tensors
+    over the leading lane axis. Returns gain [..., n, F, B, 2], -inf at
+    invalid candidates."""
     def score(G, H):
         Ga = _soft_l1(G, alpha)
-        return (Ga * Ga).sum(-1) / (H + reg_lambda + EPS)
+        return (Ga * Ga).sum(-1) / (H + _lane(reg_lambda, H) + EPS)
 
     parent = score(Gt, Ht)[..., None, None]
     norm = torch.clamp(Ht, min=1.0)[..., None, None] if normalize_gain \
@@ -169,9 +188,11 @@ def _split_scores(GL, HL, CL, Gt, Ht, Ct, Gm, Hm, Cm, reg_lambda,
         HR = Ht[..., None, None] - HLd
         CR = Ct[..., None, None] - CLd
         gain = score(GLd, HLd) + score(GR, HR) - parent
-        ok = ((HLd >= min_child_weight) & (HR >= min_child_weight)
+        mcw = _lane(min_child_weight, HLd)
+        ok = ((HLd >= mcw) & (HR >= mcw)
               & (CLd >= min_instances) & (CR >= min_instances)
-              & (gain / norm > min_info_gain) & (gain > 2.0 * gamma))
+              & (gain / norm > min_info_gain)
+              & (gain > 2.0 * _lane(gamma, gain)))
         return torch.where(ok, gain, -math.inf)
 
     g_left = one_direction(GL, HL, CL)
@@ -268,9 +289,11 @@ def _leaf_payload(Gl, Hl, Cl, reg_lambda, alpha, max_delta_step,
                   learning_rate, leaf_mode="newton"):
     """Leaves from leaf sufficient statistics [Fo, L(, K)]: Newton steps, or
     the weighted mean payload (`leaf_mode` "mean": class distributions,
-    regression values). A leaf no training row reached predicts 0."""
+    regression values). A leaf no training row reached predicts 0.
+    reg_lambda and learning_rate are floats or [lanes] tensors."""
     if leaf_mode == "newton":
-        leaf = -_soft_l1(Gl, alpha) / (Hl + reg_lambda + EPS)[..., None]
+        leaf = -_soft_l1(Gl, alpha) / (
+            Hl + _lane(reg_lambda, Hl) + EPS)[..., None]
         if max_delta_step > 0.0:   # cap the raw newton step
             leaf = torch.clamp(leaf, -max_delta_step, max_delta_step)
     elif leaf_mode == "mean":
@@ -278,7 +301,7 @@ def _leaf_payload(Gl, Hl, Cl, reg_lambda, alpha, max_delta_step,
     else:
         raise ValueError(f"unknown leaf_mode {leaf_mode!r}")
     leaf = torch.where(Cl[..., None] >= 0.5, leaf, 0.0)
-    return learning_rate * leaf
+    return _lane(learning_rate, leaf) * leaf
 
 
 def _fold_leaves(last, *, n_leaves, reg_lambda, alpha, max_delta_step,
@@ -324,7 +347,8 @@ def _grow_tree_folds(Xb_t, G, H, *, depth, n_bins, reg_lambda,
     parent; the last level routes with `route`, and `table_lookup` reads
     each row's leaf. The split algebra runs on [Fo, nodes, K + 2, F, B]
     sums: gains normalized by the node weight or not (`normalize_gain`),
-    Newton or mean leaves (`leaf_mode`).
+    Newton or mean leaves (`leaf_mode`). reg_lambda, min_child_weight,
+    gamma and learning_rate are floats or [Fo] tensors on Xb_t's device.
 
     Feature masks: `feature_mask` [F] for the whole tree (colsample_bytree);
     a colsample_bylevel subset per level drawn from `generator`; and per
@@ -601,11 +625,30 @@ def _squared_grad(pred, y, w):
     return w * (pred - y), w
 
 
+def _lane_scalars(kw: dict, lanes: int, device) -> dict:
+    """The LANE_KEYS of `kw`: floats as they are, tensors checked to one
+    value a lane and placed as f32 on the fit's device."""
+    out = {}
+    for key in LANE_KEYS:
+        v = kw[key]
+        if isinstance(v, torch.Tensor):
+            if tuple(v.shape) != (lanes,):
+                raise ValueError(f"{key}: a lane tensor must have shape "
+                                 f"({lanes},), got {tuple(v.shape)}")
+            v = v.to(device=device, dtype=torch.float32)
+        else:
+            v = float(v)
+        out[key] = v
+    return out
+
+
 def fit_gbt_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor, *,
                   n_rounds: int, depth: int, n_bins: int,
-                  learning_rate: float = 0.1, reg_lambda: float = 1.0,
-                  min_child_weight: float = 0.0, min_instances: float = 1.0,
-                  min_info_gain: float = 0.0, gamma: float = 0.0,
+                  learning_rate: LaneScalar = 0.1,
+                  reg_lambda: LaneScalar = 1.0,
+                  min_child_weight: LaneScalar = 0.0,
+                  min_instances: float = 1.0,
+                  min_info_gain: float = 0.0, gamma: LaneScalar = 0.0,
                   subsample: float = 1.0, feature_frac: float = 1.0,
                   loss: str = "logistic", alpha: float = 0.0,
                   max_delta_step: float = 0.0, colsample_bylevel: float = 1.0,
@@ -620,9 +663,11 @@ def fit_gbt_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor, *,
     (or the pinned `base_score`), the logistic hessian is clamped to EPS
     (rows outside the fit still count toward min_instances), and the row
     subsample and column samples are one draw per round shared by all
-    lanes, from `generator`. Returns (trees [rounds, Fo, ...], base [Fo],
-    margins [Fo, N]): margins are the fitted scores of ALL rows, held-out
-    rows included."""
+    lanes, from `generator`. learning_rate, reg_lambda, min_child_weight
+    and gamma (LANE_KEYS) are floats or [Fo] tensors, one value a lane
+    (the reference's `_LANE_KEYS`). Returns (trees [rounds, Fo, ...],
+    base [Fo], margins [Fo, N]): margins are the fitted scores of ALL
+    rows, held-out rows included."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     if loss not in ("logistic", "squared"):
@@ -634,6 +679,9 @@ def fit_gbt_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor, *,
     Fo, N = W.shape
     F = Xb.shape[1]
     dev = Xb.device
+    lane_kw = _lane_scalars(dict(
+        learning_rate=learning_rate, reg_lambda=reg_lambda,
+        min_child_weight=min_child_weight, gamma=gamma), Fo, dev)
     y = y.to(torch.float32)
     W = W.to(torch.float32)
     wsum = W.sum(dim=1) + EPS
@@ -666,12 +714,10 @@ def fit_gbt_folds(Xb: torch.Tensor, y: torch.Tensor, W: torch.Tensor, *,
             if feature_frac < 1.0 else None
         tree, leaf_rows = _grow_tree_folds(
             Xb_t, g.contiguous(), h.contiguous(), depth=depth, n_bins=n_bins,
-            reg_lambda=reg_lambda, min_child_weight=min_child_weight,
             min_instances=min_instances, min_info_gain=min_info_gain,
-            gamma=gamma, learning_rate=learning_rate, feature_mask=fm,
-            alpha=alpha, max_delta_step=max_delta_step,
+            feature_mask=fm, alpha=alpha, max_delta_step=max_delta_step,
             level_feature_frac=colsample_bylevel, generator=generator,
-            feature_mask_count=fm_count, Xb_rows=Xb_rows)
+            feature_mask_count=fm_count, Xb_rows=Xb_rows, **lane_kw)
         margin = margin + leaf_rows
         rounds.append(tree)
     trees = Tree(*(torch.stack(parts) for parts in zip(*rounds)))

@@ -63,19 +63,21 @@ def cuda_ms(fn, reps: int = 5, warm: int = 1) -> float:
 
 
 def kernel_inputs(rows: int, seed: int, dev: str = "cuda",
-                  n_bins: int = 33, hist: bool = True) -> dict:
+                  n_bins: int = 33, hist: bool = True,
+                  lanes: int = 5) -> dict:
     """Seeded inputs at the main path's shapes: bins [64, N] (int8 for the
     default 33 bins, uint8 up to 256, int32 beyond, as the binning
     chooses) with 5% in the missing bin 0, node planes and split tables
     for S = 1..32 nodes (each lane's table drawn apart, and at 32 nodes
     also one table shared by every lane), and 16- and 64-leaf tables with
     their ids; with `hist`, also the same bins with 90% of every feature's
-    rows in bin 0 (skewed), g/h payloads of 5 lanes (20% held-out rows with
-    g = 0, the hessian clamped above 0), root slots and the rank-metric
-    counts' inputs."""
+    rows in bin 0 (skewed), g/h payloads of `lanes` lanes (20% held-out
+    rows with g = 0, the hessian clamped above 0), root slots and the
+    rank-metric counts' inputs. `lanes` is 5, a sweep's folds, or a
+    config-fused sweep's configs x folds."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
-    N, F, B, Fo = rows, 64, n_bins, 5
+    N, F, B, Fo = rows, 64, n_bins, lanes
     dtype = (torch.int8 if B <= 128 else
              torch.uint8 if B <= 256 else torch.int32)
 
@@ -109,7 +111,7 @@ def kernel_inputs(rows: int, seed: int, dev: str = "cuda",
     out.update(Xskew=Xskew, g=g, h=h,
                pay=torch.stack([g, h], 1).reshape(2 * Fo, N).contiguous(),
                slot0=torch.zeros((Fo, N), device=dev))
-    out.update(rank_inputs(gen, N, 5, dev))
+    out.update(rank_inputs(gen, N, 5, dev))   # the sweep's 5 fold lanes
     return out
 
 
@@ -213,6 +215,22 @@ def level_shapes(rows: int, seed: int, dev: str = "cuda") -> list:
                            (Xb, pay.contiguous(), node, *tables),
                            dict(n_nodes=S, n_bins=B, derive_count=True,
                                 xb_rows=rows_t)))
+    return shapes
+
+
+def fused_shapes(rows: int, seed: int, dev: str = "cuda") -> list:
+    """(label, kernel, S, args, kwargs) of route_hist at the tree sweep's
+    levels (F = 64, B = 33, C = 2+1, S = 1 ... 16) with a sweep's 5 fold
+    lanes and a config-fused sweep's 40 lanes (8 configs x 5 folds), on
+    the inputs of `kernel_inputs`, the bins row-major as a fit passes
+    them."""
+    shapes = []
+    for lanes in (5, 40):
+        d = kernel_inputs(rows, seed, dev=dev, lanes=lanes)
+        rows_t = d["Xb"].T.contiguous()
+        shapes += [(label, name, S, a, dict(kw, xb_rows=rows_t))
+                   for label, name, S, a, kw in hist_shapes(d)
+                   if name == "route_hist"]
     return shapes
 
 
@@ -321,18 +339,18 @@ def deep_shapes(d: dict, boosted: bool = False) -> list:
 def hist_shapes(d: dict) -> list:
     """(label, kernel, S, args, kwargs) of each histogram shape of the
     main path, on the inputs of `kernel_inputs`."""
-    B = d["B"]
+    B, Fo = d["B"], d["Fo"]
     shapes = [
-        (f"tree root: F=64 B={B} Fo=5 S=1", "hist_folds", 1,
+        (f"tree root: F=64 B={B} Fo={Fo} S=1", "hist_folds", 1,
          (d["Xb"], d["pay"], d["slot0"]),
          dict(n_slots=1, n_bins=B, derive_count=True)),
-        (f"tree root, skewed bins: F=64 B={B} Fo=5 S=1", "hist_folds", 1,
+        (f"tree root, skewed bins: F=64 B={B} Fo={Fo} S=1", "hist_folds", 1,
          (d["Xskew"], d["pay"], d["slot0"]),
          dict(n_slots=1, n_bins=B, derive_count=True)),
         rank_shape(d),
     ]
     for S in (1, 2, 4, 8, 16):
-        shapes.append((f"level S={S}: F=64 B={B} Fo=5", "route_hist", S,
+        shapes.append((f"level S={S}: F=64 B={B} Fo={Fo}", "route_hist", S,
                        (d["Xb"], d["pay"], d[f"node{S}"], *d[f"tables{S}"]),
                        dict(n_nodes=S, n_bins=B, derive_count=True)))
     return shapes
@@ -485,13 +503,18 @@ def main() -> int:
                     help="histogram bins B (max_bins + 1)")
     ap.add_argument("--kernels",
                     choices=("all", "hist", "lanes", "deep", "roots",
-                             "levels", "small"),
+                             "levels", "small", "fused"),
                     default="all", help="the histogram kernels, route and "
                     "table_lookup (lanes), both, the depth-12 shapes (deep: "
                     "F = 164, 3 or 4 channels, S up to 1024), the "
                     "one-slot histograms (roots), route_hist below the "
-                    "root at the workflows' widths (levels) or at 135 to "
-                    "262 144 rows (small; --rows is ignored)")
+                    "root at the workflows' widths (levels), at 135 to "
+                    "262 144 rows (small; --rows is ignored) or at the "
+                    "tree sweep's levels with 5 and 40 lanes (fused)")
+    ap.add_argument("--no-check", action="store_true",
+                    help="time the paths without holding them to the plain "
+                    "version (at 40 lanes x 10M rows a plain call takes "
+                    "seconds)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -512,6 +535,8 @@ def main() -> int:
         shapes = level_shapes(args.rows, args.seed)
     elif args.kernels == "small":
         shapes = small_shapes(args.seed)
+    elif args.kernels == "fused":
+        shapes = fused_shapes(args.rows, args.seed)
     else:
         d = kernel_inputs(args.rows, args.seed, n_bins=args.bins,
                           hist=args.kernels != "lanes")
@@ -528,13 +553,14 @@ def main() -> int:
             except ValueError:    # the path does not fit this shape
                 continue
         default = plan().path
-        want = plain(name, a, kw)
+        want = None if args.no_check else plain(name, a, kw)
         res = {}
         for path, tl in tilings.items():
             got = fn(*a, **kw, path=path)
             torch.cuda.synchronize()
-            res[path] = dict(accuracy(name, got, want, a, kw),
-                             tiling=tl.__dict__, ms=[])
+            acc = dict(ok=True) if want is None else \
+                accuracy(name, got, want, a, kw)
+            res[path] = dict(acc, tiling=tl.__dict__, ms=[])
             del got
         del want
         torch.cuda.empty_cache()
