@@ -79,7 +79,10 @@ Phases, each of which fails the run on error:
              every kernel at each 40-lane key of a one-round fit of each
              depth group, timed at the full rows and held to its plain
              version on its first 2M rows (rows of the kernels line,
-             phase "fused");
+             phase "fused"); then the lane planner's residency model
+             (C5) against a depth-6 group's measured peaks at 40 and 10
+             lanes (`tools/fit_memory.measure`): the fit's own and the
+             group's, at or above each, within C5_MAX_OVER;
 11. baseline-bf16 — baseline's sweep with sweep_dtype=torch.bfloat16 and
              fusion on (the BASELINE sweep as bench.py runs it on the
              TPU): wall, routes, winner, peak memory, X's bytes against
@@ -103,7 +106,7 @@ Phases, each of which fails the run on error:
 14. workflow-titanic — the port's example flow
              (examples/op_titanic_simple.py: a Text name hashed into 512
              bins, DSL arithmetic, pivot, fill + z-normalize, a lambda
-             map) on `titanic_named_records`: CPU against card at 5 000
+             map) on `titanic_named_records`: CPU against card at 3 000
              records (LR's 2 least regularised default grid points, RF
              10 trees at depth {3, 5}: the
              matrix and metadata identical, the same drops and winner,
@@ -120,7 +123,7 @@ Phases, each of which fails the run on error:
              feature of each date, map, geolocation and structured text
              group (Email, URL, Phone, Base64, Geolocation, DateList,
              PickListMap, a DateMap through to_unit_circle_map;
-             `wide_columns`): at 8 000 rows with a cut grid twice on the
+             `wide_columns`): at 5 000 rows with a cut grid twice on the
              card (C1: the largest |dp| between the runs, identical
              matrices, the same winner, the largest CV-cell difference, a
              tie witness where the refits split apart) and on the CPU
@@ -164,7 +167,12 @@ Phases, each of which fails the run on error:
              forest's and boosted tree's sweep walls and the winner beside
              those of route_hist's rows path (ROWS_PATH_SWEEP_S,
              ROWS_PATH_WINNER); then one statistics pass over the whole
-             matrix, streamed, against the fused route;
+             matrix, streamed, against the fused route; then its insights
+             (`insights_leg`): `model_insights()` (wall, JSON bytes, top 5
+             contributions), `loco_insights` through the dsl on 20 000
+             rows with the model's fitted stages (top 20 columns a row),
+             `insights_matrix` timed on 200 000 rows, and the knockouts of
+             256 rows on the card within 1e-5 of the CPU's;
 18. workflow-regression — op_boston's flow at user scale
              (`housing_columns`: 1 000 000 rows, all 13 predictors of
              HOUSING_COLUMNS, chas a PickList, rad an Integral, the Reals
@@ -197,7 +205,9 @@ Phases, each of which fails the run on error:
              (identical), loaded onto the CPU (10 000 rows within 1e-5); the
              port's op_iris on the card (K = 3: C = 5); every kernel at each
              key of the two train()s against its plain version (phases
-             "multiclass" and "iris"); the leg at 20 000 rows on the CPU
+             "multiclass" and "iris"); `model_insights()` of the winner
+             with its contributions a class (`multiclass_insights`); the
+             leg at 20 000 rows on the CPU
              and twice on the card: the matrix identical, the same winner,
              CV fold metrics within 1e-3 or a tie witness in that fold's
              lanes, the scores (predicted class, probabilities) within 1e-5
@@ -216,7 +226,9 @@ Phases, each of which fails the run on error:
              package's does), /metrics (post_warmup_compiles 0, pad and
              bucket rows, p50 / p95 / p99 of total, queue, assemble and
              device time), SIGTERM (rc 0 after the drain), `trace-report M
-             --check` (rc 0) and `--requests`; then workflow-titanic's
+             --check` (rc 0) and `--requests`, and the kept request
+             traces' coverage (`request_coverage`: the widest stretch of
+             a request no segment covers); then workflow-titanic's
              model (a random forest won) in a ServingEngine in process: 200
              new records within 1e-5 of score(), its local route on 20
              within 1e-5 of the bucket route, and the four kernels' launch
@@ -273,9 +285,9 @@ REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
 }
 GLM_EVAL_LANES = 8            # the streamed eval's grid chunk
 TITANIC_ROWS = 100_000        # workflow-titanic's main path (PERF.md §4)
-TITANIC_LEG_ROWS = 5_000      # its CPU-against-card leg (PERF.md §4)
+TITANIC_LEG_ROWS = 3_000      # its CPU-against-card leg (PERF.md §4)
 WIDE_ROWS = 1_000_000         # bench.py's wide_rows: workflow-wide's main path
-WIDE_LEG_ROWS = 8_000         # workflow-wide's CPU-against-card leg
+WIDE_LEG_ROWS = 5_000         # workflow-wide's CPU-against-card leg
 WIDE_SCORE_ROWS = 100_000     # new rows workflow-wide scores
 EVENTS_USERS = 200_000        # workflow-events' main path (PERF.md §4)
 EVENTS_LEG_USERS = 2_500      # workflow-events' CPU-against-card leg
@@ -291,6 +303,13 @@ COVERTYPE_LEG_ROWS = 20_000   # its CPU-and-card leg
 COVERTYPE_SCORE_ROWS = 100_000    # new rows scored before and after save/load
 COVERTYPE_CPU_LOAD_ROWS = 10_000  # rows the model loaded onto the CPU scores
 MLP_GRID_SEED = 7             # RandomParamBuilder's seed of the MLP's grid
+INSIGHTS_LOCO_ROWS = 20_000   # rows workflow-main's loco_insights scores
+INSIGHTS_MATRIX_ROWS = 200_000    # rows of its timed insights_matrix
+INSIGHTS_CHECK_ROWS = 256     # rows its knockouts are held card vs CPU
+INSIGHTS_TOP_K = 20           # the dsl's default top_k
+INSIGHTS_TOL = 1e-5           # card vs CPU knockout deltas, absolute
+C5_CHUNKS = (8, 2)            # configs a fused fit: 40 and 10 lanes
+C5_MAX_OVER = 1.15            # the residency model's bound over its peak
 # an MLP fold metric CPU against card (relative to max(1, |metric|)). Adam
 # steps each weight by step_size times the sign of its gradient's running
 # mean wherever that gradient is rounding noise (a sigmoid saturated by
@@ -1128,6 +1147,7 @@ def fused_sweep_phase(rows: int, seed: int, main: dict):
     from transmogrifai_tpu_torch.evaluators.evaluators import Evaluators
     from transmogrifai_tpu_torch.models.trees import OpXGBoostClassifier
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.tools import fit_memory as FM
     from transmogrifai_tpu_torch.tools import hist_paths as HP
 
     t_phase = time.perf_counter()
@@ -1213,7 +1233,20 @@ def fused_sweep_phase(rows: int, seed: int, main: dict):
         cut, cut_kw = cut_rows(name, args, kw, KERNEL_ROWS)
         shapes.append(captured_shape(key, name, cut, cut_kw,
                                      prefix="tree-sweep-10M-fused"))
-    del captured, ctx, X, y, masks, w
+    del captured
+    torch.cuda.empty_cache()
+    # C5: the residency model of the lane planner against the fits' own
+    # measured peaks, on the sweep's binned matrix, at 40 and 10 lanes
+    t0 = time.perf_counter()
+    c5 = [FM.measure(ctx, y, w, masks, depth=max(groups), chunk=c)
+          for c in C5_CHUNKS]
+    for r in c5:
+        log("tree-sweep-10M-fused residency: " + json.dumps(r))
+    log(f"tree-sweep-10M-fused residency: {time.perf_counter() - t0:.1f}s")
+    c5_ok = all(1.0 <= r[k] <= C5_MAX_OVER for r in c5
+                for k in ("model_over_fit_peak",
+                          "group_model_over_group_peak"))
+    del ctx, X, y, masks, w
     torch.cuda.empty_cache()
     kernel_out = kernel_rows(shapes, phase="fused")
     for r in kernel_out:
@@ -1223,7 +1256,7 @@ def fused_sweep_phase(rows: int, seed: int, main: dict):
             f"{r['full_rows_ms']:.4f} ms a launch")
     log(f"tree-sweep-10M-fused: phase {time.perf_counter() - t_phase:.1f}s")
     fused_routes = {c["route"] for c in cells.values()}
-    ok = (fused_routes == {"mask_folds:grid_fused"}
+    ok = (fused_routes == {"mask_folds:grid_fused"} and c5_ok
           and lanes == [FUSED_LANES] and set(keys) == {r["key"] for r in kernel_out}
           and all(p["chunk"] == 8 for p in plans)
           and all(n > 0 for n in launches.values())
@@ -3427,6 +3460,7 @@ def workflow_multiclass_phase(rows: int, seed: int):
     import torch
     from transmogrifai_tpu_torch.examples import op_iris
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
     from transmogrifai_tpu_torch.utils.uid import reset_uids
     from transmogrifai_tpu_torch.workflow import WorkflowModel
 
@@ -3581,10 +3615,11 @@ def workflow_multiclass_phase(rows: int, seed: int):
                   holdout_error=iris_sel.holdout_evaluation.get("error"),
                   launches=iris_launches))
     log("workflow-multiclass: " + json.dumps(res, default=str))
+    insights_ok, _ = multiclass_insights(model, 7, HP.card_line())
     by_shape = collections.Counter()
     for key, n in capture_launches.items():
         by_shape[launch_key(key)] += n
-    ok = (leg_ok and iris_ok and runner_ok
+    ok = (leg_ok and iris_ok and runner_ok and insights_ok
           and all(n > 0 for n in launches.values())
           and set(launches) == set(TK.KERNELS)
           and {r["key"] for r in rows_out}
@@ -3773,6 +3808,107 @@ def split_witness(a: list, b: list, i: int, node: int, depth: int,
         counts_equal=counts_equal, tie=tie)
 
 
+def insights_leg(model, ds, checked, card: str) -> tuple:
+    """workflow-main's insights on its trained model, through the user's
+    entry points: `model.model_insights()` (its wall, JSON size, the top
+    5 features by contribution); `checked.loco_insights(winner)` through
+    the dsl in a Workflow that reuses the model's fitted stages
+    (`with_model_stages`), scored on the last INSIGHTS_LOCO_ROWS rows
+    (INSIGHTS_TOP_K columns a row's map); `RecordInsightsLOCO
+    .insights_matrix` timed on the last INSIGHTS_MATRIX_ROWS rows'
+    vectors; and the knockout deltas of INSIGHTS_CHECK_ROWS rows on the
+    card against the CPU's plain run of the same program (INSIGHTS_TOL
+    absolute; the worst cell is printed). No fallback: a failing
+    knockout raises out of the phase. Returns (ok, summary)."""
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch.insights import knockout as K
+    from transmogrifai_tpu_torch.insights.loco import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    t_leg = t0 = time.perf_counter()
+    mi = model.model_insights()
+    mi_s = time.perf_counter() - t0
+    doc = json.dumps(mi.to_json())
+    top5 = [[f.feature_name, f.max_contribution()] for f in sorted(
+        mi.features, key=lambda f: -f.max_contribution())[:5]]
+    sel = model.selected_model()
+    n = len(ds)
+    tail = ds.take(np.arange(n - INSIGHTS_LOCO_ROWS, n))
+    loco = checked.loco_insights(sel, top_k=INSIGHTS_TOP_K)
+    t0 = time.perf_counter()
+    loco_model = Workflow().with_model_stages(model) \
+        .set_input_dataset(tail).set_result_features(loco).train()
+    loco_train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maps = loco_model.score(tail).data(loco.name)
+    loco_score_s = time.perf_counter() - t0
+    maps_ok = (len(maps) == INSIGHTS_LOCO_ROWS
+               and all(len(m) == INSIGHTS_TOP_K for m in maps))
+    first = dict(list(maps[0].items())[:3])
+    del loco_model, maps, tail
+    vec = model.transform(ds.take(np.arange(
+        n - INSIGHTS_MATRIX_ROWS, n))).data(checked.name)
+    stage = RecordInsightsLOCO(model=sel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deltas = stage.insights_matrix(vec)
+    matrix_s = time.perf_counter() - t0
+    shape = list(deltas.shape)
+    finite = bool(np.isfinite(deltas).all())
+    del deltas
+    X = np.ascontiguousarray(vec[:INSIGHTS_CHECK_ROWS])
+    on_card = K.knockout_deltas(sel, X)
+    on_cpu = K.knockout_deltas(sel, X, device="cpu")
+    diff = np.abs(on_card - on_cpu)
+    worst = np.unravel_index(int(diff.argmax()), diff.shape)
+    err = float(diff.max())
+    res = dict(
+        card=card, winner=type(sel.best_model).__name__,
+        model_insights_s=mi_s, json_bytes=len(doc), top5=top5,
+        loco_rows=INSIGHTS_LOCO_ROWS, loco_top_k=INSIGHTS_TOP_K,
+        loco_train_s=loco_train_s, loco_score_s=loco_score_s,
+        loco_first_row=first, matrix_rows=INSIGHTS_MATRIX_ROWS,
+        matrix_shape=shape, matrix_s=matrix_s,
+        active_features=(len(K.active_features(
+            sel.best_model.feat, sel.best_model.thresh_val))
+            if hasattr(sel.best_model, "feat") else None),
+        check_rows=INSIGHTS_CHECK_ROWS, card_vs_cpu_max_abs=err,
+        worst_cell=dict(row=int(worst[0]), column=int(worst[1]),
+                        score=int(worst[2]),
+                        card=float(on_card[worst]), cpu=float(on_cpu[worst])),
+        leg_s=time.perf_counter() - t_leg)
+    log("workflow-main insights: " + json.dumps(res))
+    ok = (maps_ok and finite and shape[:2] == [INSIGHTS_MATRIX_ROWS,
+                                               vec.shape[1]]
+          and err <= INSIGHTS_TOL and len(top5) == 5 and top5[0][1] > 0)
+    return ok, res
+
+
+def multiclass_insights(model, n_classes: int, card: str) -> tuple:
+    """workflow-multiclass's `model_insights()` on its winner: its wall,
+    and each derived column's contributions, one a class for the linear
+    families (softmax LR, naive Bayes), one for a tree ensemble, none for
+    the MLP (no notion of contribution, as in the reference). Returns (ok,
+    summary)."""
+    t0 = time.perf_counter()
+    mi = model.model_insights()
+    mi_s = time.perf_counter() - t0
+    doc = json.dumps(mi.to_json())
+    winner = mi.selected_model["best_model_type"]
+    widths = sorted({len(d.contributions) for f in mi.features
+                     for d in f.derived if d.column_index >= 0})
+    want = {"OpLogisticRegression": [n_classes], "OpNaiveBayes": [n_classes],
+            "OpMultilayerPerceptronClassifier": [0]}.get(winner, [1])
+    top5 = [[f.feature_name, f.max_contribution()] for f in sorted(
+        mi.features, key=lambda f: -f.max_contribution())[:5]]
+    res = dict(card=card, winner=winner, model_insights_s=mi_s,
+               json_bytes=len(doc), contributions_per_column=widths,
+               top5=top5, features=len(mi.features))
+    log("workflow-multiclass insights: " + json.dumps(res))
+    return widths == want and len(mi.features) > 0, res
+
+
 def workflow_main_phase(rows: int, seed: int):
     """The user's flow at full size: a Dataset of numpy columns (64 Reals
     from the tree phases' generator, 5% missing in four columns and the
@@ -3805,6 +3941,7 @@ def workflow_main_phase(rows: int, seed: int):
     from transmogrifai_tpu_torch.features.builder import FeatureBuilder as FB
     from transmogrifai_tpu_torch.ops import stats_engine as SE
     from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.tools import hist_paths as HP
     from transmogrifai_tpu_torch.types import ColumnKind
     from transmogrifai_tpu_torch.workflow import Workflow
 
@@ -3907,6 +4044,8 @@ def workflow_main_phase(rows: int, seed: int):
         scored = model.score(ds).data(pred.name)
     score_s = time.perf_counter() - t0
     score_copies = rec.copies
+    insights_ok, insights = insights_leg(model, ds, checked,
+                                         HP.card_line())
 
     best = max(sel.validation_results, key=lambda v: v["mean_metric"])
     prevalence = float(yh.mean())
@@ -3970,7 +4109,8 @@ def workflow_main_phase(rows: int, seed: int):
           and best["mean_metric"] > prevalence + 0.1
           and sel.holdout_evaluation["au_pr"] > prevalence + 0.1
           and stream_pass["driver"] == "streamed" and stats_exact
-          and stats_err < 1e-4 and (same_winner or winner_tie))
+          and stats_err < 1e-4 and (same_winner or winner_tie)
+          and insights_ok)
     return ok, shape_launches, capture_launches, wf_rows
 
 
@@ -4254,6 +4394,33 @@ def serve_http_leg(here: str, model_dir: str, records: list, bad: list,
     return out
 
 
+def request_coverage(metrics_dir: str) -> dict:
+    """The kept request traces of a serve run (C6): how many, the least
+    share of a request's wall its segments cover, the widest stretch no
+    segment covers (with that request's segments), and the mean of each
+    segment over the kept requests."""
+    from transmogrifai_tpu_torch.utils import tracing
+    recs = tracing.load_request_traces(metrics_dir)
+    gaps = []
+    means: dict = collections.defaultdict(float)
+    for r in recs:
+        segs = r.get("segments") or {}
+        gaps.append((r["wall_ms"] - sum(segs.values()), r))
+        for k, v in segs.items():
+            means[k] += v / len(recs)
+    if not recs:
+        return dict(kept=0)
+    gap, worst = max(gaps, key=lambda g: g[0])
+    return dict(kept=len(recs),
+                min_cover=min(sum((r.get("segments") or {}).values())
+                              / r["wall_ms"] for _, r in gaps
+                              if r["wall_ms"] > 0),
+                max_unattributed_ms=gap,
+                worst=dict(wall_ms=worst["wall_ms"],
+                           segments=worst.get("segments")),
+                mean_segment_ms=dict(means))
+
+
 def serve_phase(model_dir: str, tree_model):
     """18. serve: the workflow-wide model saved at `model_dir` served by the
     real CLI, and a tree ensemble served in process. Returns (ok, summary).
@@ -4318,6 +4485,7 @@ def serve_phase(model_dir: str, tree_model):
                               metrics_dir)
         check = _cli_in_process("trace-report", metrics_dir, "--check")
         reqs = _cli_in_process("trace-report", metrics_dir, "--requests")
+        coverage = request_coverage(metrics_dir)
     finally:
         shutil.rmtree(metrics_dir, ignore_errors=True)
     singles = http["singles"]
@@ -4351,7 +4519,7 @@ def serve_phase(model_dir: str, tree_model):
         trace_check_rc=check.returncode, trace_check=check.stdout[-300:],
         requests_rc=reqs.returncode,
         requests_report=reqs.stdout.splitlines()[:3],
-        log_tail=http["log_tail"])
+        coverage=coverage, log_tail=http["log_tail"])
     checks["http"] = (
         http["healthz"][0] == 200 and http["healthz"][1]["warm"] is True
         and not http["client_errors"] and single_ok and single_same

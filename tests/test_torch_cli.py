@@ -16,6 +16,7 @@ read. The model is tests/torch_serving_flow.py's.
 """
 import json
 import os
+import queue
 import re
 import signal
 import subprocess
@@ -173,19 +174,30 @@ def test_serve_subprocess_answers_and_drains(tmp_path_factory, tmp_path,
          "--metrics-location", metrics, "--trace-sample", "1.0",
          "--monitor", "off"],
         cwd=REPO, env=_cli_env(), stderr=subprocess.PIPE, text=True)
+    # the server's log is read on a thread for the whole run (its pipe
+    # never fills); the serving line is awaited with a deadline, so a
+    # child that never prints fails the test instead of hanging it
+    lines = queue.Queue()
+
+    def read_log():
+        for line in proc.stderr:
+            lines.put(line)
+        lines.put(None)
+    threading.Thread(target=read_log, daemon=True).start()
     try:
         port = None
         deadline = time.time() + 120
-        while port is None and time.time() < deadline:
-            line = proc.stderr.readline()
-            if not line:
+        while port is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.time(), 0.0))
+            except queue.Empty:
+                break
+            if line is None:
                 break
             m = re.search(r"serving .* on http://[^:]+:(\d+)", line)
             if m:
                 port = int(m.group(1))
         assert port is not None, "no serving line"
-        # keep reading the server's log so that its pipe never fills
-        threading.Thread(target=proc.stderr.read, daemon=True).start()
         rec = F.records(3, seed=15)[0]
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}/score", data=json.dumps(rec).encode(),

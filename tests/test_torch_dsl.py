@@ -479,7 +479,7 @@ def assert_columns_equal(a, b, name):
 def test_ported_names_leave_unported():
     assert len(set(PORTED)) == 20 and set(PORTED) <= set(_ops_table_names())
     assert not set(PORTED) & set(PD.UNPORTED)
-    assert len(PD.UNPORTED) == 18
+    assert len(PD.UNPORTED) == 17
 
 
 @pytest.mark.parametrize("name", PORTED)

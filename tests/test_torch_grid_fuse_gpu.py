@@ -1,7 +1,8 @@
 """The config-fused sweep and the bf16 sweep dtype on the card: the four
 kernels at a fused sweep's 40 lanes, the lane planner against the card's
-free memory, `glm._mm` on bf16 operands, and a small fused sweep against
-the per-config one. Every test needs a CUDA device and skips without one.
+free memory, the fused fit's residency model against its measured peak,
+`glm._mm` on bf16 operands, and a small fused sweep against the per-config
+one. Every test needs a CUDA device and skips without one.
 This file imports neither jax nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_grid_fuse_gpu.py
@@ -12,7 +13,8 @@ the plain version's own error (`hist_paths.accuracy`); `_mm` within 1e-5
 relative of the f32 product of the same bf16 values (exact products, f32
 sums in another order); fused fold metrics within 1e-3 of the per-config
 sweep's (the card-against-card bound of boosted fold metrics: the kernels'
-atomic flushes sum in a changing order).
+atomic flushes sum in a changing order); the residency model at or above
+the fit's measured peak and within 15% of it.
 """
 import numpy as np
 import pytest
@@ -73,13 +75,14 @@ def test_lane_planner_against_free_memory():
     free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
     budget = TK.GRID_FUSE_MEMORY_SHARE * free
     cap = TK.grid_fuse_lane_cap()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for rows in (10_000_000, 50_000_000, 200_000_000, 10 ** 9):
         got = TK.plan_lane_chunk(64, 33, 5, 16, 6, rows, device=dev)
         want, chunk = 0, 16
         while True:
             lanes = 5 * chunk
-            if lanes <= cap and TK.fused_fit_resident_bytes(
-                    rows, 64, lanes, 6, 33) <= budget:
+            if lanes <= cap and TK.grid_fused_resident_bytes(
+                    rows, 64, chunk, 5, 16, 6, 33, n_sm=n_sm) <= budget:
                 want = chunk
                 break
             if chunk == 1:
@@ -87,10 +90,26 @@ def test_lane_planner_against_free_memory():
             chunk = (chunk + 1) // 2
         assert got == want, (rows, got, want)
         if got:
-            assert TK.fused_fit_resident_bytes(rows, 64, 5 * got, 6, 33) \
-                <= budget
+            assert TK.grid_fused_resident_bytes(
+                rows, 64, got, 5, 16, 6, 33, n_sm=n_sm) <= budget
     assert TK.plan_lane_chunk(64, 33, 5, 8, 6, 10_000_000, device=dev) == 8
     assert TK.plan_lane_chunk(64, 33, 5, 8, 6, 10 ** 9, device=dev) == 0
+
+
+@pytest.mark.parametrize("chunk", [8, 2])
+def test_resident_model_covers_measured_peak(chunk):
+    """One depth-4 group of 8 configs at 2M rows, 5 folds, through the
+    grid-fused path with the planner pinned to `chunk` configs a fit (40
+    and 10 lanes): each fit's own peak above its start, and the group's
+    above the bytes allocated when the planner was asked, at or below
+    their models and within 15% of them (tools/fit_memory.py)."""
+    _need_cuda()
+    from transmogrifai_tpu_torch.tools import fit_memory as FM
+    ctx, y, w, masks, _ = FM.sweep_inputs(2_000_000, seed=3)
+    got = FM.measure(ctx, y, w, masks, depth=4, chunk=chunk)
+    assert got["lanes"] == 5 * chunk and got["fits"] == 8 // chunk
+    assert 1.0 <= got["model_over_fit_peak"] <= 1.15, got
+    assert 1.0 <= got["group_model_over_group_peak"] <= 1.15, got
 
 
 def test_mm_of_bf16_returns_f32():

@@ -207,6 +207,24 @@ def test_recorded_server_traces(recorded):
     assert any("serve-batcher" in k for k in recorded["debugz"]["threads"])
 
 
+def test_batcher_hand_offs_are_segments(recorded):
+    """Every stretch of a queued request is a segment: validate, queue,
+    batch, device, the dispatcher's own time around the engine (dispatch)
+    and the handler's wake-up after it (wake); a bulk request's scoring
+    call outside the engine's walls is its dispatch."""
+    kept = [k for k in recorded["payload"]["kept"] if k["status"] == 200]
+    singles = [k for k in kept if k.get("rows", 1) == 1]
+    bulks = [k for k in kept if k.get("rows", 1) > 1]
+    assert len(singles) == 13 and len(bulks) == 1
+    for k in singles:
+        assert {"parse", "validate", "queue", "batch", "device", "dispatch",
+                "wake", "respond"} <= set(k["segments"]), k
+    assert {"validate", "batch", "device", "dispatch"} <= \
+        set(bulks[0]["segments"])
+    for name in PRQ.PORT_SEGMENTS:
+        assert name in recorded["payload"]["segments"]
+
+
 def test_requests_report_matches_jax(recorded):
     d = recorded["dir"]
     assert PTr.load_request_traces(d) == JTr.load_request_traces(d)

@@ -14,6 +14,7 @@ directory works on a copy (`copy_flow`).
 import fcntl
 import os
 import shutil
+import time
 
 import numpy as np
 
@@ -71,6 +72,25 @@ def _train(path):
         .train().save(path)
 
 
+# Seconds a worker waits for another worker's training of the flow
+LOCK_WAIT_S = 300
+
+
+def _lock(fh, wait_s: float = LOCK_WAIT_S) -> None:
+    """An exclusive lock on `fh`, polled, failing after `wait_s` seconds
+    rather than blocking a test worker for good."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        try:
+            fcntl.flock(fh, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            return
+        except BlockingIOError:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the serving flow's lock was held for "
+                                   f"over {wait_s} s")
+            time.sleep(0.05)
+
+
 def flow_dir(tmp_path_factory):
     """The saved flow's directory, trained by the first caller of the test
     session."""
@@ -78,7 +98,7 @@ def flow_dir(tmp_path_factory):
     shared = base.parent if base.name.startswith("popen-gw") else base
     path = shared / "torch_serving_flow" / "model"
     with open(shared / "torch_serving_flow.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+        _lock(lock)
         try:
             if not (path / "arrays.npz").exists():
                 tmp = shared / "torch_serving_flow" / f"tmp{os.getpid()}"

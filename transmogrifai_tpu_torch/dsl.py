@@ -451,6 +451,14 @@ def _sanity_check(self, label: Feature, **kwargs):
     return SanityChecker(**kwargs).set_input(label, self).get_output()
 
 
+def _loco_insights(self, model, top_k: int = 20):
+    """Per-row top-K leave-one-column-out deltas of a fitted model over this
+    vector (RichVectorFeature via RecordInsightsLOCO)."""
+    from .insights import RecordInsightsLOCO
+    return RecordInsightsLOCO(model=model, top_k=top_k) \
+        .set_input(self).get_output()
+
+
 def _to_isotonic_calibrated(self, label: Feature, isotonic: bool = True):
     """Calibrate a score against a label by isotonic regression
     (RichNumericFeature.toIsotonicCalibrated)."""
@@ -481,7 +489,6 @@ UNPORTED: Dict[str, Tuple[str, str]] = {
     "recognize_entities": ("NameEntityRecognizer", "transformers/ner.py"),
     "ngram_similarity": ("NGramSimilarity", "transformers/text.py"),
     "jaccard_similarity": ("JaccardSimilarity", "transformers/text.py"),
-    "loco_insights": ("RecordInsightsLOCO", "insights/"),
     "to_multi_pick_list": ("TextToMultiPickList", "transformers/text.py"),
     "is_substring": ("SubstringTransformer", "transformers/text.py"),
     "tokenize_regex": ("RegexTokenizer", "transformers/text.py"),
@@ -522,7 +529,8 @@ def install() -> None:
         "calibrate_percentile": _calibrate_percentile,
         "tokenize": _tokenize,
         "vectorize": _vectorize, "pivot": _pivot,
-        "sanity_check": _sanity_check, "tupled": _tupled,
+        "sanity_check": _sanity_check, "loco_insights": _loco_insights,
+        "tupled": _tupled,
         "combine_with": _combine_with, "descale": _descale,
         "map_values": _map_values, "replace_with": _replace_with,
         "exists": _exists, "filter_values": _filter_values,

@@ -44,6 +44,7 @@ from __future__ import annotations
 import os
 from collections import Counter
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -186,26 +187,82 @@ def _sorted_unit_rows(n_slots: int) -> int:
     return max(_SORT_UNIT_ROWS, _SORT_UNIT_PER_SLOT * n_slots)
 
 
+# f32 planes a lane holds in a boosted fit's two heaviest phases beyond
+# its P = channels - 1 gradient planes (measured on an H100 with
+# torch.cuda.memory's history, tools/fit_memory.py): the gradient step
+# holds the last round's g and h, the margin, the last round's leaf rows
+# and _logistic_grad's five transients (P + 7); a route_hist level holds g
+# and h, the payload built of them, the node ids in and out, the margin and
+# the leaf rows (2 P + 4), and on the sorted path its workspace
+_GRAD_PLANES = 7
+_LEVEL_PLANES = 4
+
+
+def _sorted_level(n_feat: int, n_bins: int, lanes: int, depth: int,
+                  n_rows: int, channels: int, itemsize: int,
+                  n_sm: Optional[int]) -> Optional[Tuple[int, int]]:
+    """(slots, sort rows) of the deepest route_hist level of a depth-`depth`
+    fit that takes the sorted path (`plan_hist` with `n_sm` SMs; without
+    `n_sm`, every routed level counts as sorted), or None."""
+    for d in reversed(range(depth - 1)):
+        S = 1 << d
+        if n_sm is None:
+            return S, _sorted_unit_rows(S)
+        try:
+            tl = plan_hist(n_feat, S, channels, n_bins, lanes, n_rows, n_sm,
+                           itemsize=itemsize, route=True)
+        except ValueError:
+            continue
+        if tl.path == "sorted":
+            return S, tl.sort_rows
+    return None
+
+
 def fused_fit_resident_bytes(n_rows: int, n_feat: int, lanes: int,
                              depth: int, n_bins: int, *, channels: int = 3,
-                             xb_itemsize: int = 1) -> int:
+                             xb_itemsize: int = 1,
+                             n_sm: Optional[int] = None) -> int:
     """Device bytes one fold-fused boosted fit (ops/trees.fit_gbt_folds)
-    of `lanes` lanes holds at its peak, beyond the caller's binned matrix:
-    the fit's own [F, N] copy of the bins, and per lane the f32 planes of
-    W, g, h, the margin and its update, the leaf rows, the payload's
-    `channels` - 1 stored channels (the count is derived), the node ids in
-    and out, route_hist's sorted-path workspace at the deepest routed
-    level (`sorted_work_words`) and the split algebra's copies of the
-    deepest full level histogram ([2^(depth-1), channels, F, n_bins]).
+    of `lanes` lanes allocates at its peak above what is allocated at its
+    start: its own [F, N] copy of the bins; per lane the larger of the
+    gradient step's and a route_hist level's f32 planes (_GRAD_PLANES,
+    _LEVEL_PLANES), the level's with the sorted path's workspace
+    (`sorted_work_words`) at the deepest level `plan_hist` sends there on
+    a card of `n_sm` SMs (every routed level where `n_sm` is None: an upper
+    bound); and the split algebra's copies of the deepest full level
+    histogram ([2^(depth-1), channels, F, n_bins]). The logistic gradient's
+    transients are counted for the squared loss too, which has fewer.
     `fused_fit_bytes` counts the same fit's traffic, not its residency."""
     plane = 4 * n_rows
-    planes = 7 + (channels - 1)
-    deep = 1 << max(depth - 2, 0)                  # last route_hist level
-    work = 4 * sorted_work_words(1, n_rows, deep, _sorted_unit_rows(deep))
+    pay = channels - 1
+    level = (2 * pay + _LEVEL_PLANES) * plane
+    sorted_at = _sorted_level(n_feat, n_bins, lanes, depth, n_rows,
+                              channels, xb_itemsize, n_sm)
+    if sorted_at is not None:
+        level += 4 * sorted_work_words(1, n_rows, *sorted_at)
+    grad = (pay + _GRAD_PLANES) * plane
     hist = (_LEVEL_HIST_COPIES * 4 * (1 << max(depth - 1, 0)) * channels
             * n_feat * n_bins)
-    return (n_rows * n_feat * xb_itemsize
-            + lanes * (planes * plane + work + hist))
+    return n_rows * n_feat * xb_itemsize + lanes * (max(grad, level) + hist)
+
+
+def grid_fused_resident_bytes(n_rows: int, n_feat: int, chunk: int,
+                              n_folds: int, n_configs: int, depth: int,
+                              n_bins: int, *, channels: int = 3,
+                              xb_itemsize: int = 1,
+                              n_sm: Optional[int] = None) -> int:
+    """Device bytes a group of `n_configs` same-signature configs holds at
+    its peak when it fits `chunk` configs at a time
+    (models/trees.mask_fit_scores_grid), above what is allocated when the
+    planner is asked: the fit's own (`fused_fit_resident_bytes`) and the
+    caller's f32 planes, the configs' weights [chunk, N], the lanes'
+    weights [lanes, N] and the margins of the group's earlier fits."""
+    lanes = chunk * n_folds
+    earlier = max(n_configs - chunk, 0) * n_folds
+    return (4 * n_rows * (chunk + lanes + earlier)
+            + fused_fit_resident_bytes(n_rows, n_feat, lanes, depth, n_bins,
+                                       channels=channels,
+                                       xb_itemsize=xb_itemsize, n_sm=n_sm))
 
 
 def grid_fuse_lane_cap() -> int:
@@ -244,8 +301,8 @@ def plan_lane_chunk(n_feat: int, n_bins: int, n_folds: int, n_configs: int,
     lanes already fail (the caller then fits config by config).
 
     Checks: lanes <= `grid_fuse_lane_cap()`; on a CUDA `device`, also the
-    fit's resident bytes (`fused_fit_resident_bytes`) within
-    GRID_FUSE_MEMORY_SHARE of the bytes free to the allocator (the
+    group's resident bytes at that chunk (`grid_fused_resident_bytes`)
+    within GRID_FUSE_MEMORY_SHARE of the bytes free to the allocator (the
     device's free bytes plus the allocator's cached, unused ones), and a
     launch path from `plan_hist`, `plan_route` and `plan_lookup` for every
     level. On the CPU the lane cap alone decides. The reference's v5e
@@ -267,9 +324,9 @@ def plan_lane_chunk(n_feat: int, n_bins: int, n_folds: int, n_configs: int,
             return False
         if not cuda:
             return True
-        return (fused_fit_resident_bytes(
-            n_rows, n_feat, lanes, depth, n_bins, channels=channels,
-            xb_itemsize=xb_itemsize) <= budget
+        return (grid_fused_resident_bytes(
+            n_rows, n_feat, chunk, n_folds, n_configs, depth, n_bins,
+            channels=channels, xb_itemsize=xb_itemsize, n_sm=n_sm) <= budget
             and _kernel_paths_fit(n_feat, n_bins, lanes, depth, n_rows,
                                   channels, xb_itemsize, n_sm))
 

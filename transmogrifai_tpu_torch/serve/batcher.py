@@ -43,12 +43,15 @@ class Overloaded(RuntimeError):
 
 
 class _Pending:
-    __slots__ = ("record", "t_enq", "done", "result", "error", "trace")
+    __slots__ = ("record", "t_enq", "t_set", "done", "result", "error",
+                 "trace")
 
     def __init__(self, record: Record,
                  trace: Optional[RequestTrace] = None):
         self.record = record
         self.t_enq = time.perf_counter()
+        #: when the dispatcher set `done` (the "wake" segment's start)
+        self.t_set = self.t_enq
         self.done = threading.Event()
         self.result: Optional[Record] = None
         self.error: Optional[BaseException] = None
@@ -94,7 +97,10 @@ class MicroBatcher:
         queue, TimeoutError when `timeout` expires first, RuntimeError
         after shutdown. `trace` (reqtrace) rides the pending slot; the
         dispatcher stamps queue wait + the batch's shared walls onto it."""
+        t0 = time.perf_counter()
         self.engine.validate_record(record)
+        if trace is not None:
+            trace.seg("validate", time.perf_counter() - t0)
         p = _Pending(record, trace)
         with self._cond:
             if self._closed:
@@ -129,6 +135,9 @@ class MicroBatcher:
             if withdrawn or not p.done.is_set():
                 raise TimeoutError(f"no result within {timeout}s "
                                    f"(queue depth {len(self._q)})")
+        tr = p.trace
+        if tr is not None:
+            tr.seg("wake", time.perf_counter() - p.t_set)
         if p.error is not None:
             raise p.error
         return p.result  # type: ignore[return-value]
@@ -200,18 +209,22 @@ class MicroBatcher:
             # THIS batch gets the typed cause instead of hanging
             for p in batch:
                 tr = p.trace  # ONE read: a timeout may null it out
+                p.t_set = time.perf_counter()
                 if tr is not None:
                     tr.seg("queue", t_d - p.t_enq)
+                    tr.seg("dispatch", p.t_set - t_d)
                 p.error = e
                 p.done.set()
             return
         t_end = time.perf_counter()
         for p, r in zip(batch, results):
             tr = p.trace  # ONE read: a timed-out submit reclaims it
+            p.t_set = time.perf_counter()
             if tr is not None:
                 tr.seg("queue", t_d - p.t_enq)
                 if bt is not None:
                     bt.stamp(tr)
+                    tr.seg("dispatch", p.t_set - t_d - bt.walls_s)
             p.result = r
             p.done.set()
             self.engine.observe_request(t_end - p.t_enq, bucket)

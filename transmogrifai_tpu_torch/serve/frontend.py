@@ -30,8 +30,9 @@ Endpoints:
 
 Request tracing: every /score request gets a RequestTrace (trace id
 adopted from the caller's ``X-Tmog-Trace`` header or minted), segments
-stamped through parse -> queue -> batch -> device -> respond, tail-sampled
-at completion; the reply echoes the header back with this replica's id.
+stamped through parse -> validate -> queue -> batch -> device -> dispatch
+-> wake -> respond, tail-sampled at completion; the reply echoes the
+header back with this replica's id.
 
 The drift monitor (the JAX package's monitor/, a monitor.json beside a
 model it saved) is not ported: `serve --monitor auto` serves such a model
@@ -130,7 +131,9 @@ class ServeFrontend:
         if not self._engine_takes_batch_trace:
             return self.engine.score_batch(records)
         bt = BatchTrace()
+        t1 = time.perf_counter()
         out = self.engine.score_batch(records, batch_trace=bt)
+        trace.seg("dispatch", time.perf_counter() - t1 - bt.walls_s)
         bt.stamp(trace)
         return out
 

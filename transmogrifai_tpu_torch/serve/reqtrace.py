@@ -68,6 +68,12 @@ DEBUG_SLEEP_HEADER = "X-Tmog-Debug-Sleep"
 #: histograms for these are preallocated so the hot path never mutates the hist dict
 SEGMENTS = ("parse", "validate", "queue", "batch", "device", "monitor",
             "debug_sleep", "respond", "route", "upstream")
+#: the port's own segments of the batcher's hand-offs, preallocated too:
+#: "dispatch", a rider's time in the dispatcher outside the engine's
+#: walls (the engine lock, the result rows, the stamps of the riders
+#: before it; a bulk request's scoring call outside them), and "wake",
+#: from the dispatcher's done.set() until the handler thread runs again
+PORT_SEGMENTS = ("dispatch", "wake")
 
 _HEX = frozenset("0123456789abcdef")
 
@@ -226,6 +232,11 @@ class BatchTrace:
         return ((self.bucket_rows - self.rows) / self.bucket_rows
                 if self.bucket_rows else 0.0)
 
+    @property
+    def walls_s(self) -> float:
+        """The shared walls' sum (assemble + device + monitor)."""
+        return self.assemble_s + self.score_s + self.monitor_s
+
     def stamp(self, rt: RequestTrace) -> None:
         """Write this batch's shared walls onto one rider's record."""
         rt.seg("batch", self.assemble_s)
@@ -329,7 +340,7 @@ class ReqTracer:
         # preallocated segment families (the hot path never inserts)
         self.hist: Dict[str, LatencyHistogram] = {
             "e2e": LatencyHistogram("req_e2e")}
-        for name in SEGMENTS:
+        for name in SEGMENTS + PORT_SEGMENTS:
             self.hist[name] = LatencyHistogram(f"req_{name}")
         self.sampler = TailSampler(self.hist["e2e"], rate=sample_rate,
                                    slo_quantile=slo_quantile)

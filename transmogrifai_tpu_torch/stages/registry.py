@@ -11,6 +11,9 @@ workflow (workflow/io.py) hoists the arrays of save_args into one npz
 store with `pack_args`, and loading puts them back with `unpack_args`;
 `build_stage` places the rebuilt stage on a device. The same path carries
 a fitted JAX workflow across in memory (convert.workflow_model_from_jax).
+A user's stage class loads once it is registered (`register_stage`, or its
+module through `register_module`), as the reference requires a stage class
+to be on the classpath at load time.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import numpy as np
 
 from ..device import DeviceLike
 
-# Modules scanned for PipelineStage subclasses.
+# Modules scanned for PipelineStage subclasses; register_module and
+# register_stage add a user's.
 _STAGE_MODULES = [
     "transmogrifai_tpu_torch.stages.base",
     "transmogrifai_tpu_torch.features.generator",
@@ -41,9 +45,30 @@ _STAGE_MODULES = [
     "transmogrifai_tpu_torch.models.glm",
     "transmogrifai_tpu_torch.models.trees",
     "transmogrifai_tpu_torch.models.mlp",
+    "transmogrifai_tpu_torch.insights.loco",
+    "transmogrifai_tpu_torch.insights.corr",
 ]
 
+_EXTRA_STAGES: Dict[str, type] = {}
 _registry_cache: Optional[Dict[str, type]] = None
+
+
+def register_stage(cls: type) -> type:
+    """Register a user stage class for load-time recovery (usable as a
+    decorator); it takes precedence over a scanned class of its name."""
+    global _registry_cache
+    _EXTRA_STAGES[cls.__name__] = cls
+    _registry_cache = None
+    return cls
+
+
+def register_module(module_name: str) -> None:
+    """Scan `module_name` for stage classes too (imported at the next
+    lookup)."""
+    global _registry_cache
+    if module_name not in _STAGE_MODULES:
+        _STAGE_MODULES.append(module_name)
+        _registry_cache = None
 
 
 def stage_registry() -> Dict[str, type]:
@@ -57,6 +82,7 @@ def stage_registry() -> Dict[str, type]:
         for obj in vars(mod).values():
             if isinstance(obj, type) and issubclass(obj, PipelineStage):
                 reg[obj.__name__] = obj
+    reg.update(_EXTRA_STAGES)
     _registry_cache = reg
     return reg
 
@@ -65,7 +91,10 @@ def resolve_stage_class(name: str) -> type:
     reg = stage_registry()
     if name not in reg:
         raise NotImplementedError(
-            f"stage class '{name}' is not ported yet")
+            f"stage class '{name}' is neither ported nor registered: a "
+            "user stage loads once its class is registered with "
+            "transmogrifai_tpu_torch.stages.registry.register_stage (or its "
+            "module with register_module)")
     return reg[name]
 
 

@@ -21,7 +21,8 @@ collector is on, as "workflow" spans of its trace. The runner
 (workflow/runner.py) drives a workflow by run type. A fitted model serves
 through `score_fixed` (the engine's fixed-shape batches, no spans),
 `score_function()` (local/scoring.py, one record replayed on the CPU) and
-`serving_engine()` (serve/engine.py). Not ported yet: insights.
+`serving_engine()` (serve/engine.py). `model_insights()` joins the
+fitted stages' diagnostics (insights/model_insights.py).
 """
 from __future__ import annotations
 
@@ -414,10 +415,20 @@ class WorkflowModel:
         sel = self.selected_model()
         return sel.summary if sel is not None else None
 
-    def sanity_checker_summary(self):
+    def _sanity_checker(self):
         from ..automl.preparators import SanityCheckerModel
-        sc = self._stage_of(SanityCheckerModel)
+        return self._stage_of(SanityCheckerModel)
+
+    def sanity_checker_summary(self):
+        sc = self._sanity_checker()
         return sc.summary if sc is not None else None
+
+    def model_insights(self):
+        """Reference OpWorkflowModel.modelInsights: the vector's columns
+        joined with the SanityChecker's statistics, the selector's summary,
+        the RawFeatureFilter's results and the winner's contributions."""
+        from ..insights.model_insights import extract_insights
+        return extract_insights(self)
 
     def summary(self) -> Dict[str, Any]:
         """Reference OpWorkflowModel.summary: stages, blacklist, model
