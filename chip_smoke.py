@@ -112,8 +112,9 @@ Phases, each of which fails the run on error:
              matrix and metadata identical, the same drops and winner,
              scores within 1e-5 a row or a tie witness; where the CPU's
              train() goes), then 100 000 records through
-             `reference_selector()` (LR and RF default grids, RF to depth
-             12, 3 folds) on the card: stage walls,
+             `titanic_selector()` (the example's reference_selector: LR's
+             default grid, RF's cut to depth {3, 6}, 3 folds) on the
+             card: stage walls,
              peak device memory, winner, CV and holdout AuPR and AuROC
              against the prevalence; every kernel at each (kernel, F, S,
              C, Fo) key of train() (F ~ 590) against its plain version
@@ -155,7 +156,8 @@ Phases, each of which fails the run on error:
              matrix and winner identical, scores within 1e-5 or a tie;
 17. workflow-main — the same flow at 10M rows (64 Reals, two PickLists,
              5 folds, the selector's default model types and grids: LR,
-             RF, GBT and SVC, max_depth up to 12): the wall of each stage
+             RF (cut to depth {3, 6} and one depth-12 point), GBT and SVC,
+             max_depth up to 12): the wall of each stage
              and of each family's sweep, each host-to-device copy, peak
              device memory, widths, winner and AuPRs; launch counters
              reset just before train() and read just after, every kernel
@@ -212,7 +214,28 @@ Phases, each of which fails the run on error:
              CV fold metrics within 1e-3 or a tie witness in that fold's
              lanes, the scores (predicted class, probabilities) within 1e-5
              relative or a tie witness;
-20. serve — the model workflow-wide trained at 1M rows (saved there)
+20. workflow-text — support tickets (`ticket_columns`: 100 000 records,
+             a body of 40-80 tokens from 10 planted topics over 5 000
+             words, 10% German, French or Spanish, names of people,
+             places and organisations from the NER gazetteers; a subject,
+             a reply, a product and two numerics) through `text_features`
+             (tokens without stop words counted into LDA topics, TF-IDF,
+             word2vec; regex bigrams; n-gram and Jaccard similarity;
+             language, entities, length, substring; the product indexed
+             and deindexed), transmogrify, SanityChecker() and a 3-fold
+             sweep of LR's default grid and a GBT of 10 rounds at depth 4
+             inside Workflow().train(): each text stage's fit and
+             transform wall, LDA's and the ALS's device walls, train and
+             score walls, winner, CV and holdout AuPR against the
+             prevalence, 5 000 new records scored, saved, loaded and
+             scored again (identical); every kernel at each key of train()
+             against its plain version (phase "text"); the leg at 3 000
+             records (the GBT alone) on the CPU and on the card: host
+             stages identical,
+             LDA's topics and the word vectors within tolerance, scores
+             within 1e-5 or a tie witness, the CPU-fitted workflow
+             carried onto the card within 1e-5;
+21. serve — the model workflow-wide trained at 1M rows (saved there)
              through the real CLI in subprocesses: `serve DIR
              --prewarm-only --max-batch 64` (rc 0, buckets 1, 8, 16, 32 and
              64 with each one's wall, serve.json's model_hash equal to
@@ -240,7 +263,8 @@ Float32 products stay in full f32: the run fails unless TF32 is off
 
 The last three lines of standard output are {"kernels": [...]} (each
 row's `launches` at its (kernel, F, S) key in the phase it names, a
-workflow, titanic, wide, events, regression, multiclass or iris row's at
+workflow, titanic, wide, events, regression, multiclass, iris or text
+row's at
 its (kernel, F, S, C, Fo) key inside its phase's train(), a fused row's at
 that key inside tree-sweep-10M-fused's sweep (with `full_rows_ms`, its
 time at the sweep's rows), and, for the
@@ -308,6 +332,17 @@ INSIGHTS_MATRIX_ROWS = 200_000    # rows of its timed insights_matrix
 INSIGHTS_CHECK_ROWS = 256     # rows its knockouts are held card vs CPU
 INSIGHTS_TOP_K = 20           # the dsl's default top_k
 INSIGHTS_TOL = 1e-5           # card vs CPU knockout deltas, absolute
+TEXT_ROWS = 100_000           # workflow-text's main path (PERF.md §4)
+TEXT_LEG_ROWS = 3_000         # its CPU-against-card leg
+TEXT_SCORE_ROWS = 5_000       # new records it scores, saves, loads, rescores
+TEXT_TOPIC_SEED = 2024        # seeds the vocabulary and the 10 topics
+TEXT_TOPICS = 10
+TEXT_VOCAB = 5_000
+# card against CPU: LDA's topics after 50 EM iterations and the ALS word
+# vectors, as tests/test_torch_text_gpu.py holds them (of each entry or
+# of the largest)
+TEXT_LDA_RTOL = 1e-4
+TEXT_W2V_RTOL = 1e-4
 C5_CHUNKS = (8, 2)            # configs a fused fit: 40 and 10 lanes
 C5_MAX_OVER = 1.15            # the residency model's bound over its peak
 # an MLP fold metric CPU against card (relative to max(1, |metric|)). Adam
@@ -323,7 +358,9 @@ MLP_STEPS = 100               # the multiclass selector's MLP: Adam steps
 #                               (the default 200 halved for the CPU leg)
 # workflow-main's forest and boosted-tree sweep walls (s), winner and its
 # CV AuPR with route_hist's levels on the rows path, before the sorted
-# path: this script at 10M rows on an NVIDIA H100 80GB HBM3, 700.00 W
+# path: this script at 10M rows on an NVIDIA H100 80GB HBM3, 700.00 W (the
+# forest's over its full default grid: workflow-main sweeps 13 of its 18
+# points since PR 17, so only the boosted wall still compares)
 ROWS_PATH_SWEEP_S = {"OpRandomForestClassifier": 157.605309327,
                      "OpGBTClassifier": 39.41479733400001}
 ROWS_PATH_WINNER = ["OpGBTClassifier", {"max_depth": 12,
@@ -587,7 +624,8 @@ def kernel_rows(shapes: list, phase: str = "tree",
                    check_s=check_s, timing_s=time.perf_counter() - t_timing,
                    key=capture_key(key, name, args, kw)
                    if phase in ("workflow", "titanic", "wide", "events",
-                                "regression", "multiclass", "iris", "fused")
+                                "regression", "multiclass", "iris", "fused",
+                                "text")
                    else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
@@ -1784,6 +1822,23 @@ def titanic_cut_selector():
             for d in (3, 5)])])
 
 
+def titanic_selector():
+    """workflow-titanic's main-path selector: the example's
+    `reference_selector()` (3-fold CV, 10% holdout) over logistic
+    regression's default grid and random forests of the default grid cut
+    to depth {3, 6} (12 of its 18 points; the depth-12 points took 55 s of
+    the phase's 88 s, PR 16's final run, and workflow-main keeps depth 12)."""
+    from transmogrifai_tpu_torch.automl.selectors import default_grid_for
+    from transmogrifai_tpu_torch.examples import op_titanic_simple as EX
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+    return EX.reference_selector(models_and_parameters=[
+        (OpLogisticRegression(), default_grid_for("OpLogisticRegression")),
+        (OpRandomForestClassifier(), [
+            g for g in default_grid_for("OpRandomForestClassifier")
+            if g["max_depth"] <= 6])])
+
+
 def vector_names(model) -> tuple:
     """(transmogrified vector, checked vector) column names of a trained
     workflow: the SanityChecker's input and output."""
@@ -1809,8 +1864,8 @@ def workflow_titanic_phase(rows: int, seed: int):
     sweep, each plain kernel's calls and seconds).
 
     Then the main path: `rows` records through `build_workflow(
-    reference_selector())` (LR and RF with their default grids, RF to
-    depth 12, 3 folds, 10% holdout) in `Workflow()` on the card. Launch
+    titanic_selector())` (LR's default grid, RF's cut to depth {3, 6}, 3
+    folds, 10% holdout) in `Workflow()` on the card. Launch
     counters are reset just before train() and read just after; every
     kernel must have launched. Stage walls (the text vectorizer's fit and
     transform apart), peak device memory, width, winner, its CV AuPR and
@@ -1871,7 +1926,7 @@ def workflow_titanic_phase(rows: int, seed: int):
     recs = titanic_named_records(rows, seed + 13)
     raw_s = time.perf_counter() - t0
     reset_uids()
-    wf, pred = EX.build_workflow(EX.reference_selector())
+    wf, pred = EX.build_workflow(titanic_selector())
     wf.set_reader(ListReader(recs))
     selector = pred.origin_stage
     torch.cuda.synchronize()
@@ -3909,6 +3964,33 @@ def multiclass_insights(model, n_classes: int, card: str) -> tuple:
     return widths == want and len(mi.features) > 0, res
 
 
+def main_models() -> list:
+    """workflow-main's model types and grids: the binary selector's
+    defaults (LR, RF, GBT, SVC), RF's grid cut to depth {3, 6} and its one
+    depth-12 point that scored best (min_instances_per_node 10,
+    min_info_gain 0.001: 13 of its 18 points), which keeps the depth-12
+    forest keys the kernel phase's forest rows read. The cut bought back
+    time for workflow-text: RF's sweep was 50.3 s of workflow-main's
+    train() at 10M rows and never won (PRs 8-17)."""
+    from transmogrifai_tpu_torch.automl.selectors import default_grid_for
+    from transmogrifai_tpu_torch.models.glm import (OpLinearSVC,
+                                                    OpLogisticRegression)
+    from transmogrifai_tpu_torch.models.trees import (
+        OpGBTClassifier, OpRandomForestClassifier)
+    out = []
+    for est in (OpLogisticRegression(), OpRandomForestClassifier(),
+                OpGBTClassifier(), OpLinearSVC()):
+        if est.has_param("seed"):       # the selector's seed, as its defaults
+            est.set_param("seed", 42)
+        grid = default_grid_for(type(est).__name__)
+        if isinstance(est, OpRandomForestClassifier):
+            grid = [g for g in grid if g["max_depth"] <= 6 or (
+                g["min_instances_per_node"] == 10
+                and g["min_info_gain"] == 0.001)]
+        out.append((est, grid))
+    return out
+
+
 def workflow_main_phase(rows: int, seed: int):
     """The user's flow at full size: a Dataset of numpy columns (64 Reals
     from the tree phases' generator, 5% missing in four columns and the
@@ -3916,7 +3998,8 @@ def workflow_main_phase(rows: int, seed: int):
     bench.py's make_wide_rows draws plA and plB; the RealNN label) through
     set_input_dataset -> transmogrify -> SanityChecker (defaults) ->
     5-fold BinaryClassificationModelSelector with its default model types
-    and grids (LR 8, RF 18 x 50 trees, GBT 18 x 20 rounds, SVC 4 grid
+    and grids (`main_models()`: LR 8, RF 13 x 50 trees (its 18 cut to
+    depth {3, 6} and one depth-12 point), GBT 18 x 20 rounds, SVC 4 grid
     points; max_depth up to 12; the default DataBalancer splitter) ->
     Workflow.train() -> score(); each family's sweep wall and best CV
     AuPR. Launch counters are reset just before train() and read just
@@ -3969,10 +4052,10 @@ def workflow_main_phase(rows: int, seed: int):
     vec = transmogrify(feats)
     checker = SanityChecker()
     checked = checker.set_input(label, vec).get_output()
-    # the selector's default model types and grids: LR 8, RF 18, GBT 18,
-    # SVC 4 grid points
+    # the selector's default model types and grids: LR 8, RF 13 (its 18
+    # cut to depth {3, 6} and one depth-12 point), GBT 18, SVC 4 grid points
     selector = BinaryClassificationModelSelector.with_cross_validation(
-        num_folds=5, seed=42)
+        num_folds=5, seed=42, models_and_parameters=main_models())
     pred = selector.set_input(label, checked).get_output()
     workflow = Workflow().set_input_dataset(ds).set_result_features(pred)
 
@@ -4223,8 +4306,8 @@ def captured_shape(key: str, name: str, args: tuple, kw: dict,
 
 
 # the models the serve phase reuses: workflow-wide's saved 1M-row model and
-# workflow-titanic's main-path model (a random forest won there), so phase
-# 18 serves without a train() of its own
+# workflow-titanic's main-path model (a random forest won there), so the
+# serve phase serves without a train() of its own
 HELD = {}
 SERVE_RECORDS = 1_000        # single-record POSTs of the serve phase
 SERVE_CLIENTS = 8            # client threads sending them
@@ -4574,6 +4657,509 @@ def serve_phase(model_dir: str, tree_model):
     return all(checks.values()), res
 
 
+_EN_FUNCTION = ("the and to of is it with for on this that my we you "
+                "please can not when after was our your i have".split())
+_FOREIGN = {
+    "de": ("der die das und ist nicht mit ein sich den auf werden ich "
+           "habe meine Rechnung für Bestellung über Konto möchte bitte "
+           "prüfen schnell Lieferung Passwort geändert worden").split(),
+    "fr": ("le la les de et un une est que dans pour qui pas vous je "
+           "facture livraison compte problème très été mon mot passe "
+           "commande reçu").split(),
+    "es": ("el la los las de y un una es que en por con para no mi "
+           "factura envío cuenta contraseña problema también pedido "
+           "recibido ¿puede ayudarme?").split()}
+_ORG_SUFFIX_WORDS = ["Inc", "Corp", "Ltd", "LLC", "Group", "Labs", "Bank"]
+_PRODUCTS = ["router", "modem", "phone", "tablet", "laptop", "watch",
+             "camera", "speaker", "printer", "monitor", "dock", "charger"]
+
+
+def ticket_columns(n: int, seed: int) -> dict:
+    """Support-ticket records as numpy columns, synthesised from `seed`:
+    `body` (a Text of 40-80 tokens from a document's mix of `TEXT_TOPICS`
+    planted topics over a vocabulary of `TEXT_VOCAB` syllable words, a
+    quarter English function words; 10% of bodies German, French or
+    Spanish sentences; a person, a place and an organisation from the NER
+    gazetteers in 60%, 40% and 30% of bodies; 1% missing), `subject` (3-8
+    words of the body's main topic, a fifth of them a phrase of the body),
+    `reply` (5-20 words of the main topic or another, 5% the subject
+    itself), `product` (a PickList of 12), `accountAgeDays` (Real, 3%
+    missing), `priorTickets` (Integral) and `escalated` (RealNN): a label
+    whose logit rises with topics 0 and 1, falls with topic 5 and rises
+    with an organisation named in the body. The vocabulary and topics come
+    from `TEXT_TOPIC_SEED`, so every call draws from the same topics.
+    Returns {name: (feature type name, float64 with NaN, or objects)}."""
+    import numpy as np
+    from transmogrifai_tpu_torch.transformers import ner
+    fixed = np.random.default_rng(TEXT_TOPIC_SEED)
+    words = np.array([a + b + c for a in _SYLLABLES for b in _SYLLABLES
+                      for c in _SYLLABLES], object)
+    words = words[fixed.permutation(len(words))[:TEXT_VOCAB]]
+    per_topic = TEXT_VOCAB // (TEXT_TOPICS + 2)
+    background = words[TEXT_TOPICS * per_topic:]
+    zipf = 1.0 / np.arange(1, per_topic + 1)
+    zipf_cum = np.cumsum(zipf / zipf.sum())
+    # the people, places and organisations the tickets name: 24 first
+    # names and 20 places of the NER gazetteers, 12 surnames and 10
+    # organisations (a suffix of the gazetteer's) made of syllables
+    surnames = [w.capitalize() for w in words[:12]]
+    orgs = [w.capitalize() for w in words[12:22]]
+    firsts = sorted(w.capitalize() for w in ner._COMMON_FIRST_NAMES)
+    firsts = [firsts[i] for i in fixed.permutation(len(firsts))[:24]]
+    places = sorted(w.capitalize() for w in ner._CITIES | ner._COUNTRIES
+                    if w != "usa")
+    places = [places[i] for i in fixed.permutation(len(places))[:20]]
+
+    rng = np.random.default_rng(seed)
+    mix = rng.dirichlet(np.full(TEXT_TOPICS, 0.2), size=n)
+    main = mix.argmax(1)
+    lengths = rng.integers(40, 81, size=n)
+    total = int(lengths.sum())
+    doc = np.repeat(np.arange(n), lengths)
+    topic = np.minimum((rng.uniform(size=total)[:, None]
+                        > mix.cumsum(1)[doc]).sum(1), TEXT_TOPICS - 1)
+    rank = np.minimum(np.searchsorted(zipf_cum, rng.uniform(size=total)),
+                      per_topic - 1)
+    kind = rng.uniform(size=total)
+    tokens = np.where(
+        kind < 0.25, np.array(_EN_FUNCTION, object)[
+            rng.integers(0, len(_EN_FUNCTION), size=total)],
+        np.where(kind < 0.35, background[rng.integers(
+            0, len(background), size=total)],
+            words[topic * per_topic + rank]))
+    lang = np.where(rng.uniform(size=n) < 0.1,
+                    rng.integers(0, 3, size=n), -1)
+    foreign = [np.array(_FOREIGN[k], object) for k in ("de", "fr", "es")]
+    person = rng.uniform(size=n) < 0.6
+    place = rng.uniform(size=n) < 0.4
+    org = rng.uniform(size=n) < 0.3
+    who = rng.integers(0, len(firsts), size=n), \
+        rng.integers(0, len(surnames), size=n)
+    where = rng.integers(0, len(places), size=n)
+    which = rng.integers(0, len(orgs), size=n), \
+        rng.integers(0, len(_ORG_SUFFIX_WORDS), size=n)
+    cut = rng.uniform(size=n)
+    body, subject, reply = [], [], []
+    starts = np.concatenate([[0], np.cumsum(lengths)])
+    sub_len = rng.integers(3, 9, size=n)
+    sub_phrase = rng.uniform(size=n) < 0.2
+    rep_len = rng.integers(5, 21, size=n)
+    rep_topic = np.where(rng.uniform(size=n) < 0.5, main,
+                         rng.integers(0, TEXT_TOPICS, size=n))
+    rep_same = rng.uniform(size=n) < 0.05
+    sub_rank = rng.integers(0, 40, size=(n, 8))
+    rep_rank = rng.integers(0, 40, size=(n, 20))
+    missing = rng.uniform(size=(n, 3)) < (0.01, 0.02, 0.01)
+    for i in range(n):
+        toks = list(tokens[starts[i]:starts[i + 1]])
+        if lang[i] >= 0:
+            fw = foreign[lang[i]]
+            toks = [fw[j] for j in
+                    rng.integers(0, len(fw), size=len(toks) * 7 // 10)] \
+                + toks[:len(toks) * 3 // 10]
+        extra = []
+        if person[i]:
+            extra += [firsts[who[0][i]], surnames[who[1][i]]]
+        if place[i]:
+            extra += ["in", places[where[i]]]
+        if org[i]:
+            extra += ["at", orgs[which[0][i]],
+                      _ORG_SUFFIX_WORDS[which[1][i]]]
+        at = int(cut[i] * len(toks))
+        text = " ".join(toks[:at] + extra + toks[at:]) + "."
+        body.append(None if missing[i, 0] else text)
+        if sub_phrase[i]:
+            s = " ".join(toks[at // 2:at // 2 + 3])
+        else:
+            s = " ".join(words[main[i] * per_topic
+                               + sub_rank[i, :sub_len[i]]])
+        subject.append(None if missing[i, 1] else s)
+        reply.append(None if missing[i, 2] else s if rep_same[i] else
+                     " ".join(words[rep_topic[i] * per_topic
+                                    + rep_rank[i, :rep_len[i]]]))
+    product = rng.choice(len(_PRODUCTS), size=n,
+                         p=(lambda w: w / w.sum())(
+                             1.0 / np.arange(1, len(_PRODUCTS) + 1)))
+    age = rng.lognormal(5.0, 1.0, size=n)
+    age[rng.uniform(size=n) < 0.03] = np.nan
+    prior = rng.poisson(2.0, size=n).astype(np.float64)
+    logit = (6.0 * (mix[:, 0] + mix[:, 1]) - 4.0 * mix[:, 5]
+             + 2.5 * org + 0.3 * prior - 0.5 * (product < 2) - 2.6)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+    return {"subject": ("Text", _object_array(subject)),
+            "body": ("Text", _object_array(body)),
+            "reply": ("Text", _object_array(reply)),
+            "product": ("PickList", np.array(_PRODUCTS, object)[product]),
+            "accountAgeDays": ("Real", age),
+            "priorTickets": ("Integral", prior),
+            "escalated": ("RealNN", y)}
+
+
+def product_labels(cols: dict) -> list:
+    """The product indexer's labels as OpStringIndexer fits them on these
+    columns (frequency order, ties in first-seen order), for `deindexed`."""
+    import collections as C
+    return [w for w, _ in C.Counter(
+        v for v in cols["product"][1] if v is not None and v != ""
+    ).most_common()]
+
+
+def text_features(FB, transmogrify, labels: list, vocab_size: int = 512,
+                  vector_size: int = 100, vocab_bins: int = 2048):
+    """(label, transmogrified vector, {name: feature}) of the ticket flow
+    with either package's FeatureBuilder and transmogrify, at the dsl's
+    default widths unless told otherwise: the body's tokens without stop
+    words counted (`vocab_size` terms) into LDA topics (k 10, 50
+    iterations), as TF-IDF (`vocab_size`) and word2vec (`vector_size` dims
+    over `vocab_bins` bins); its regex tokens as bigrams; the subject's
+    n-gram similarity to the reply's tokens and Jaccard similarity of the
+    two as sets; the body's language, named entities and length; whether
+    the subject is in the body; the product indexed and turned back into
+    its label; then transmogrify of all of them with the product and the
+    two numerics."""
+    label = FB.RealNN("escalated").as_response()
+    subject = FB.Text("subject").as_predictor()
+    body = FB.Text("body").as_predictor()
+    reply = FB.Text("reply").as_predictor()
+    product = FB.PickList("product").as_predictor()
+    toks = body.tokenize().remove_stop_words()
+    index = product.index_string()
+    feats = {
+        "topics": toks.count_vectorize(vocab_size=vocab_size).lda(
+            k=10, max_iter=50),
+        "tfidf": toks.tf_idf(vocab_size),
+        "w2v": toks.word2vec(vector_size=vector_size,
+                             vocab_bins=vocab_bins),
+        "bigrams": body.tokenize_regex().ngram(2),
+        "ngram_sim": subject.tokenize().ngram_similarity(reply.tokenize()),
+        "jaccard": subject.to_multi_pick_list().jaccard_similarity(
+            reply.to_multi_pick_list()),
+        "language": body.detect_languages(),
+        "entities": body.recognize_entities(),
+        "length": body.text_len(),
+        "in_body": subject.is_substring(body),
+        "product_index": index,
+        "product_back": index.deindexed(labels),
+    }
+    vec = transmogrify(
+        list(feats.values()) + [
+            product, FB.Real("accountAgeDays").as_predictor(),
+            FB.Integral("priorTickets").as_predictor()])
+    return label, vec, feats
+
+
+# the text stages of workflow-text, by the names text_features gives them:
+# the host stages (strings and counts on the host) and the two whose fits
+# run on the device
+TEXT_HOST_FEATURES = ("tfidf", "bigrams", "ngram_sim", "jaccard",
+                      "language", "entities", "length", "in_body",
+                      "product_index", "product_back")
+TEXT_DEVICE_OPS = (("lda", "fit_lda"), ("lda", "lda_fold_in"),
+                   ("embeddings", "factorize_embeddings"),
+                   ("embeddings", "mean_pool_docs"))
+
+
+def text_selector(leg: bool = False):
+    """workflow-text's selector: BinaryClassificationModelSelector's 3-fold
+    CrossValidation over logistic regression's default grid and a GBT of 10
+    rounds at depth 4; the leg's, the GBT alone, for the CPU's sake (a
+    Newton fit of logistic regression over the ~1 400 columns costs a Gram
+    matrix an iteration, up to 50 of them at the grid's L1 points)."""
+    from transmogrifai_tpu_torch.automl.selectors import (
+        BinaryClassificationModelSelector, default_grid_for)
+    from transmogrifai_tpu_torch.models.glm import OpLogisticRegression
+    from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+    return BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=42, models_and_parameters=(
+            [] if leg else [(OpLogisticRegression(),
+                             default_grid_for("OpLogisticRegression"))])
+        + [(OpGBTClassifier(), [dict(max_iter=10, max_depth=4)])])
+
+
+def text_workflow(cols: dict, device=None, leg: bool = False):
+    """(workflow, prediction, {name: text feature}) of the ticket flow in
+    the port over a Dataset of `ticket_columns`: `text_features` ->
+    SanityChecker() -> `text_selector(leg)` -> Workflow(device)."""
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.automl.preparators import SanityChecker
+    from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder
+    from transmogrifai_tpu_torch.workflow import Workflow
+    label, vec, feats = text_features(FeatureBuilder, transmogrify,
+                                      product_labels(cols))
+    checked = SanityChecker().set_input(label, vec).get_output()
+    pred = text_selector(leg).set_input(label, checked).get_output()
+    wf = Workflow(device=device).set_input_dataset(
+        wide_dataset(cols, Dataset, Column, T)).set_result_features(pred)
+    return wf, pred, feats
+
+
+def text_scores(model, pred, cols: dict):
+    """The escalation probabilities `model` gives the rows of `cols`."""
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.models.prediction import probability_of
+    col = model.score(wide_dataset(cols, Dataset, Column, T)).column(
+        pred.name)
+    return probability_of(col)[:, 1].astype("float64")
+
+
+@contextlib.contextmanager
+def time_text_ops(store: dict):
+    """Inside the block, each call of the text stages' device functions
+    (`TEXT_DEVICE_OPS`) adds its calls and wall seconds, the device
+    synchronised before and after, to `store`: {function: [calls, s]}."""
+    import importlib
+    import torch
+    patched = []
+    for mod_name, name in TEXT_DEVICE_OPS:
+        mod = importlib.import_module(
+            f"transmogrifai_tpu_torch.ops.{mod_name}")
+        original = getattr(mod, name)
+
+        def run(*args, _f=original, _n=name, **kw):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _f(*args, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            tally = store.setdefault(_n, [0, 0.0])
+            tally[0] += 1
+            tally[1] += time.perf_counter() - t0
+            return out
+        setattr(mod, name, run)
+        patched.append((mod, name, original))
+    try:
+        yield store
+    finally:
+        for mod, name, original in patched:
+            setattr(mod, name, original)
+
+
+def text_leg_run(cols: dict, new: dict, device) -> dict:
+    """One run of workflow-text's leg: `text_workflow(cols, device,
+    leg=True)` trained with its refit levels recorded, then scored on
+    `new`."""
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    reset_uids()
+    wf, pred, feats = text_workflow(cols, device=device, leg=True)
+    t0 = time.perf_counter()
+    with record_refit_levels([]) as levels:
+        model = wf.train()
+    return dict(model=model, pred=pred, feats=feats, levels=levels,
+                train_s=time.perf_counter() - t0, walls=stage_walls(model),
+                scored=text_scores(model, pred, new))
+
+
+def _fitted(model, cls: str):
+    return next(st for st in model.stages if type(st).__name__ == cls)
+
+
+def rel_close(got, want, rtol: float) -> tuple:
+    """(largest |got - want| over the largest |want|, within rtol of each
+    entry or of the largest entry)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = float(np.abs(want).max()) or 1.0
+    err = float(np.abs(got - want).max())
+    ok = bool(np.all(np.abs(got - want)
+                     <= rtol * np.maximum(np.abs(want), scale)))
+    return err / scale, ok
+
+
+def compare_text_runs(c: dict, g: dict) -> dict:
+    """workflow-text's CPU and card runs side by side: each host stage's
+    output bit for bit, LDA's topics and the word2vec vectors within
+    `TEXT_LDA_RTOL` / `TEXT_W2V_RTOL`, the winner, and the scores' largest
+    difference with, where the refits split a node differently, the first
+    such node's `split_witness`."""
+    import numpy as np
+    host = {}
+    for name in TEXT_HOST_FEATURES:
+        a = c["model"]._train_data.column(c["feats"][name].name).data
+        b = g["model"]._train_data.column(g["feats"][name].name).data
+        host[name] = (list(a) == list(b)) if a.dtype == object else (
+            a.dtype == b.dtype and a.tobytes() == b.tobytes())
+    lda_rel, lda_ok = rel_close(_fitted(g["model"], "OpLDAModel").beta,
+                                _fitted(c["model"], "OpLDAModel").beta,
+                                TEXT_LDA_RTOL)
+    w2v_rel, w2v_ok = rel_close(
+        _fitted(g["model"], "OpWord2VecModel").embeddings,
+        _fitted(c["model"], "OpWord2VecModel").embeddings, TEXT_W2V_RTOL)
+    cs, gs = c["model"].selector_summary(), g["model"].selector_summary()
+    dprob = np.abs(c["scored"] - g["scored"])
+    first = first_divergence(c["levels"], g["levels"])
+    _, checked = vector_names(c["model"])
+    names = c["model"]._train_data.column(checked).metadata.column_names()
+    witness = None if first is None else split_witness(
+        c["levels"], g["levels"], *first,
+        cs.best_grid.get("max_depth", 0), names)
+    return dict(
+        host_identical=host, lda_beta_rel_diff=lda_rel, lda_ok=lda_ok,
+        w2v_rel_diff=w2v_rel, w2v_ok=w2v_ok,
+        winner=[[cs.best_model_name, cs.best_grid],
+                [gs.best_model_name, gs.best_grid]],
+        same_winner=(cs.best_model_name, cs.best_grid)
+        == (gs.best_model_name, gs.best_grid),
+        max_cell_diff=max(abs(x["mean_metric"] - y["mean_metric"])
+                          for x, y in zip(cs.validation_results,
+                                          gs.validation_results)),
+        max_prob_diff=float(dprob.max()),
+        share_prob_within_1e5=float((dprob <= 1e-5).mean()),
+        scored_rows=len(dprob), witness=witness)
+
+
+def workflow_text_phase(rows: int, seed: int):
+    """The ticket flow (`ticket_columns`, `text_features`: tokenize, stop
+    words, counts into LDA, TF-IDF, word2vec, regex bigrams, n-gram and
+    Jaccard similarity, language, named entities, length, substring, the
+    product indexed and deindexed; transmogrify, SanityChecker and
+    `text_selector()`).
+
+    First the leg: `TEXT_LEG_ROWS` records on the CPU and on the card:
+    every host stage's output identical (`TEXT_HOST_FEATURES`), LDA's
+    topics and the word vectors within `TEXT_LDA_RTOL` / `TEXT_W2V_RTOL`,
+    the scores of as many new records within 1e-5 or, where the refits
+    split a node differently, the first such node a tie (`split_witness`);
+    the CPU-fitted workflow carried onto the card scores within 1e-5.
+
+    Then the main path: `rows` records through Workflow() on the card.
+    Launch counters are reset just before train() and read just after;
+    every kernel must have launched. Each text stage's fit and transform
+    wall, the device walls of LDA's EM and fold-in and of the ALS and the
+    pooling (`time_text_ops`), train and score walls, width, winner, CV
+    and holdout AuPR against the prevalence; `TEXT_SCORE_ROWS` new records
+    scored, the model saved, loaded and scored again (identical); each
+    kernel at every (kernel, F, S, C, Fo) key of train() on the inputs of
+    its first launch against its plain version (rows of the kernels line,
+    phase "text"). Returns (ok, launches by capture key, kernel rows)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch import convert
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+
+    t_phase = t0 = time.perf_counter()
+    small = ticket_columns(TEXT_LEG_ROWS, seed + 51)
+    small_new = ticket_columns(TEXT_LEG_ROWS, seed + 52)
+    c, g = (text_leg_run(small, small_new, dev) for dev in ("cpu", None))
+    cmp = compare_text_runs(c, g)
+    carried = convert.workflow_model_from_jax(
+        [c["pred"]], [convert.stage_state(st) for st in c["model"].stages],
+        device="cuda")
+    carried_diff = float(np.abs(text_scores(carried, c["pred"], small_new)
+                                - c["scored"]).max())
+    leg = dict(rows=TEXT_LEG_ROWS, cpu_vs_card=cmp,
+               carried_cpu_model_on_card_max_prob_diff=carried_diff,
+               train_s_cpu=c["train_s"], train_s_cuda=g["train_s"],
+               cpu_stage_walls_s=c["walls"], card_stage_walls_s=g["walls"])
+    leg_s = time.perf_counter() - t0
+    log(f"workflow-text leg ({leg_s:.2f}s): " + json.dumps(leg))
+    leg_ok = (all(cmp["host_identical"].values()) and cmp["lda_ok"]
+              and cmp["w2v_ok"] and carried_diff <= 1e-5
+              and (cmp["max_prob_diff"] <= 1e-5
+                   or (cmp["witness"] is not None
+                       and cmp["witness"]["tie"])))
+    del c, g, carried
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cols = ticket_columns(rows, seed + 53)
+    new = ticket_columns(TEXT_SCORE_ROWS, seed + 54)
+    data_s = time.perf_counter() - t0
+    reset_uids()
+    wf, pred, _ = text_workflow(cols)
+    selector = pred.origin_stage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, capture_launches = {}, collections.Counter()
+    device_walls = {}
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    with capture_kernel_inputs(captured, capture_launches), \
+            time_text_ops(device_walls):
+        model = wf.train()
+    train_s = time.perf_counter() - t0
+    launches = dict(TK.launches)
+    shape_launches = dict(TK.shape_launches)
+    capture_launches = dict(capture_launches)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sel = model.selector_summary()
+    sc = model.sanity_checker_summary()
+    vec, _ = vector_names(model)
+    width = int(model._train_data.data(vec).shape[1])
+    widths = group_widths(model)
+    prevalence = float(np.mean(cols["escalated"][1]))
+    best = max(sel.validation_results, key=lambda v: v["mean_metric"])
+    families = family_results(sel, selector)
+    walls = stage_walls(model)
+    model._train_data = None
+    del cols
+
+    score_walls = {}
+    t0 = time.perf_counter()
+    with time_text_ops(score_walls):
+        scored = text_scores(model, pred, new)
+    score_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="text-model-")
+    try:
+        path = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = WorkflowModel.load(path)
+        load_s = time.perf_counter() - t0
+        rescored = text_scores(loaded, pred, new)
+    finally:
+        shutil.rmtree(tmp)
+    reload_identical = bool(np.array_equal(scored, rescored))
+    main_s = time.perf_counter() - t_phase - leg_s
+    rows_out = kernel_rows([captured_shape(key, *captured[key],
+                                           prefix="workflow-text")
+                            for key in sorted(captured)], phase="text")
+    del captured, loaded
+    torch.cuda.empty_cache()
+    res = dict(
+        rows=rows, phase_s=time.perf_counter() - t_phase, leg_s=leg_s,
+        main_s=main_s, data_s=data_s, train_s=train_s, score_s=score_s,
+        score_rows=TEXT_SCORE_ROWS, save_s=save_s, load_s=load_s,
+        stage_walls_s=walls, device_walls_train_s=device_walls,
+        device_walls_score_s=score_walls,
+        selector_walls_s=selector.walls, width=width, group_widths=widths,
+        flagged=len(sc.dropped),
+        winner=[sel.best_model_name, sel.best_grid],
+        winner_cv_aupr=best["mean_metric"],
+        holdout_aupr=sel.holdout_evaluation.get("au_pr"),
+        holdout_auroc=sel.holdout_evaluation.get("au_roc"),
+        prevalence=prevalence, families=families,
+        reload_identical=reload_identical,
+        peak_device_gb_train=train_peak_gb,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, shape_launches=shape_launches,
+        capture_launches=capture_launches)
+    log("workflow-text: " + json.dumps(res))
+    by_shape = collections.Counter()
+    for key, n in capture_launches.items():
+        by_shape[launch_key(key)] += n
+    ok = (leg_ok and all(n > 0 for n in launches.values())
+          and set(launches) == set(TK.KERNELS)
+          and {r["key"] for r in rows_out} == set(capture_launches)
+          and dict(by_shape) == shape_launches
+          and set(families) == {"OpLogisticRegression", "OpGBTClassifier"}
+          and all(op in device_walls for _, op in TEXT_DEVICE_OPS)
+          and scored.shape == (TEXT_SCORE_ROWS,)
+          and bool(np.isfinite(scored).all()) and reload_identical
+          and best["mean_metric"] > prevalence
+          and sel.holdout_evaluation["au_pr"] > prevalence)
+    return ok, capture_launches, rows_out
+
+
 def tf32_phase() -> bool:
     """Float32 products must stay in full f32 (no TF32)."""
     import torch
@@ -4738,6 +5324,13 @@ def main() -> int:
     failures += [f"kernel {r['name']} ({r['shape']})" for r in mc_rows
                  if not r.pop("ok")]
     rows += mc_rows
+    torch.cuda.empty_cache()
+    text_ok, counts["text"], text_rows = workflow_text_phase(TEXT_ROWS, SEED)
+    if not text_ok:
+        failures.append("workflow-text")
+    failures += [f"kernel {r['name']} ({r['shape']})" for r in text_rows
+                 if not r.pop("ok")]
+    rows += text_rows
     torch.cuda.empty_cache()
     serve_ok, _ = serve_phase(HELD.pop("wide_dir"), HELD.pop("tree"))
     if not serve_ok:

@@ -26,6 +26,7 @@ from transmogrifai_tpu.workflow import Workflow as JWorkflow
 import transmogrifai_tpu.types as JT
 
 import transmogrifai_tpu_torch  # noqa: F401 — installs the dsl
+from torch_text_flow import text_records, text_stages
 from torch_threads import one_torch_thread  # noqa: F401
 from transmogrifai_tpu_torch import dsl as PD
 from transmogrifai_tpu_torch.features.builder import FeatureBuilder as PFB
@@ -248,24 +249,81 @@ def test_every_dsl_name_is_installed():
     assert len(names) >= 80
     missing = [n for n in names if not callable(getattr(PFeature, n, None))]
     assert missing == []
-    assert set(PD.UNPORTED) <= set(names)
+    # every name builds the port's own stage: none is left unported
+    assert not hasattr(PD, "UNPORTED")
 
 
-@pytest.mark.parametrize("name", sorted(PD.UNPORTED))
-def test_unported_dsl_name_raises_naming_its_stage(name):
-    stage, module = PD.UNPORTED[name]
-    f = PFB.Text("t").as_predictor()
-    with pytest.raises(NotImplementedError) as err:
-        getattr(f, name)()
-    assert stage in str(err.value) and module in str(err.value)
+# the text dsl names ported last (tests/torch_text_flow.py builds them)
+TEXT_NAMES = [name for name, _ in text_stages(PFB, text_records(4))]
+# the names whose fit draws its initial factors: their outputs come from
+# the JAX-fitted stages carried into the port, LDA's fold-in within this
+# absolute tolerance (25 EM iterations of f32 matmuls summed in another
+# order), word2vec's mean pooling bit-identical (None)
+DRAWN = {"lda": 1e-5, "word2vec": None}
+
+
+@pytest.fixture(scope="module")
+def text_flows():
+    from transmogrifai_tpu_torch import convert
+    recs = text_records()
+    out = {}
+    for pkg, FB, U, Workflow, List, kw in (
+            ("jax", JFB, JU, JWorkflow, JList, {}),
+            ("torch", PFB, PU, PWorkflow, PList, {"device": "cpu"})):
+        U.reset_uids()
+        derived = text_stages(FB, recs)
+        model = Workflow(**kw).set_reader(List(recs)) \
+            .set_result_features(*[f for _, f in derived]).train()
+        out[pkg] = (model, derived)
+    (jm, jd), (_, pd) = out["jax"], out["torch"]
+    carried = convert.workflow_model_from_jax(
+        [f for _, f in pd], [convert.stage_state(st) for st in jm.stages],
+        device="cpu")
+    out["scored"] = (
+        jm.score(JList(recs).generate_dataset(jm.raw_features())),
+        carried.score(PList(recs).generate_dataset(carried.raw_features())))
+    return out
+
+
+@pytest.mark.parametrize("name", TEXT_NAMES)
+def test_unported_dsl_name_raises_naming_its_stage(text_flows, name):
+    """Each text dsl name the port once left unported builds the port's
+    stage, whose output on seeded records equals the JAX package's: the
+    host stages' outputs bit for bit (TF-IDF in float64, as there), LDA's
+    and word2vec's from the JAX-fitted stages carried across (`DRAWN`)."""
+    (jm, jd), (pm, pd) = text_flows["jax"], text_flows["torch"]
+    jf, pf = dict(jd)[name], dict(pd)[name]
+    assert pf.name == jf.name and pf.type_name == jf.type_name
+    assert type(pf.origin_stage).__name__ == \
+        type(jf.origin_stage).__name__
+    if name in DRAWN:
+        a, b = text_flows["scored"]
+        assert_columns_equal(a.column(jf.name), b.column(pf.name), name,
+                             atol=DRAWN[name])
+        return
+    assert_columns_equal(jm._train_data.column(jf.name),
+                         pm._train_data.column(pf.name), name)
 
 
 def test_tokenize_then_tf_idf_raises_and_tf_hashes():
+    """The reference's own example, ``tokenize().tf_idf()``, gives the JAX
+    package's float64 TF-IDF matrix and term metadata; `tf` still hashes."""
+    docs = ["the cat sat on the mat", "the dog ate the bone",
+            "cats and dogs", None, "", "dog dog cat"]
+
+    def tfidf(FB, U, Workflow, List, kw):
+        U.reset_uids()
+        vec = FB.Text("t").as_predictor().tokenize().tf_idf(vocab_size=6)
+        data = Workflow(**kw).set_reader(List([{"t": d} for d in docs])) \
+            .set_result_features(vec).train()._train_data
+        return data.column(vec.name)
+    a = tfidf(JFB, JU, JWorkflow, JList, {})
+    b = tfidf(PFB, PU, PWorkflow, PList, {"device": "cpu"})
+    assert b.data.dtype == np.float64
+    assert_columns_equal(a, b, "tf_idf")
     PU.reset_uids()
     toks = PFB.Text("t").as_predictor().tokenize()
     assert toks.type_name == "TextList"
-    with pytest.raises(NotImplementedError, match="TfIdfVectorizer"):
-        toks.tf_idf()
     assert toks.tf(num_features=8).type_name == "OPVector"
     # a text map smart-vectorizes through the map vectorizer, as in the
     # JAX package: a low-cardinality key pivots, a free-text key hashes
@@ -462,14 +520,20 @@ def structured():
     return out
 
 
-def assert_columns_equal(a, b, name):
-    """Vectors bit for bit with their metadata; host columns (strings,
-    lists, maps) equal; Binary columns equal, NaN where missing."""
+def assert_columns_equal(a, b, name, atol=None):
+    """Vectors bit for bit with their metadata (or, given `atol`, their
+    values within it); host columns (strings, lists, maps) equal; Binary
+    columns equal, NaN where missing."""
     if a.data.dtype == object:
         assert list(b.data) == list(a.data), name
         return
     assert b.data.dtype == a.data.dtype, name
     assert b.data.shape == a.data.shape, name
+    if atol is not None:
+        np.testing.assert_allclose(b.data, a.data, rtol=0, atol=atol,
+                                   err_msg=name)
+        assert b.metadata.to_json() == a.metadata.to_json(), name
+        return
     np.testing.assert_array_equal(b.data, a.data, err_msg=name)
     if a.data.ndim == 2:
         assert b.data.tobytes() == a.data.tobytes(), name
@@ -478,8 +542,10 @@ def assert_columns_equal(a, b, name):
 
 def test_ported_names_leave_unported():
     assert len(set(PORTED)) == 20 and set(PORTED) <= set(_ops_table_names())
-    assert not set(PORTED) & set(PD.UNPORTED)
-    assert len(PD.UNPORTED) == 17
+    assert len(set(TEXT_NAMES)) == 17 and \
+        set(TEXT_NAMES) <= set(_ops_table_names())
+    assert not set(PORTED) & set(TEXT_NAMES)
+    assert not hasattr(PD, "UNPORTED")
 
 
 @pytest.mark.parametrize("name", PORTED)

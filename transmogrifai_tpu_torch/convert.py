@@ -5,7 +5,7 @@ Each takes plain numpy arrays, lists and dicts — what the JAX package's
 `LinearBinaryModel.save_args()`, `SoftmaxModel.save_args()`,
 `NaiveBayesModel.save_args()`, `LinearRegressionModel.save_args()`,
 `MLPModel.save_args()`, `IsotonicRegressionModel.save_args()`, `Tree`
-fields and fitted workflow stages hold — so this module imports nothing of the JAX package. With them
+fields, a `PerceptronNerTagger`'s fields and fitted workflow stages hold — so this module imports nothing of the JAX package. With them
 both packages score the same fitted model or the same fitted workflow
 (`workflow_model_from_jax`). A fitted stage is rebuilt as a saved one is
 loaded (stages/registry.build_stage), so whatever a saved model may hold
@@ -111,6 +111,21 @@ def isotonic_model_from_jax(save_args: Dict[str, Any],
         increasing=bool(save_args.get("increasing", True)),
         operation_name=str(save_args.get("operation_name", "isoCalibrator")),
         device=device)
+
+
+def ner_tagger_from_jax(weights: Dict[str, Dict[str, float]],
+                        classes: Sequence[str],
+                        gazetteer: Dict[str, Any]):
+    """A port PerceptronNerTagger from the JAX one's `weights` (feature ->
+    class -> averaged weight), `classes` and `gazetteer` (entity -> words);
+    the text stages' fitted state (LDA's beta and alpha, word2vec's
+    embeddings and seed, the vocabularies, idf and labels) rides their
+    save_args."""
+    from .transformers.ner_model import PerceptronNerTagger
+    return PerceptronNerTagger(
+        weights={f: dict(w) for f, w in weights.items()},
+        classes=list(classes),
+        gazetteer={k: sorted(v) for k, v in gazetteer.items()})
 
 
 def tree_from_jax(feat, thresh, leaf, miss, device: DeviceLike = None) -> Tree:

@@ -8,13 +8,12 @@ installed on Feature when this module is imported (the package __init__
 imports it), so ``fare + age``, ``age.fill_missing_with_mean()`` and
 ``features.transmogrify()`` read as in the Scala dsl.
 
-Every name of the JAX package's dsl is installed. A method whose stage the
-port has not ported yet raises NotImplementedError naming that stage and
-its module in the JAX package (`UNPORTED`).
+Every name of the JAX package's dsl is installed, each building the port's
+counterpart of its stage.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence
 
 from .features.feature import Feature
 from .types import Binary, OPMap, Prediction, RealNN, OPVector
@@ -265,6 +264,108 @@ def _tokenize(self, min_token_length: int = 1, to_lowercase: bool = True,
                   filter_stopwords=filter_stopwords)
 
 
+def _text_len(self):
+    from .transformers.text import TextLenTransformer
+    return _unary(self, TextLenTransformer)
+
+
+def _detect_languages(self):
+    from .transformers.text import LangDetector
+    return _unary(self, LangDetector)
+
+
+def _to_multi_pick_list(self):
+    from .transformers.text import TextToMultiPickList
+    return _unary(self, TextToMultiPickList)
+
+
+def _is_substring(self, other: Feature):
+    """Binary: is this text contained in `other` (RichTextFeature
+    .isSubstring)."""
+    from .transformers.text import SubstringTransformer
+    return SubstringTransformer().set_input(self, other).get_output()
+
+
+def _tokenize_regex(self, pattern: str = r"\w+", to_lowercase: bool = True,
+                    min_token_length: int = 1):
+    from .transformers.text import RegexTokenizer
+    return _unary(self, RegexTokenizer, pattern=pattern,
+                  to_lowercase=to_lowercase,
+                  min_token_length=min_token_length)
+
+
+def _remove_stop_words(self):
+    from .transformers.text import StopWordsRemover
+    return _unary(self, StopWordsRemover)
+
+
+def _ngram(self, n: int = 2):
+    from .transformers.text import NGramTransformer
+    return _unary(self, NGramTransformer, n=n)
+
+
+def _index_string(self, handle_invalid: str = "keep"):
+    from .transformers.text import OpStringIndexer
+    return _unary(self, OpStringIndexer, handle_invalid=handle_invalid)
+
+
+def _deindexed(self, labels: Sequence[str]):
+    """Index -> original string label (RichNumericFeature.deindexed:418
+    via OpIndexToString). `labels` is the indexer's fitted vocabulary —
+    required here because, unlike Spark, no column metadata carries it."""
+    if not labels:
+        raise ValueError("deindexed() needs the fitted label vocabulary "
+                         "(the paired OpStringIndexer's ordering)")
+    from .transformers.text import OpIndexToString
+    return OpIndexToString(labels=list(labels)).set_input(self).get_output()
+
+
+def _count_vectorize(self, vocab_size: int = 512, min_df: int = 1,
+                     binary: bool = False):
+    from .transformers.text import OpCountVectorizer
+    return _unary(self, OpCountVectorizer, vocab_size=vocab_size,
+                  min_df=min_df, binary=binary)
+
+
+def _tf_idf(self, vocab_size: int = 512, min_df: int = 1):
+    from .transformers.text import TfIdfVectorizer
+    return _unary(self, TfIdfVectorizer, vocab_size=vocab_size, min_df=min_df)
+
+
+def _idf(self, min_doc_freq: int = 0):
+    """Inverse-document-frequency rescaling of a count vector
+    (RichVectorFeature.idf:56)."""
+    from .transformers.text import OpIDF
+    return _unary(self, OpIDF, min_doc_freq=min_doc_freq)
+
+
+def _lda(self, k: int = 10, max_iter: int = 50, seed: int = 42):
+    from .transformers.topics import OpLDA
+    return _unary(self, OpLDA, k=k, max_iter=max_iter, seed=seed)
+
+
+def _word2vec(self, vector_size: int = 100, vocab_bins: int = 2048,
+              window_size: int = 5, seed: int = 42):
+    from .transformers.topics import OpWord2Vec
+    return _unary(self, OpWord2Vec, vector_size=vector_size,
+                  vocab_bins=vocab_bins, window_size=window_size, seed=seed)
+
+
+def _recognize_entities(self):
+    from .transformers.ner import NameEntityRecognizer
+    return _unary(self, NameEntityRecognizer)
+
+
+def _ngram_similarity(self, other: Feature, n: int = 3):
+    from .transformers.text import NGramSimilarity
+    return NGramSimilarity(n=n).set_input(self, other).get_output()
+
+
+def _jaccard_similarity(self, other: Feature):
+    from .transformers.text import JaccardSimilarity
+    return JaccardSimilarity().set_input(self, other).get_output()
+
+
 def _tf(self, num_features: int = 512):
     """Hashed term frequencies (RichListFeature.tf via HashingTF)."""
     from .automl.vectorizers.text import TextListHashingVectorizer
@@ -475,47 +576,6 @@ def _random_forest_vec(self, label: Feature, **params):
         .set_input(label, self).get_output()
 
 
-# -- not ported yet ----------------------------------------------------------
-
-#: dsl name -> (the JAX package's stage, its module there)
-UNPORTED: Dict[str, Tuple[str, str]] = {
-    "text_len": ("TextLenTransformer", "transformers/text.py"),
-    "detect_languages": ("LangDetector", "transformers/text.py"),
-    "index_string": ("OpStringIndexer", "transformers/text.py"),
-    "count_vectorize": ("OpCountVectorizer", "transformers/text.py"),
-    "tf_idf": ("TfIdfVectorizer", "transformers/text.py"),
-    "lda": ("OpLDA", "transformers/topics.py"),
-    "word2vec": ("OpWord2Vec", "transformers/topics.py"),
-    "recognize_entities": ("NameEntityRecognizer", "transformers/ner.py"),
-    "ngram_similarity": ("NGramSimilarity", "transformers/text.py"),
-    "jaccard_similarity": ("JaccardSimilarity", "transformers/text.py"),
-    "to_multi_pick_list": ("TextToMultiPickList", "transformers/text.py"),
-    "is_substring": ("SubstringTransformer", "transformers/text.py"),
-    "tokenize_regex": ("RegexTokenizer", "transformers/text.py"),
-    "remove_stop_words": ("StopWordsRemover", "transformers/text.py"),
-    "ngram": ("NGramTransformer", "transformers/text.py"),
-    "deindexed": ("OpIndexToString", "transformers/text.py"),
-    "idf": ("OpIDF", "transformers/text.py"),
-}
-
-
-def _raise_unported(name: str, stage: str, module: str):
-    raise NotImplementedError(
-        f"Feature.{name}: its stage {stage} (transmogrifai_tpu/{module}) "
-        "is not ported to transmogrifai_tpu_torch yet")
-
-
-def _unported(name: str) -> Callable:
-    stage, module = UNPORTED[name]
-
-    def method(self, *args, **kwargs):
-        _raise_unported(name, stage, module)
-    method.__name__ = name
-    method.__doc__ = f"Not ported yet: the JAX package's {stage} " \
-        f"(transmogrifai_tpu/{module})."
-    return method
-
-
 def install() -> None:
     """Install the dsl methods on Feature (idempotent)."""
     ops = {
@@ -556,8 +616,17 @@ def install() -> None:
         "detect_mime_types_map": _detect_mime_types_map,
         "vectorize_geo": _vectorize_geo,
         "auto_transform": _vectorize,  # RichFeaturesCollection alias
+        "text_len": _text_len, "detect_languages": _detect_languages,
+        "index_string": _index_string, "count_vectorize": _count_vectorize,
+        "tf_idf": _tf_idf, "lda": _lda, "word2vec": _word2vec,
+        "recognize_entities": _recognize_entities,
+        "ngram_similarity": _ngram_similarity,
+        "jaccard_similarity": _jaccard_similarity,
+        "to_multi_pick_list": _to_multi_pick_list,
+        "is_substring": _is_substring, "tokenize_regex": _tokenize_regex,
+        "remove_stop_words": _remove_stop_words, "ngram": _ngram,
+        "deindexed": _deindexed, "idf": _idf,
     }
-    ops.update({name: _unported(name) for name in UNPORTED})
     for name, fn in ops.items():
         setattr(Feature, name, fn)
 

@@ -40,6 +40,8 @@ _STAGE_MODULES = [
     "transmogrifai_tpu_torch.transformers.math",
     "transmogrifai_tpu_torch.transformers.misc",
     "transmogrifai_tpu_torch.transformers.text",
+    "transmogrifai_tpu_torch.transformers.topics",
+    "transmogrifai_tpu_torch.transformers.ner",
     "transmogrifai_tpu_torch.automl.preparators",
     "transmogrifai_tpu_torch.automl.selector",
     "transmogrifai_tpu_torch.models.glm",
