@@ -106,7 +106,7 @@ Phases, each of which fails the run on error:
 14. workflow-titanic — the port's example flow
              (examples/op_titanic_simple.py: a Text name hashed into 512
              bins, DSL arithmetic, pivot, fill + z-normalize, a lambda
-             map) on `titanic_named_records`: CPU against card at 3 000
+             map) on `titanic_named_records`: CPU against card at 2 000
              records (LR's 2 least regularised default grid points, RF
              10 trees at depth {3, 5}: the
              matrix and metadata identical, the same drops and winner,
@@ -188,7 +188,7 @@ Phases, each of which fails the run on error:
              the model saved, loaded and scored again (identical), loaded
              onto the CPU (10 000 rows within 1e-5 relative); every kernel
              at each key of train() against its plain version (phase
-             "regression"); the leg at 20 000 rows on the CPU and twice on
+             "regression"); the leg at 8 000 rows on the CPU and twice on
              the card: the matrix identical, the same winner, CV fold
              metrics within 1e-3 relative or a tie witness in that cell's
              fits, scores within 1e-5 relative or a tie witness;
@@ -209,7 +209,7 @@ Phases, each of which fails the run on error:
              key of the two train()s against its plain version (phases
              "multiclass" and "iris"); `model_insights()` of the winner
              with its contributions a class (`multiclass_insights`); the
-             leg at 20 000 rows on the CPU
+             leg at 8 000 rows on the CPU
              and twice on the card: the matrix identical, the same winner,
              CV fold metrics within 1e-3 or a tie witness in that fold's
              lanes, the scores (predicted class, probabilities) within 1e-5
@@ -229,13 +229,34 @@ Phases, each of which fails the run on error:
              score walls, winner, CV and holdout AuPR against the
              prevalence, 5 000 new records scored, saved, loaded and
              scored again (identical); every kernel at each key of train()
-             against its plain version (phase "text"); the leg at 3 000
+             against its plain version (phase "text"); the leg at 2 000
              records (the GBT alone) on the CPU and on the card: host
              stages identical,
              LDA's topics and the word vectors within tolerance, scores
              within 1e-5 or a tie witness, the CPU-fitted workflow
              carried onto the card within 1e-5;
-21. serve — the model workflow-wide trained at 1M rows (saved there)
+21. workflow-stream — bench.py's streaming scenario (2 000 000 rows x
+             16 float columns, 3 folds) written once as Avro shards of
+             250 000 rows, the only full copy of X, and read through
+             `sharded_reader_source` (4 parse workers) into the
+             tileplane: the streamed statistics pass against the resident
+             route (rtol 1e-5, atol 1e-6) with rows 2M and peak host rows
+             <= 2 tiles, the same pass at prefetch depth 2 and under
+             TMOG_TILEPLANE=0 bit-identical; the GLM rounds over the
+             source (2 lanes a fold, max_iter 15, warm start) within rtol
+             5e-3 / atol 7e-4 of the resident round driver; streamed
+             edges within one histogram bin of the exact quantiles and
+             streamed bins exactly `bin_matrix`; a boosted fit on the
+             streamed bins (every kernel at each key against its plain
+             version, phase "stream"); a workflow holding its trees
+             saved and scored by OpWorkflowRunner's StreamingScore over
+             one shard's 250 000 records, every score within 1e-5 of
+             `score()`; the 20 000-row leg on the CPU and on the card;
+             rows/s of every pass, the GLM's data passes, a traced
+             probe's overlap ratio with copy, compute and parse seconds,
+             host-to-device GB/s through the pinned ring against
+             pageable `to_device`;
+22. serve — the model workflow-wide trained at 1M rows (saved there)
              through the real CLI in subprocesses: `serve DIR
              --prewarm-only --max-batch 64` (rc 0, buckets 1, 8, 16, 32 and
              64 with each one's wall, serve.json's model_hash equal to
@@ -263,8 +284,8 @@ Float32 products stay in full f32: the run fails unless TF32 is off
 
 The last three lines of standard output are {"kernels": [...]} (each
 row's `launches` at its (kernel, F, S) key in the phase it names, a
-workflow, titanic, wide, events, regression, multiclass, iris or text
-row's at
+workflow, titanic, wide, events, regression, multiclass, iris, text or
+stream row's at
 its (kernel, F, S, C, Fo) key inside its phase's train(), a fused row's at
 that key inside tree-sweep-10M-fused's sweep (with `full_rows_ms`, its
 time at the sweep's rows), and, for the
@@ -309,21 +330,21 @@ REPLACES = {   # the Pallas kernel body each CUDA kernel replaces
 }
 GLM_EVAL_LANES = 8            # the streamed eval's grid chunk
 TITANIC_ROWS = 100_000        # workflow-titanic's main path (PERF.md §4)
-TITANIC_LEG_ROWS = 3_000      # its CPU-against-card leg (PERF.md §4)
+TITANIC_LEG_ROWS = 2_000      # its CPU-against-card leg (PERF.md §4)
 WIDE_ROWS = 1_000_000         # bench.py's wide_rows: workflow-wide's main path
 WIDE_LEG_ROWS = 5_000         # workflow-wide's CPU-against-card leg
 WIDE_SCORE_ROWS = 100_000     # new rows workflow-wide scores
 EVENTS_USERS = 200_000        # workflow-events' main path (PERF.md §4)
 EVENTS_LEG_USERS = 2_500      # workflow-events' CPU-against-card leg
 REGRESSION_ROWS = 1_000_000   # workflow-regression's main path (PERF.md §4)
-REGRESSION_LEG_ROWS = 20_000  # its CPU-and-card leg
+REGRESSION_LEG_ROWS = 8_000   # its CPU-and-card leg
 REGRESSION_SCORE_ROWS = 100_000   # new rows scored before and after save/load
 REGRESSION_CPU_LOAD_ROWS = 10_000  # rows the model loaded onto the CPU scores
 COVERTYPE_ROWS = 581_012      # UCI Covertype's rows: workflow-multiclass
 COVERTYPE_CLASS_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367,
                           20_510)     # its published counts of cover types
 COVERTYPE_CLASS_SEED = 1999   # seeds the classes' means and category shares
-COVERTYPE_LEG_ROWS = 20_000   # its CPU-and-card leg
+COVERTYPE_LEG_ROWS = 8_000    # its CPU-and-card leg
 COVERTYPE_SCORE_ROWS = 100_000    # new rows scored before and after save/load
 COVERTYPE_CPU_LOAD_ROWS = 10_000  # rows the model loaded onto the CPU scores
 MLP_GRID_SEED = 7             # RandomParamBuilder's seed of the MLP's grid
@@ -333,7 +354,7 @@ INSIGHTS_CHECK_ROWS = 256     # rows its knockouts are held card vs CPU
 INSIGHTS_TOP_K = 20           # the dsl's default top_k
 INSIGHTS_TOL = 1e-5           # card vs CPU knockout deltas, absolute
 TEXT_ROWS = 100_000           # workflow-text's main path (PERF.md §4)
-TEXT_LEG_ROWS = 3_000         # its CPU-against-card leg
+TEXT_LEG_ROWS = 2_000         # its CPU-against-card leg
 TEXT_SCORE_ROWS = 5_000       # new records it scores, saves, loads, rescores
 TEXT_TOPIC_SEED = 2024        # seeds the vocabulary and the 10 topics
 TEXT_TOPICS = 10
@@ -343,6 +364,19 @@ TEXT_VOCAB = 5_000
 # of the largest)
 TEXT_LDA_RTOL = 1e-4
 TEXT_W2V_RTOL = 1e-4
+# workflow-stream: bench.py's streaming scenario (bench.py:1134-1136)
+STREAM_ROWS = 2_000_000       # rows, written once as Avro shards
+STREAM_COLS = 16              # float columns
+STREAM_FOLDS = 3
+STREAM_SLAB = 250_000         # rows an Avro shard (bench.py's slabs)
+STREAM_WORKERS = 4            # parse workers of the sharded source
+STREAM_BATCH = 65_536         # records a decoded chunk
+STREAM_LEG_ROWS = 20_000      # its CPU-against-card leg
+STREAM_BINS = 32              # quantile bins of the streamed tree binning
+STREAM_HIST_BINS = 512        # histogram bins behind the streamed edges
+STREAM_GBT = dict(n_rounds=10, depth=6, learning_rate=0.3)
+STREAM_REGS = (0.01, 0.1)     # the GLM's 2 lanes a fold (bench.py:1202)
+STREAM_SCORE_TILE = 16_384    # records a StreamingScore tile
 C5_CHUNKS = (8, 2)            # configs a fused fit: 40 and 10 lanes
 C5_MAX_OVER = 1.15            # the residency model's bound over its peak
 # an MLP fold metric CPU against card (relative to max(1, |metric|)). Adam
@@ -625,7 +659,7 @@ def kernel_rows(shapes: list, phase: str = "tree",
                    key=capture_key(key, name, args, kw)
                    if phase in ("workflow", "titanic", "wide", "events",
                                 "regression", "multiclass", "iris", "fused",
-                                "text")
+                                "text", "stream")
                    else key)
         log(f"kernel {name} [{row['shape']}]: err={err:.3g} ok={ok} "
             f"rel_err={acc['rel_err']} plain_rel_err={acc['plain_rel_err']} "
@@ -5160,6 +5194,508 @@ def workflow_text_phase(rows: int, seed: int):
     return ok, capture_launches, rows_out
 
 
+STREAM_NAMES = tuple(f"x{j}" for j in range(STREAM_COLS))
+
+
+def stream_schema() -> dict:
+    """workflow-stream's Avro record, bench.py's (bench.py:1144-1147): 16
+    float columns, the float label and a long row id (the fold is id %
+    STREAM_FOLDS)."""
+    return {"type": "record", "name": "Row", "fields": [
+        {"name": nm, "type": "float"} for nm in STREAM_NAMES + ("y",)]
+        + [{"name": "id", "type": "long"}]}
+
+
+def stream_slab(seed: int, start: int, n: int) -> dict:
+    """Rows [start, start + n) of workflow-stream's data as columns: x ~
+    N(0, 1) float32, y = 1{x . beta + N(0, 0.5^2) > 0} (beta from
+    `seed`), id = the row's index. Each slab draws from its own
+    (seed, start) stream, so a slab is made without the rows before it."""
+    import numpy as np
+    beta = np.random.default_rng(seed).normal(size=STREAM_COLS)
+    rng = np.random.default_rng([seed, start])
+    X = rng.normal(size=(n, STREAM_COLS)).astype(np.float32)
+    noise = rng.normal(0.0, 0.5, size=n)
+    cols = {nm: X[:, j] for j, nm in enumerate(STREAM_NAMES)}
+    cols["y"] = (X @ beta + noise > 0).astype(np.float32)
+    cols["id"] = np.arange(start, start + n, dtype=np.int64)
+    return cols
+
+
+def write_stream_shards(root: str, rows: int, seed: int) -> list:
+    """The rows as Avro shards of STREAM_SLAB rows (the only full copy of
+    X): one slab in memory at a time, blocks of STREAM_BATCH records."""
+    from transmogrifai_tpu_torch.readers.avro import write_avro_columns
+    paths = []
+    for start in range(0, rows, STREAM_SLAB):
+        p = os.path.join(root, f"rows_{len(paths):04d}.avro")
+        write_avro_columns(p, stream_schema(),
+                           stream_slab(seed, start,
+                                       min(STREAM_SLAB, rows - start)),
+                           block_records=STREAM_BATCH)
+        paths.append(p)
+    return paths
+
+
+def stream_resident(rows: int, seed: int):
+    """(X [n, d] f32, y [n], fold [n]) of the same rows in host memory,
+    for the checks only."""
+    import numpy as np
+    slabs = [stream_slab(seed, s, min(STREAM_SLAB, rows - s))
+             for s in range(0, rows, STREAM_SLAB)]
+    X = np.concatenate([np.stack([c[nm] for nm in STREAM_NAMES], 1)
+                        for c in slabs])
+    return (X, np.concatenate([c["y"] for c in slabs]),
+            np.concatenate([c["id"] % STREAM_FOLDS for c in slabs]))
+
+
+def stream_sources(paths: list, rows: int, workers: int = STREAM_WORKERS):
+    """(stats, GLM, x-only) sharded sources over the Avro shards: chunks
+    of (x, y, w), (x, y, w, fold masks [c, F]) and (x,); a row's fold is
+    its id % STREAM_FOLDS (bench.py's)."""
+    import numpy as np
+    from transmogrifai_tpu_torch.parallel import ingest as ING
+
+    def x_of(c):
+        return np.stack([c[nm] for nm in STREAM_NAMES], 1)
+
+    def stats_cols(c):
+        return x_of(c), c["y"], np.ones(len(c["y"]), np.float32)
+
+    def glm_cols(c):
+        fold = c["id"] % STREAM_FOLDS
+        masks = np.stack([(fold != k) for k in range(STREAM_FOLDS)],
+                         1).astype(np.float32)
+        return x_of(c), c["y"], np.ones(len(c["y"]), np.float32), masks
+
+    return [ING.sharded_reader_source(
+        paths, fn, batch_records=STREAM_BATCH, workers=workers,
+        n_rows=rows, label=label)
+        for fn, label in ((stats_cols, "stats"), (glm_cols, "glm"),
+                          (lambda c: (x_of(c),), "trees"))]
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """The environment variables `kv` set inside the block, restored
+    after."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+STATS_FIELDS = ("count", "mean", "m2", "variance", "min", "max",
+                "num_non_zeros", "corr_label", "corr_matrix")
+
+
+def stats_close(a, b, rtol: float = 1e-5, atol: float = 1e-6) -> float:
+    """The largest |a - b| - (atol + rtol |b|) over the statistics'
+    fields: <= 0 when every field is within tolerance."""
+    import numpy as np
+    worst = -np.inf
+    for k in STATS_FIELDS:
+        u, v = np.asarray(getattr(a, k)), np.asarray(getattr(b, k))
+        worst = max(worst, float((np.abs(u - v)
+                                  - (atol + rtol * np.abs(v))).max()))
+    return worst
+
+
+def stats_identical(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(np.asarray(getattr(a, k)),
+                              np.asarray(getattr(b, k)), equal_nan=True)
+               for k in STATS_FIELDS)
+
+
+def stream_glm(src, device):
+    """The streamed GLM rounds of workflow-stream (bench.py:1202-1206: 2
+    lanes a fold, max_iter 15, tol 1e-5, warm start)."""
+    import numpy as np
+    from transmogrifai_tpu_torch.ops import glm_sweep as GS
+    return GS.sweep_glm_streamed_rounds(
+        src, None, None, None, np.asarray(STREAM_REGS, np.float32),
+        np.zeros(len(STREAM_REGS), np.float32), loss="logistic",
+        max_iter=15, tol=1e-5, warm_start=True, device=device)
+
+
+def h2d_rates(dev, tile_rows: int, reps: int = 20) -> dict:
+    """Host -> device GB/s of one stats tile ([tile_rows, 16] f32), each
+    over `reps` copies: the copy out of a pinned ring slot alone (CUDA
+    events on the copy stream), a tile put through the ring as the
+    pipeline does (`_TileLander.alloc`, the rows written into the slot,
+    `land`; wall to the last copy's end), and the port's pageable
+    `to_device` (wall)."""
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch.device import to_device
+    from transmogrifai_tpu_torch.parallel import tileplane as TP
+    tile = np.random.default_rng(0).normal(
+        size=(tile_rows, STREAM_COLS)).astype(np.float32)
+    stream = torch.cuda.Stream()
+    lander = TP._TileLander(dev, 2, stream)
+    out = {"bytes": int(tile.nbytes), "reps": reps}
+    slot = torch.from_numpy(tile).pin_memory()
+    dst = torch.empty(tile.shape, device=dev)
+    with torch.cuda.stream(stream):
+        dst.copy_(slot, non_blocking=True)
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(reps):
+            dst.copy_(slot, non_blocking=True)
+        end.record(stream)
+    end.synchronize()
+    out["pinned_copy_gb_per_s"] = tile.nbytes * reps / 1e6 / \
+        start.elapsed_time(end)
+
+    def through_ring():
+        (buf,) = lander.alloc((tile.shape,))
+        buf[...] = tile
+        lander.land((buf,))
+
+    for name, copy in (
+            ("ring_fill_land", through_ring),
+            ("pageable_to_device", lambda: to_device(tile, dev))):
+        copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            copy()
+        torch.cuda.synchronize()
+        out[name + "_gb_per_s"] = tile.nbytes * reps / 1e9 / (
+            time.perf_counter() - t0)
+    return out
+
+
+def stream_leg(paths: list, rows: int) -> tuple:
+    """The CPU leg: statistics, GLM rounds and streamed binning of the same
+    `rows`-row shard on the CPU and on the card. Returns (record, ok)."""
+    import numpy as np
+    from transmogrifai_tpu_torch.ops import stats_engine as SE
+    from transmogrifai_tpu_torch.ops import trees as T
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        st_src, glm_src, x_src = stream_sources(paths, rows)
+        t0 = time.perf_counter()
+        res = SE.run_stats(st_src, corr_matrix=True, device=dev)
+        B, b0, info = stream_glm(glm_src, dev)
+        edges = T.stream_quantile_edges(x_src, STREAM_BINS,
+                                        hist_bins=STREAM_HIST_BINS,
+                                        device=dev)
+        binned = T.stream_bin_matrix(x_src, edges, device=dev)
+        runs[dev] = dict(res=res, B=B, b0=b0, info=info, edges=edges,
+                         binned=binned, s=time.perf_counter() - t0)
+    c, g = runs["cpu"], runs["cuda"]
+    rec = dict(rows=rows, cpu_s=c["s"], card_s=g["s"],
+               stats_over_tol=stats_close(g["res"], c["res"]),
+               glm_max_abs=float(max(np.abs(g["B"] - c["B"]).max(),
+                                     np.abs(g["b0"] - c["b0"]).max())),
+               glm_rounds=[c["info"]["glm_rounds"], g["info"]["glm_rounds"]],
+               edges_identical=bool(np.array_equal(g["edges"], c["edges"],
+                                                   equal_nan=True)),
+               bins_identical=bool(np.array_equal(g["binned"],
+                                                  c["binned"])))
+    ok = (rec["stats_over_tol"] <= 0 and rec["glm_max_abs"] <= 1e-4
+          and rec["edges_identical"] and rec["bins_identical"])
+    return rec, ok
+
+
+def stream_workflow(sample_rows: int, seed: int, device=None):
+    """(workflow, prediction, trained model) of the scoring flow: the 16
+    columns as RealNN predictors transmogrified into one vector (its
+    columns are x0..x15 in order) into a Spark GBT, trained on
+    `sample_rows` rows. workflow-stream swaps the fitted GBT's trees for
+    the trees grown on the streamed bins."""
+    import numpy as np
+    from transmogrifai_tpu_torch.automl.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.features.builder import FeatureBuilder
+    from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+    from transmogrifai_tpu_torch.readers.readers import ListReader
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow import Workflow
+    reset_uids()
+    feats = [FeatureBuilder.RealNN(nm).extract(
+        lambda r, nm=nm: r[nm]).as_predictor() for nm in STREAM_NAMES]
+    label = FeatureBuilder.RealNN("y").extract(
+        lambda r: r["y"]).as_response()
+    pred = OpGBTClassifier(max_iter=2, max_depth=STREAM_GBT["depth"],
+                           max_bins=STREAM_BINS).set_input(
+        label, transmogrify(feats)).get_output()
+    cols = stream_slab(seed + 1, 0, sample_rows)
+    records = [dict(zip(cols, vals)) for vals in zip(
+        *[np.asarray(v, np.float64).tolist() for v in cols.values()])]
+    wf = Workflow(device=device).set_reader(ListReader(records)) \
+        .set_result_features(pred)
+    return wf, pred, wf.train()
+
+
+def avro_records(path: str):
+    """Records (dicts) of one Avro shard, decoded a block at a time: the
+    streaming reader's record factory."""
+    import numpy as np
+    from transmogrifai_tpu_torch.readers.avro import read_avro_columns
+    for cols in read_avro_columns(path, batch_records=STREAM_BATCH,
+                                  arrays=True):
+        names = list(cols)
+        for vals in zip(*[np.asarray(cols[nm]).tolist() for nm in names]):
+            yield dict(zip(names, vals))
+
+
+def workflow_stream_phase(rows: int, seed: int):
+    """bench.py's streaming scenario on the port: `rows` x 16 float columns
+    and 3 folds written once from `seed` as Avro shards of STREAM_SLAB rows
+    (the only full copy of X; the phase rebuilds X in host memory for its
+    checks alone), read through `sharded_reader_source` with
+    STREAM_WORKERS parse workers into the tileplane:
+    - run_stats over the source against the resident route (the stats
+      tolerances: rtol 1e-5, atol 1e-6), rows == `rows`, peak host rows <=
+      2 tiles; the same pass at prefetch depth 2 and under TMOG_TILEPLANE=0
+      bit-identical to the depth-1 pass;
+    - the GLM rounds over the source (2 lanes a fold, max_iter 15, warm
+      start) against the resident round driver on the card (rtol 5e-3,
+      atol 7e-4), with their data passes;
+    - stream_quantile_edges + stream_bin_matrix exactly `bin_matrix` at
+      the same edges;
+    - a boosted fit (`STREAM_GBT`) on the streamed bins on the card:
+      every kernel launches; each (kernel, F, S, C, Fo) key on the inputs
+      of its first launch against its plain version (phase "stream");
+    - a workflow (16 RealNN -> transmogrify -> Spark GBT, trained on
+      20 000 rows) given those trees, saved, and scored through
+      OpWorkflowRunner's StreamingScore over one shard's STREAM_SLAB
+      records (fixed record tiles of STREAM_SCORE_TILE): every score
+      within 1e-5 of `model.score` on the same records;
+    - the CPU leg at STREAM_LEG_ROWS rows (`stream_leg`).
+    Printed: rows/s of each pass, the GLM's data passes, a traced probe's
+    overlap ratio (copy + compute) / wall with copy, compute and parse
+    seconds, H2D GB/s through the pinned ring against pageable
+    `to_device`, the phase's wall, the card. Returns (ok, launches by
+    capture key, kernel rows)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.device import resolve_device
+    from transmogrifai_tpu_torch.models.prediction import probability_of
+    from transmogrifai_tpu_torch.ops import glm_sweep as GS
+    from transmogrifai_tpu_torch.ops import stats_engine as SE
+    from transmogrifai_tpu_torch.ops import tree_kernels as TK
+    from transmogrifai_tpu_torch.ops import trees as T
+    from transmogrifai_tpu_torch.readers.streaming import \
+        IterStreamingReader
+    from transmogrifai_tpu_torch.types import ColumnKind
+    from transmogrifai_tpu_torch.utils.metrics import collector
+    from transmogrifai_tpu_torch.workflow import runner as R
+    from transmogrifai_tpu_torch.workflow.workflow import WorkflowModel
+
+    dev = resolve_device()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    res = dict(rows=rows, cols=STREAM_COLS, folds=STREAM_FOLDS,
+               workers=STREAM_WORKERS)
+    checks = {}
+    t0 = time.perf_counter()
+    paths = write_stream_shards(root, rows, seed)
+    res["write_s"] = time.perf_counter() - t0
+    res["shards"] = len(paths)
+    res["disk_mb"] = sum(os.path.getsize(p) for p in paths) / 1e6
+    leg_dir = os.path.join(root, "leg")
+    os.makedirs(leg_dir)
+    leg_paths = write_stream_shards(leg_dir, STREAM_LEG_ROWS, seed + 7)
+    X, y, fold = stream_resident(rows, seed)
+    st_src, glm_src, x_src = stream_sources(paths, rows)
+
+    def timed(name, fn, passes=1):
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+        res[name] = dict(wall_s=wall, rows_per_s=rows * passes / wall)
+        return out
+
+    # statistics: depth 1, depth 2, the switch off
+    passes = {}
+    for name, env in (("stats_depth1", dict(TMOG_TILE_PREFETCH=1)),
+                      ("stats_depth2", dict(TMOG_TILE_PREFETCH=2)),
+                      ("stats_sync", dict(TMOG_TILEPLANE=0))):
+        with env_set(**env):
+            passes[name] = timed(name, lambda: SE.run_stats(
+                st_src, corr_matrix=True, label=name))
+        ps = SE._last_stream_stats
+        res[name].update(tiles=ps.tiles, tile_rows=ps.tile_rows,
+                         peak_host_rows=ps.peak_host_rows,
+                         pinned_slots=ps.pinned_slots, pass_rows=ps.rows)
+    fused = SE.run_stats(X, y, driver="fused", corr_matrix=True)
+    checks["stats_over_tol"] = stats_close(passes["stats_depth1"], fused)
+    checks["stats_rows"] = res["stats_depth1"]["pass_rows"] == rows
+    checks["stats_peak_host"] = res["stats_depth1"]["peak_host_rows"] \
+        <= 2 * res["stats_depth1"]["tile_rows"]
+    checks["stats_depths_identical"] = stats_identical(
+        passes["stats_depth2"], passes["stats_depth1"])
+    checks["stats_switch_identical"] = stats_identical(
+        passes["stats_sync"], passes["stats_depth1"])
+
+    # GLM rounds: the source against the resident round driver
+    t = time.perf_counter()
+    B, b0, info = stream_glm(glm_src, None)
+    wall = time.perf_counter() - t
+    n_pass = info["data_passes"] + 1     # + the prep pass
+    res["glm_stream"] = dict(wall_s=wall, data_passes=n_pass,
+                             rows_per_s_effective=rows * n_pass / wall,
+                             **{k: info[k] for k in (
+                                 "glm_rounds", "active_per_round",
+                                 "iters_per_round", "lanes_retired")})
+    masks = np.stack([(fold != k) for k in range(STREAM_FOLDS)]
+                     ).astype(np.float32)
+    t = time.perf_counter()
+    rB, rb0, rinfo = GS.sweep_glm_streamed_rounds(
+        torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev),
+        torch.ones(rows, device=dev), torch.from_numpy(masks).to(dev),
+        np.asarray(STREAM_REGS, np.float32),
+        np.zeros(len(STREAM_REGS), np.float32), loss="logistic",
+        max_iter=15, tol=1e-5, warm_start=True)
+    res["glm_resident"] = dict(wall_s=time.perf_counter() - t,
+                               data_passes=rinfo["data_passes"],
+                               glm_rounds=rinfo["glm_rounds"])
+    checks["glm_max_over_tol"] = float(max(
+        (np.abs(B - rB) - (7e-4 + 5e-3 * np.abs(rB))).max(),
+        (np.abs(b0 - rb0) - (7e-4 + 5e-3 * np.abs(rb0))).max()))
+    del masks
+
+    # streamed tree binning, then a boosted fit on the bins
+    edges = timed("tree_edges", lambda: T.stream_quantile_edges(
+        x_src, STREAM_BINS, hist_bins=STREAM_HIST_BINS), passes=2)
+    binned = timed("tree_bins", lambda: T.stream_bin_matrix(x_src, edges))
+    Xd = torch.from_numpy(X).to(dev)
+    resident_bins = T.bin_matrix(Xd, torch.from_numpy(edges).to(dev)).cpu()
+    checks["bins_identical"] = bool(np.array_equal(binned,
+                                                   resident_bins.numpy()))
+    res["binned_mb"] = binned.nbytes / 1e6
+    # edges: within one histogram bin width of the columns' exact
+    # quantiles (resident quantile_edges samples 131 072 of the rows here)
+    bw = (np.nanmax(X, 0) - np.nanmin(X, 0)) / STREAM_HIST_BINS
+    qs = np.arange(1, STREAM_BINS) / STREAM_BINS
+    exact = np.quantile(X.astype(np.float64), qs, axis=0).T
+    q_res = T.quantile_edges(Xd, STREAM_BINS).cpu().numpy()
+    checks["edges_bin_widths_from_exact"] = float(
+        (np.abs(edges - exact) / bw[:, None]).max())
+    res["edges_bin_widths_from_sampled_resident"] = float(
+        (np.abs(edges - q_res) / bw[:, None]).max())
+    del Xd, resident_bins
+    Xb = torch.from_numpy(binned).to(dev)
+    yd = torch.from_numpy(y).to(dev)
+    captured, capture_launches = {}, collections.Counter()
+    TK.reset_launches()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t = time.perf_counter()
+    with capture_kernel_inputs(captured, capture_launches):
+        trees, base = T.fit_gbt(Xb, yd, torch.ones_like(yd),
+                                n_bins=STREAM_BINS, generator=gen,
+                                **STREAM_GBT)
+    torch.cuda.synchronize()
+    res["gbt_fit_s"] = time.perf_counter() - t
+    launches = dict(TK.launches)
+    capture_launches = dict(capture_launches)
+    res["gbt_launches"] = launches
+    checks["gbt_all_kernels"] = set(launches) == set(TK.KERNELS) and all(
+        n > 0 for n in launches.values())
+    del Xb, yd
+
+    # the workflow with those trees: saved, then StreamingScore
+    wf, pred, model = stream_workflow(STREAM_LEG_ROWS, seed)
+    gbt = next(st for st in model.stages
+               if type(st).__name__ == "TreeEnsembleModel")
+    edges_t = torch.from_numpy(edges).to(dev)
+    tv = T.thresholds_to_values(trees.feat, trees.thresh, edges_t)
+    gbt.feat = trees.feat.cpu().numpy().astype(np.int32)
+    gbt.thresh_val = tv.cpu().numpy().astype(np.float32)
+    gbt.leaf = trees.leaf.cpu().numpy().astype(np.float32)
+    gbt.miss = trees.miss.cpu().numpy().astype(np.int32)
+    gbt.depth, gbt.base = STREAM_GBT["depth"], float(base)
+    model_dir = os.path.join(root, "model")
+    model.save(model_dir)
+    score_dir = os.path.join(root, "scores")
+    reader = IterStreamingReader(lambda: avro_records(paths[0]),
+                                 batch_records=STREAM_BATCH)
+    TK.reset_launches()
+    t = time.perf_counter()
+    out = R.OpWorkflowRunner(wf, score_reader=reader).run(
+        R.OpWorkflowRunner.STREAMING_SCORE, R.OpParams(
+            model_location=model_dir, write_location=score_dir,
+            custom_params={"score_tile_rows": STREAM_SCORE_TILE}))
+    score_s = time.perf_counter() - t
+    res["streaming_score"] = dict(records=out.n_rows, wall_s=score_s,
+                                  records_per_s=out.n_rows / score_s,
+                                  tile_records=STREAM_SCORE_TILE,
+                                  kernel_launches=dict(TK.launches))
+    with open(os.path.join(score_dir, "scores.jsonl")) as fh:
+        streamed = np.array([json.loads(line)[pred.name]["probability_1"]
+                             for line in fh])
+    # model.score on the same records: the shard's columns as a Dataset
+    loaded = WorkflowModel.load(model_dir)
+    shard = stream_slab(seed, 0, STREAM_SLAB)
+    ds = Dataset({nm: Column(kind=ColumnKind.FLOAT,
+                             data=np.asarray(shard[nm], np.float64))
+                  for nm in STREAM_NAMES + ("y",)})
+    want = probability_of(loaded.score(ds).column(pred.name))[:, -1]
+    checks["score_records"] = out.n_rows == len(streamed) == len(want) \
+        >= STREAM_SLAB
+    checks["score_max_abs"] = float(np.abs(streamed - want).max()) \
+        if len(streamed) == len(want) else float("inf")
+    res["streaming_score"]["mean_p"] = float(np.mean(streamed))
+    del ds, loaded
+
+    # the traced probe: overlap of copy and compute, parse seconds
+    collector.enable("workflow-stream-probe")
+    try:
+        t = time.perf_counter()
+        SE.run_stats(st_src, corr_matrix=True, label="overlap_probe")
+        wall = time.perf_counter() - t
+        ps = SE._last_stream_stats
+        parse_s = sum(r.parse_seconds for r in
+                      collector.current.ingest_metrics)
+        res["overlap_probe"] = dict(
+            overlap_ratio=(ps.copy_seconds + ps.compute_seconds)
+            / ps.wall_seconds, copy_s=ps.copy_seconds,
+            compute_s=ps.compute_seconds, parse_s=parse_s,
+            pass_wall_s=ps.wall_seconds, wall_s=wall,
+            copy_gb=ps.copy_bytes / 1e9)
+    finally:
+        collector.finish()
+        collector.disable()
+    res["h2d"] = h2d_rates(dev, res["stats_depth1"]["tile_rows"])
+
+    leg, leg_ok = stream_leg(leg_paths, STREAM_LEG_ROWS)
+    res["leg"] = leg
+    main_s = time.perf_counter() - t_phase
+    rows_out = kernel_rows([captured_shape(key, *captured[key],
+                                           prefix="workflow-stream")
+                            for key in sorted(captured)], phase="stream")
+    del captured
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res.update(checks=checks, main_s=main_s,
+               phase_s=time.perf_counter() - t_phase,
+               capture_launches=capture_launches)
+    log("workflow-stream: " + json.dumps(res))
+    ok = (leg_ok and checks["stats_over_tol"] <= 0 and checks["stats_rows"]
+          and checks["stats_peak_host"] and checks["stats_depths_identical"]
+          and checks["stats_switch_identical"]
+          and checks["glm_max_over_tol"] <= 0 and checks["bins_identical"]
+          and checks["edges_bin_widths_from_exact"] <= 1.0
+          and checks["gbt_all_kernels"] and checks["score_records"]
+          and checks["score_max_abs"] <= 1e-5
+          and {r["key"] for r in rows_out} == set(capture_launches))
+    return ok, capture_launches, rows_out
+
+
 def tf32_phase() -> bool:
     """Float32 products must stay in full f32 (no TF32)."""
     import torch
@@ -5331,6 +5867,14 @@ def main() -> int:
     failures += [f"kernel {r['name']} ({r['shape']})" for r in text_rows
                  if not r.pop("ok")]
     rows += text_rows
+    torch.cuda.empty_cache()
+    stream_ok, counts["stream"], stream_rows = workflow_stream_phase(
+        STREAM_ROWS, SEED)
+    if not stream_ok:
+        failures.append("workflow-stream")
+    failures += [f"kernel {r['name']} ({r['shape']})" for r in stream_rows
+                 if not r.pop("ok")]
+    rows += stream_rows
     torch.cuda.empty_cache()
     serve_ok, _ = serve_phase(HELD.pop("wide_dir"), HELD.pop("tree"))
     if not serve_ok:

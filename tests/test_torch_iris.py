@@ -7,8 +7,11 @@ the fitted workflow from one package into the other.
 
 The example's random-forest grid reaches depth 12, which the port's plain
 versions grow level by level over dense 4096-node levels (a minute on this
-CPU); both packages here take the grid cut to depth {3, 6} (12 grid
-points, as `DefaultSelectorParams` lists the rest). The forests draw the
+CPU); both packages here take the grid cut to depth {3, 6} and
+min_info_gain 0.001 (4 grid points: depth x min_instances_per_node {10,
+100}; with logistic regression's 8, 12 cells), each forest of 10 trees
+instead of the default 50: the forests' 12 points of 50 trees took most
+of the fixture here, and no assertion needs more than a few of them. The forests draw the
 reference's bootstrap weights and node masks and the JAX package takes its
 device route (TMOG_NO_HOST_TREES=1). Tolerances: the same vector columns
 and SanityChecker drops, the same winner and grid, every fold metric within
@@ -41,13 +44,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from examples import op_iris as JI  # noqa: E402
 
 
+RF_TREES = 10
+
+
 def _cut_grid(module):
     full = module.default_grid_for
 
     def grid(name):
         g = full(name)
         if name == "OpRandomForestClassifier":
-            g = [p for p in g if p["max_depth"] <= 6]
+            g = [dict(p, num_trees=RF_TREES) for p in g
+                 if p["max_depth"] <= 6 and p["min_info_gain"] == 0.001]
         return g
     return grid
 
@@ -57,7 +64,7 @@ def iris(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TMOG_NO_HOST_TREES", "1")
         mp.setattr(PT, "ForestDraws", lambda *a, **kw:
-                   _ReferenceDraws(50, *a, **kw))
+                   _ReferenceDraws(RF_TREES, *a, **kw))
         for module in (JS, PS):
             mp.setattr(module, "default_grid_for", _cut_grid(module))
         rows = PI.synthetic_iris()
@@ -88,7 +95,7 @@ def test_op_iris_matches_jax(iris):
     assert ps.evaluation_metric == js.evaluation_metric == "error"
     assert (ps.best_model_name, ps.best_grid) == (js.best_model_name,
                                                   js.best_grid)
-    assert len(ps.validation_results) == len(js.validation_results) == 20
+    assert len(ps.validation_results) == len(js.validation_results) == 12
     for a, b in zip(ps.validation_results, js.validation_results):
         assert (a["model_name"], a["grid"]) == (b["model_name"], b["grid"])
         for p, q in zip(a["fold_metrics"], b["fold_metrics"]):

@@ -8,8 +8,8 @@ the metrics, model and write locations; the same winner; evaluation
 metrics within 1e-4 (logistic-regression fits agree within 1e-4); the
 feature matrix bit-identical; a traced run's span tree has the reference's
 run -> Train -> workflow -> layer -> stage hierarchy and passes
-`trace_report(check=True)`. StreamingScore raises, naming its unported
-reader.
+`trace_report(check=True)`. StreamingScore without a streaming reader
+raises.
 """
 import contextlib
 import json
@@ -210,9 +210,11 @@ def test_trace_hierarchy_matches_jax(runs):
 
 
 def test_streaming_score_raises():
+    """StreamingScore needs a streaming reader (its run against the JAX
+    runner is in test_torch_streaming.py)."""
     wf, _ = _flow(PPKG, "cpu")
-    runner = PW.OpWorkflowRunner(wf)
-    with pytest.raises(NotImplementedError, match="readers/streaming.py"):
+    runner = PW.OpWorkflowRunner(wf, score_reader=PList(_rows(5)))
+    with pytest.raises(ValueError, match="StreamingReader"):
         runner.run(PW.OpWorkflowRunner.STREAMING_SCORE,
                    PW.OpParams(model_location="/nowhere"))
     with pytest.raises(ValueError, match="Unknown run type"):

@@ -76,6 +76,13 @@ def record_copies() -> Iterator[CopyRecorder]:
         rec.close()
 
 
+def active_recorder() -> Optional[CopyRecorder]:
+    """The recorder of the innermost open `record_copies()` block, else
+    None: copies made outside `to_device` (the tileplane's pinned ring)
+    report themselves to it."""
+    return _recorder
+
+
 def to_device(a, dev: torch.device, dtype=torch.float32,
               label: str = "") -> torch.Tensor:
     """`a` (numpy array or tensor) as a `dtype` tensor on `dev`."""

@@ -36,9 +36,12 @@ The reference pads each round's lanes to a power-of-two bucket
 so a round here runs exactly its active lanes; the padded lanes of the
 reference are inert (zero fold weights), so the results are the same.
 `streamed_route_ok` keeps the bucket in its memory guard, so the port
-picks the route the reference picks. The mesh-sharded drivers (the Gram
-route's too), the tileplane `RowSource` and the across-time `warm_seed`
-are not ported.
+picks the route the reference picks. The round driver also takes a
+`parallel.tileplane.RowSource` for X: every data pass then streams fixed
+tiles from the source (disk, for a reader-backed one) through the
+double-buffered tileplane, so X is never resident (`_source_rounds`). The
+mesh-sharded drivers (the Gram route's too) and the across-time
+`warm_seed` are not ported.
 
 Fold masks enter as weights (mask * w), exactly like the per-lane solvers.
 Standardization: the per-lane solvers standardize with each lane's own
@@ -56,6 +59,9 @@ import torch
 import torch.nn.functional as Fn
 
 from . import glm as G
+# the TMOG_* toggle parse of every sweep knob (TMOG_GLM_ROUNDS in the
+# validator routing, TMOG_GLM_WARMSTART here)
+from ..parallel.tileplane import env_on  # noqa: F401
 
 EPS = 1e-12
 
@@ -217,13 +223,6 @@ def _blocked(X, y, w, fold_masks, c: int) -> Iterator[Tuple]:
         yield X[s:s + c], y[s:s + c], w[s:s + c], fold_masks[:, s:s + c]
 
 
-def env_on(name: str, default: str = "1") -> bool:
-    """Tri-state TMOG_* toggle parse shared by every sweep knob
-    (TMOG_GLM_ROUNDS in the validator routing, TMOG_GLM_WARMSTART here)."""
-    return os.environ.get(name, default).strip().lower() \
-        not in ("0", "false", "off")
-
-
 def _newton_prox_update(B, b0, gA, hA, g0A, h0A, wsum_l, l1, l2, eye,
                         assemble, fit_intercept: bool):
     """THE damped-Newton + proximal-L1 + intercept update from streamed
@@ -255,69 +254,98 @@ def glm_standardize_stats(X: torch.Tensor, w: torch.Tensor
     return mean, std
 
 
-class _Scan:
-    """The per-iteration streaming pass shared by both routes: per-lane
-    (g [Lb, d_work], Hessian accumulator, g0 [Lb], h0 [Lb]) of the lanes'
-    coefficients B [Lb, d_work] / b0 [Lb], with sel [F, Lb] mapping each
-    lane to its fold (one-hot columns)."""
+class _Lanes:
+    """The lanes' side of a streaming pass, shared by the resident routes
+    (`_Scan`) and the row-source route: per-lane accumulators (g [Lb,
+    d_work], Hessian accumulator, g0 [Lb], h0 [Lb]) of the lanes'
+    coefficients B [Lb, d_work] / b0 [Lb], one row block at a time, with
+    sel [F, Lb] mapping each lane to its fold (one-hot columns), and the
+    Newton / proximal / intercept update from them."""
 
-    def __init__(self, X, y, w, fold_masks, sel, mean, std, loss: str):
-        self.X, self.y, self.w, self.m = X, y, w, fold_masks
+    def __init__(self, d: int, rows: int, sel, mean, std, loss: str,
+                 wsum_f, x_dtype=torch.float32):
+        dev = sel.device
         self.sel = sel
         self.rc = _residual_curvature(loss)
-        self.d = X.shape[1]
-        tiled, self.d_work, bt, pairs = _tiling(self.d)
-        dp = self.d_work - self.d
+        self.d = d
+        self.x_dtype = x_dtype
+        tiled, self.d_work, bt, pairs = _tiling(d)
+        dp = self.d_work - d
         # zero columns are inert end to end: mean 0 -> centered 0, grad 0,
         # H diagonal = l2 + 1e-6 ridge -> Newton step 0, so padded betas
         # stay exactly 0 and are sliced off by the caller
         self.mean = None if mean is None else Fn.pad(mean, (0, dp))
         self.std = None if std is None else Fn.pad(std, (0, dp), value=1.0)
         self.c = min(_ROW_BLOCK_WIDE if tiled else _row_block(self.d_work),
-                     X.shape[0])
+                     rows)
         Lb = sel.shape[1]
         self.hess_blocks, self.assemble, self.h_acc0 = _gram_fns(
-            tiled, self.d_work, Lb, bt, pairs, X.device)
-        wsum_f = torch.clamp(fold_masks @ w, min=EPS)              # [F]
+            tiled, self.d_work, Lb, bt, pairs, dev)
         self.wsum_l = torch.clamp((wsum_f[:, None] * sel).sum(0), min=EPS)
-        self.eye = torch.eye(self.d_work, dtype=torch.float32,
-                             device=X.device)
+        self.eye = torch.eye(self.d_work, dtype=torch.float32, device=dev)
 
-    def accumulate(self, B, b0):
-        Lb = B.shape[0]
-        dev = B.device
+    def zeros(self):
+        Lb = self.sel.shape[1]
+        dev = self.sel.device
+        return (torch.zeros((Lb, self.d_work), dtype=torch.float32,
+                            device=dev),
+                self.h_acc0.clone(),
+                torch.zeros(Lb, dtype=torch.float32, device=dev),
+                torch.zeros(Lb, dtype=torch.float32, device=dev))
+
+    def coef_t(self, B):
+        """B.T as the blocks' products read it: a bf16 X's contraction
+        sees the coefficients rounded to bf16."""
         Bt = B.T
-        gA = torch.zeros((Lb, self.d_work), dtype=torch.float32, device=dev)
-        hA = self.h_acc0.clone()
-        g0A = torch.zeros(Lb, dtype=torch.float32, device=dev)
-        h0A = torch.zeros(Lb, dtype=torch.float32, device=dev)
+        if self.x_dtype != torch.float32:
+            Bt = Bt.to(self.x_dtype).to(torch.float32)
+        return Bt
+
+    def add_block(self, acc, x_blk, y_blk, wlf, Bt, b0) -> None:
+        """Fold one row block into `acc` in place; wlf [c, F] holds each
+        row's fold weights (fold mask * row weight)."""
+        gA, hA, g0A, h0A = acc
+        xf = x_blk.to(torch.float32)
         dp = self.d_work - self.d
-        low = self.X.dtype != torch.float32
-        if low:   # the coefficients as the bf16 contraction reads them
-            Bt = Bt.to(self.X.dtype).to(torch.float32)
-        for x_blk, y_blk, w_blk, m_blk in _blocked(self.X, self.y, self.w,
-                                                   self.m, self.c):
-            xf = x_blk.to(torch.float32)
-            if dp:
-                xf = Fn.pad(xf, (0, dp))
-            if self.mean is not None:      # standardize on the fly
-                xf = (xf - self.mean) / self.std
-                if low:   # the standardized block in X's dtype, then f32
-                    xf = xf.to(self.X.dtype).to(torch.float32)
-            eta = xf @ Bt + b0
-            r0, s0 = self.rc(eta, y_blk)                # [c, Lb]
-            wl = (m_blk.T * w_blk[:, None]) @ self.sel  # [c, Lb]
-            R = r0 * wl
-            S = s0 * wl
-            gA.addmm_(R.T, xf)
-            self.hess_blocks(hA, xf, S)
-            g0A += R.sum(0)
-            h0A += S.sum(0)
-        return gA, hA, g0A, h0A
+        if dp:
+            xf = Fn.pad(xf, (0, dp))
+        if self.mean is not None:      # standardize on the fly
+            xf = (xf - self.mean) / self.std
+            if self.x_dtype != torch.float32:
+                # the standardized block in X's dtype, then f32
+                xf = xf.to(self.x_dtype).to(torch.float32)
+        eta = xf @ Bt + b0
+        r0, s0 = self.rc(eta, y_blk)                # [c, Lb]
+        wl = wlf @ self.sel                         # [c, Lb]
+        R = r0 * wl
+        S = s0 * wl
+        gA.addmm_(R.T, xf)
+        self.hess_blocks(hA, xf, S)
+        g0A += R.sum(0)
+        h0A += S.sum(0)
 
     def update(self, B, b0, acc, l1, l2, fit_intercept: bool):
         return _newton_prox_update(B, b0, *acc, self.wsum_l, l1, l2,
                                    self.eye, self.assemble, fit_intercept)
+
+
+class _Scan(_Lanes):
+    """The per-iteration pass over a resident X [n, d] with y [n], w [n]
+    and fold masks [F, n] on one device."""
+
+    def __init__(self, X, y, w, fold_masks, sel, mean, std, loss: str):
+        super().__init__(X.shape[1], X.shape[0], sel, mean, std, loss,
+                         torch.clamp(fold_masks @ w, min=EPS), X.dtype)
+        self.X, self.y, self.w, self.m = X, y, w, fold_masks
+
+    def accumulate(self, B, b0):
+        acc = self.zeros()
+        Bt = self.coef_t(B)
+        for x_blk, y_blk, w_blk, m_blk in _blocked(self.X, self.y, self.w,
+                                                   self.m, self.c):
+            self.add_block(acc, x_blk, y_blk, m_blk.T * w_blk[:, None],
+                           Bt, b0)
+        return acc
 
 
 def _fold_sel(F: int, Gn: int, device) -> torch.Tensor:
@@ -475,6 +503,89 @@ def sweep_glm_round(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return B[:, :d], b0, delta, i
 
 
+# -- tileplane row-source route (X streamed, never resident) ----------------
+
+def _source_prep_step(carry, xt, yt, wt, mt):
+    """The streamed prep pass's tile step: global-weight column moments by
+    an exact Chan merge of each tile's two-pass moments (one-pass E[x^2]
+    would cancel in f32 for large-mean columns) and the per-fold weight
+    sums. f32, as the reference's."""
+    cnt, mean, m2, wsum_f = carry
+    c_t = wt.sum()
+    safe = torch.clamp(c_t, min=EPS)
+    mean_t = (xt * wt[:, None]).sum(0) / safe
+    m2_t = (((xt - mean_t[None, :]) ** 2) * wt[:, None]).sum(0)
+    n = cnt + c_t
+    nsafe = torch.clamp(n, min=EPS)
+    delta = mean_t - mean
+    return (n, mean + delta * (c_t / nsafe),
+            m2 + m2_t + delta * delta * (cnt * c_t / nsafe),
+            wsum_f + (mt * wt[:, None]).sum(0))
+
+
+def _source_prep(source, d: int, F: int, standardize: bool, tile_rows: int,
+                 prefetch: int, dev: torch.device):
+    """ONE streamed pass before round 0: (mean, std) of the standardization
+    (None, None without it) and the per-fold weight sums [F] in float64 on
+    the host. The resident route takes these from the resident arrays;
+    here they are pass-invariant, so one extra read of the stream
+    hoists them out of every round."""
+    from ..parallel import tileplane as TP
+
+    f32 = torch.float32
+    prep0 = (torch.zeros((), dtype=f32, device=dev),
+             torch.zeros(d, dtype=f32, device=dev),
+             torch.zeros(d, dtype=f32, device=dev),
+             torch.zeros(F, dtype=f32, device=dev))
+    (cnt, mu, m2, wsum_f), _ = TP.run_tileplane(
+        source, _source_prep_step, prep0, tile_rows=tile_rows,
+        label="glm_prep", prefetch=prefetch, device=dev)
+    wsum_f_h = np.maximum(wsum_f.cpu().numpy().astype(np.float64), EPS)
+    if not standardize:
+        return None, None, wsum_f_h
+    var = torch.clamp(m2 / torch.clamp(cnt, min=EPS), min=EPS)
+    return mu, torch.sqrt(var), wsum_f_h
+
+
+def _source_round(source, sel, l1, l2, B0, b00, mean, std, budget: int,
+                  tol: float, wsum_f_h, *, loss: str, fit_intercept: bool,
+                  tile_rows: int, prefetch: int):
+    """One retirement round over a row source: each Newton iteration is
+    one double-buffered pass of the source accumulating every lane's
+    gradient and Hessian (the resident scan's block step, `_Lanes.
+    add_block`, on each tile) and one update, with the resident round's
+    early exit. Returns (B [Lb, d], b0 [Lb], delta [Lb], iters)."""
+    from ..parallel import tileplane as TP
+
+    dev = sel.device
+    d = B0.shape[1]
+    wsum_f = torch.as_tensor(wsum_f_h.astype(np.float32), device=dev)
+    lanes = _Lanes(d, tile_rows, sel, mean, std, loss, wsum_f)
+    c = lanes.c
+    B = Fn.pad(B0, (0, lanes.d_work - d))
+    b0 = b00
+    delta = torch.full((sel.shape[1],), float("inf"), dtype=torch.float32,
+                       device=dev)
+    i = 0
+    while i < int(budget):
+        Bt = lanes.coef_t(B)
+
+        def step(acc, xt, yt, wt, mt, Bt=Bt, b0=b0):
+            for s in range(0, xt.shape[0], c):
+                lanes.add_block(acc, xt[s:s + c], yt[s:s + c],
+                                mt[s:s + c] * wt[s:s + c, None], Bt, b0)
+            return acc
+
+        acc, _ = TP.run_tileplane(source, step, lanes.zeros(),
+                                  tile_rows=tile_rows, label="glm_round",
+                                  prefetch=prefetch, device=dev)
+        B, b0, delta = lanes.update(B, b0, acc, l1, l2, fit_intercept)
+        i += 1
+        if float(delta.max()) <= float(tol):   # the iteration's one fetch
+            break
+    return B[:, :d], b0, delta, i
+
+
 def _new_round_state(L: int, d: int) -> Dict[str, Any]:
     return {"B": np.zeros((L, d), np.float32),
             "b0": np.zeros(L, np.float32),
@@ -495,7 +606,8 @@ def sweep_glm_streamed_rounds(X, y, w, fold_masks, regs, alphas, *,
                               warm_start: bool = True,
                               warm_seed: Optional[Tuple] = None,
                               state: Optional[Dict[str, Any]] = None,
-                              on_round: Optional[Callable] = None
+                              on_round: Optional[Callable] = None,
+                              device=None
                               ) -> Tuple[np.ndarray, np.ndarray,
                                          Dict[str, Any]]:
     """Host-driven convergence-aware streamed sweep for the IRLS losses.
@@ -509,34 +621,53 @@ def sweep_glm_streamed_rounds(X, y, w, fold_masks, regs, alphas, *,
     from it; TMOG_GLM_WARMSTART=0 disables.
 
     X [n, d], y [n], w [n] and fold_masks [F, n] are tensors on one
-    device. `state`/`on_round` are the round-granular checkpoint hooks
-    (automl/tuning/checkpoint.RoundCheckpoint): `on_round(state)` fires
-    after every retirement boundary with the full resumable state dict,
-    and passing that dict back as `state` resumes bit-identically.
-    `mesh` (row-sharded sweeps), a tileplane row source as X and
-    `warm_seed` (the retrain refit's across-time seed) are not ported and
-    raise.
+    device — OR X is a `parallel.tileplane.RowSource` whose chunks yield
+    (x [c, d], y [c], w [c], fold_masks [c, F]), with y / w / fold_masks
+    None: then one prep pass streams the standardization moments and the
+    fold weight sums, and every Newton iteration of every round streams
+    the source's tiles onto `device` (None: CUDA) through the
+    double-buffered tileplane (info["driver"] == "tileplane"), so X is
+    never resident. `state`/`on_round` are the round-granular checkpoint
+    hooks (automl/tuning/checkpoint.RoundCheckpoint): `on_round(state)`
+    fires after every retirement boundary with the full resumable state
+    dict, and passing that dict back as `state` resumes bit-identically.
+    `mesh` (row-sharded sweeps) and `warm_seed` (the retrain refit's
+    across-time seed) are not ported and raise.
 
     Returns (B [F, G, d] f32 RAW units, b0 [F, G], info) where info holds
     the convergence telemetry (glm_rounds, data_passes, lane_passes,
     lanes_retired, active_per_round, iters_per_round, bucket_sizes — the
     lanes each round actually ran)."""
+    from ..parallel import tileplane as TP
+
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded GLM sweeps are not ported: the port runs on one "
-            "device")
+        raise TP._not_ported("a mesh-sharded GLM sweep (mesh=)")
     if warm_seed is not None:
         raise NotImplementedError(
             "warm_seed (the retrain refit's across-time seed) is not ported")
-    if not isinstance(X, torch.Tensor):
-        raise TypeError(
-            "X must be a tensor: the tileplane RowSource driver is not "
-            f"ported (got {type(X).__name__})")
-    dev = X.device
+
+    src_mode = isinstance(X, TP.RowSource)
+    if src_mode:
+        if any(a is not None for a in (y, w, fold_masks)):
+            raise ValueError("with a RowSource, y/w/fold_masks ride the "
+                             "source chunks — pass them as None")
+        from ..device import resolve_device
+        dev = resolve_device(device)
+        probe = X.peek()
+        d = int(probe[0].shape[1])
+        F = int(probe[3].shape[1])
+        tile_rows = TP.tile_rows_for(4 * (d + F + 2), X.n_rows)
+        # one ring depth for the whole sweep (prep pass + every round)
+        prefetch = TP.tile_prefetch_depth()
+    elif not isinstance(X, torch.Tensor):
+        raise TypeError("X must be a tensor or a tileplane RowSource "
+                        f"(got {type(X).__name__})")
+    else:
+        dev = X.device
+        F = int(fold_masks.shape[0])
+        d = int(X.shape[1])
     regs = np.asarray(regs, np.float32)
     alphas = np.asarray(alphas, np.float32)
-    F = int(fold_masks.shape[0])
-    d = int(X.shape[1])
     Gn = int(regs.shape[0])
     L = F * Gn
     K = int(round_iters if round_iters is not None
@@ -545,7 +676,11 @@ def sweep_glm_streamed_rounds(X, y, w, fold_masks, regs, alphas, *,
     K = max(K, 1)
     max_iter = int(max_iter)
     tol_f = float(tol)
-    mean, std = _stats(X, w, standardize)
+    if src_mode:
+        mean, std, wsum_f_h = _source_prep(X, d, F, standardize, tile_rows,
+                                           prefetch, dev)
+    else:
+        mean, std = _stats(X, w, standardize)
 
     lane_fold = np.repeat(np.arange(F, dtype=np.int64), Gn)
     l1v = np.tile(regs * alphas, F).astype(np.float32)
@@ -559,10 +694,16 @@ def sweep_glm_streamed_rounds(X, y, w, fold_masks, regs, alphas, *,
         k = len(idx)
         sel = np.zeros((F, k), np.float32)
         sel[lane_fold[idx], np.arange(k)] = 1.0
-        Bb, b0b, db, it = sweep_glm_round(
-            X, y, w, fold_masks, put(sel), put(l1v[idx]), put(l2v[idx]),
-            put(st["B"][idx]), put(st["b0"][idx]), mean, std, budget, tol_f,
-            loss=loss, fit_intercept=fit_intercept)
+        args = (put(sel), put(l1v[idx]), put(l2v[idx]), put(st["B"][idx]),
+                put(st["b0"][idx]), mean, std, budget, tol_f)
+        if src_mode:
+            Bb, b0b, db, it = _source_round(
+                X, *args, wsum_f_h, loss=loss, fit_intercept=fit_intercept,
+                tile_rows=tile_rows, prefetch=prefetch)
+        else:
+            Bb, b0b, db, it = sweep_glm_round(
+                X, y, w, fold_masks, *args, loss=loss,
+                fit_intercept=fit_intercept)
         st["B"][idx] = Bb.cpu().numpy()
         st["b0"][idx] = b0b.cpu().numpy()
         st["delta"][idx] = db.cpu().numpy()
@@ -617,7 +758,8 @@ def sweep_glm_streamed_rounds(X, y, w, fold_masks, regs, alphas, *,
         std_h = np.ones(d, np.float32)
     B = st["B"] / std_h[None, :]
     b0 = st["b0"] - (B * mean_h[None, :]).sum(1, dtype=np.float32)
-    info = {"route": "streamed", "kernel": "rounds", "driver": "resident",
+    info = {"route": "streamed", "kernel": "rounds",
+            "driver": "tileplane" if src_mode else "resident",
             "glm_rounds": int(st["rounds"]),
             "data_passes": int(st["data_passes"]),
             "lane_passes": int(st["lane_passes"]),

@@ -29,15 +29,19 @@ Two drivers, routed by `run_stats`:
 
 - `fused_stats` — the matrix on the device in one piece (or already
   there), one loop over row tiles with the state merged on the device;
-- `stream_stats` — host matrices larger than `STREAM_THRESHOLD_BYTES`
-  move to the device one tile of `STREAM_TILE_ROWS` rows at a time; each
-  tile's state is fetched and Chan-merged on the host in float64
-  (`_merge_states_host`), so the matrix never lies on the device whole.
+- `stream_stats` — a host matrix larger than `STREAM_THRESHOLD_BYTES`, or
+  a `parallel.tileplane.RowSource` whose chunks yield (x, y, w) (the
+  CSV / Avro readers through parallel/ingest.py), flows through the
+  double-buffered tileplane in fixed tiles: each tile's state is merged
+  in float64 into a carry that stays on the device and is fetched once
+  at the end, so the matrix never lies on the device, or for a source
+  anywhere, whole. `TMOG_TILEPLANE=0` runs the same tiles and the same
+  merges on the caller's thread, with the same bits.
 
 `rank_matrices` is Spearman's rank pre-pass (tie-aware average ranks,
 the label re-ranked within each column's valid rows), fed back through the
-same moment engine. Not ported: the mesh-sharded driver, the tileplane
-row sources and the multi-pass legacy route.
+same moment engine. Not ported: the mesh-sharded driver and the
+multi-pass legacy route.
 """
 from __future__ import annotations
 
@@ -63,12 +67,16 @@ GRAM_MAX_D = 1024
 # A host matrix larger than this takes the streamed driver (4 GiB).
 STREAM_THRESHOLD_BYTES = 4096 << 20
 
-# Rows per streamed tile (the JAX package's hand default; its planner,
-# which may move it from measurements, is not ported).
+# Rows per streamed tile of a host matrix (the JAX package's hand default;
+# its planner, which may move it from measurements, is not ported).
 STREAM_TILE_ROWS = 1 << 18
 
 # route, rows, columns, tiles and wall seconds of the last run_stats pass
 last_pass: Dict[str, Any] = {}
+
+# the last streamed pass's pipeline stats (parallel.tileplane.
+# TilePlaneStats: rows, tiles, peak host rows, copy/compute seconds)
+_last_stream_stats = None
 
 
 def stats_row_block(d: int, n: int) -> int:
@@ -242,41 +250,10 @@ def _merge_states(a: _State, b: _State) -> _State:
         cont=add(a.cont, b.cont), hist=add(a.hist, b.hist))
 
 
-def _merge_states_host(a: _State, b: _State) -> _State:
-    """Host-side f64 Chan merge of two fetched states (streamed driver):
-    the same arithmetic as _merge_states, in numpy."""
-    f8 = np.float64
-
-    def arr(x):
-        return np.asarray(x, f8)
-
-    nA, nB = arr(a.cnt), arr(b.cnt)
-    n = nA + nB
-    safe = np.maximum(n, EPS)
-    dxm = arr(b.mean) - arr(a.mean)
-    dym = arr(b.ymean) - arr(a.ymean)
-    cross = nA * nB / safe
-    lA, lB = float(a.ycnt), float(b.ycnt)
-    ln = lA + lB
-    lsafe = max(ln, EPS)
-    ldm = float(b.lmean) - float(a.lmean)
-    opt = {k: (None if getattr(a, k) is None
-               else arr(getattr(a, k)) + arr(getattr(b, k)))
-           for k in ("gzz", "gzv", "gvv", "cont", "hist")}
-    return _State(
-        wsum=float(a.wsum) + float(b.wsum), cnt=n,
-        mean=arr(a.mean) + dxm * (nB / safe),
-        m2=arr(a.m2) + arr(b.m2) + dxm * dxm * cross,
-        cy=arr(a.cy) + arr(b.cy) + dxm * dym * cross,
-        ymean=arr(a.ymean) + dym * (nB / safe),
-        ym2=arr(a.ym2) + arr(b.ym2) + dym * dym * cross,
-        minv=np.minimum(arr(a.minv), arr(b.minv)),
-        maxv=np.maximum(arr(a.maxv), arr(b.maxv)),
-        nnz=arr(a.nnz) + arr(b.nnz), ycnt=ln,
-        lmean=float(a.lmean) + ldm * lB / lsafe,
-        lm2=float(a.lm2) + float(b.lm2) + ldm * ldm * lA * lB / lsafe,
-        lmin=min(float(a.lmin), float(b.lmin)),
-        lmax=max(float(a.lmax), float(b.lmax)), **opt)
+def _f64(st: _State) -> _State:
+    """A device state in float64: the streamed carry's precision."""
+    return _State(*[None if x is None else x.to(torch.float64)
+                    for x in st])
 
 
 def _fetch_state(st: _State) -> _State:
@@ -352,34 +329,74 @@ def fused_stats(X, y, w=None, *, distinct=None, clip=None, lo=None,
                        corr_matrix=corr_matrix, shift=shift), shift
 
 
-def stream_stats(X: np.ndarray, y: np.ndarray, w=None, *,
-                 tile_rows: Optional[int] = None, distinct=None, clip=None,
-                 lo=None, hi=None, bins: int = 0, corr_matrix: bool = False,
-                 device: DeviceLike = None) -> Tuple[_State, np.ndarray]:
-    """Streamed driver for host matrices: one tile of `tile_rows` rows on
-    the device at a time, each tile's state fetched and merged on the host
-    in float64. The Gram shift comes from the first tile. Still exactly one
-    read of every row of X. Returns (merged host state, shift)."""
-    dev = resolve_device(device)
+def _stream_source(X, y, w, tile_rows: Optional[int]):
+    """(source, tile_rows, d) for the streamed driver. X is a
+    parallel.tileplane.RowSource yielding (x, y, w) chunks (y and w then
+    None) or a host matrix with its y and w arrays."""
+    from ..parallel import tileplane as TP
+
+    if isinstance(X, TP.RowSource):
+        if y is not None or w is not None:
+            raise ValueError("pass y/w inside the RowSource chunks")
+        d = int(X.peek()[0].shape[1])
+        c = int(tile_rows) if tile_rows else TP.tile_rows_for(4 * d,
+                                                              X.n_rows)
+        return X, c, d
+    X = np.asarray(X)
     n, d = X.shape
+    w = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
+    c = int(tile_rows or min(STREAM_TILE_ROWS, max(n, 1)))
+    return TP.ArraySource(X, np.asarray(y, np.float32), w,
+                          chunk_rows=c), c, d
+
+
+def stream_stats(X, y=None, w=None, *, tile_rows: Optional[int] = None,
+                 distinct=None, clip=None, lo=None, hi=None, bins: int = 0,
+                 corr_matrix: bool = False, mesh=None,
+                 prefetch: Optional[int] = None,
+                 device: DeviceLike = None) -> Tuple[_State, np.ndarray]:
+    """Streamed driver for data larger than the device's memory.
+
+    X is a host matrix (with y and w arrays) or a `tileplane.RowSource`
+    whose chunks yield (x, y, w), so the matrix need never materialize
+    anywhere. Fixed tiles flow through the double-buffered tileplane onto
+    `device` (None: CUDA): the producer lands tile k+1 while the device
+    folds tile k into the carry, whose state is merged in float64 and
+    fetched once at the end. The Gram shift comes from the first tile, on
+    the device. Exactly one read of every row per pass; `prefetch` is the
+    ring depth (bit-identical at any depth and under TMOG_TILEPLANE=0).
+    `mesh` (the JAX package's sharded tile lane) is not ported. Returns
+    (merged host state in float64, shift)."""
+    from ..parallel import tileplane as TP
+
+    global _last_stream_stats
+    if mesh is not None:
+        raise TP._not_ported("the mesh-sharded streamed statistics pass")
+    dev = resolve_device(device)
+    source, c, d = _stream_source(X, y, w, tile_rows)
     if corr_matrix and d > GRAM_MAX_D:
         raise ValueError(f"corr_matrix capped at {GRAM_MAX_D} columns")
-    c = int(tile_rows or min(STREAM_TILE_ROWS, max(n, 1)))
     hist_range = _hist_range(lo, hi, bins, dev)
-    w = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
     distinct, clip = _extras(distinct, clip, dev)
-    merged, shift = None, None
-    for a in range(0, n, c):
-        xt = to_device(X[a:a + c], dev, label="stats tile")
-        yt = torch.as_tensor(np.asarray(y[a:a + c], np.float32), device=dev)
-        wt = torch.as_tensor(w[a:a + c], device=dev)
-        if shift is None:
-            shift = _first_tile_shift(xt, wt, xt.shape[0])
-        st = _fetch_state(_scan_state(
-            xt, yt, wt, distinct, clip, hist_range, bins=bins,
-            corr_matrix=corr_matrix, shift=shift))
-        merged = st if merged is None else _merge_states_host(merged, st)
-    return merged, shift.cpu().numpy()
+
+    def first_tile(carry, xt, yt, wt):
+        return carry[0], _first_tile_shift(xt, wt, xt.shape[0])
+
+    def step(carry, xt, yt, wt):
+        st, shift = carry
+        ts = _f64(_scan_state(xt, yt, wt, distinct, clip, hist_range,
+                              bins=bins, corr_matrix=corr_matrix,
+                              shift=shift))
+        return (ts if st is None else _merge_states(st, ts)), shift
+
+    (st, shift), ps = TP.run_tileplane(
+        source, step, (None, None), tile_rows=c, label="stats",
+        first_tile=first_tile, prefetch=prefetch, device=dev)
+    _last_stream_stats = ps
+    if st is None:
+        raise ValueError("empty row source")
+    # the ONE fetch of the pass
+    return _fetch_state(st), shift.cpu().numpy()
 
 
 def _finalize(st: _State, shift, bins: int = 0) -> FusedStats:
@@ -439,17 +456,28 @@ def stats_pass_bytes(n: int, d: int, *, itemsize: int = 4,
 _seen_shapes: set = set()
 
 
-def run_stats(X, y, w=None, *, distinct=None, clip=None, lo=None,
+def run_stats(X, y=None, w=None, *, distinct=None, clip=None, lo=None,
               hi=None, bins: int = 0, corr_matrix: bool = False,
               driver: Optional[str] = None, tile_rows: Optional[int] = None,
+              mesh=None, label: str = "stats",
               device: DeviceLike = None) -> FusedStats:
     """One engine pass, finalized. `driver` in {"fused", "streamed"}
-    forces a route; otherwise a host matrix larger than
-    STREAM_THRESHOLD_BYTES streams and everything else takes the fused
-    route. (lo, hi, bins) adds each column's fixed-range histogram
-    (`FusedStats.hist`). The route, shape and wall of the pass land in
-    `last_pass`."""
-    n, d = X.shape
+    forces a route; otherwise a `tileplane.RowSource` (chunks of (x, y,
+    w)) or a host matrix larger than STREAM_THRESHOLD_BYTES streams and
+    everything else takes the fused route. (lo, hi, bins) adds each
+    column's fixed-range histogram (`FusedStats.hist`). The route, shape
+    and wall of the pass land in `last_pass`; a streamed pass's pipeline
+    stats in `_last_stream_stats`. `mesh` is not ported."""
+    from ..parallel.tileplane import RowSource, _not_ported
+
+    if mesh is not None:
+        raise _not_ported("the mesh-sharded statistics pass")
+    src_mode = isinstance(X, RowSource)
+    if src_mode:
+        driver, y2d = "streamed", False
+    else:
+        n, d = X.shape
+        y2d = getattr(y, "ndim", 1) == 2
     if driver is None:
         driver = ("streamed" if isinstance(X, np.ndarray)
                   and X.nbytes > STREAM_THRESHOLD_BYTES else "fused")
@@ -458,27 +486,27 @@ def run_stats(X, y, w=None, *, distinct=None, clip=None, lo=None,
               corr_matrix=corr_matrix, device=dev)
     t0 = time.perf_counter()
     if driver == "streamed":
-        st, shift = stream_stats(np.asarray(X), np.asarray(y), w,
-                                 tile_rows=tile_rows, **kw)
-        c = int(tile_rows or min(STREAM_TILE_ROWS, max(n, 1)))
+        st, shift = stream_stats(X, None if src_mode else np.asarray(y),
+                                 w, tile_rows=tile_rows, **kw)
+        ps = _last_stream_stats
+        n, d, tiles = ps.rows, int(np.asarray(st.cnt).shape[0]), ps.tiles
     elif driver == "fused":
         st, shift = fused_stats(X, y, w, **kw)
-        c = stats_row_block(d, n)
+        tiles = -(-n // stats_row_block(d, n))
     else:
         raise ValueError(f"unknown statistics driver {driver!r}")
     out = _finalize(st, shift, int(bins))
     wall = time.perf_counter() - t0
     last_pass.clear()
     last_pass.update(driver=driver, rows=int(n), cols=int(d),
-                     tiles=-(-n // c), seconds=wall)
-    y2d = getattr(y, "ndim", 1) == 2
+                     tiles=int(tiles), seconds=wall)
     key = (driver, n, d, int(bins), corr_matrix, distinct is not None, y2d)
     collector.stats_pass(driver=driver, rows=int(n), cols=int(d),
-                         tiles=-(-n // c),
+                         tiles=int(tiles),
                          bytes_hbm=float(stats_pass_bytes(
                              n, d, y2d=y2d, weighted=w is not None)),
                          wall_seconds=wall, cold=key not in _seen_shapes,
-                         device=dev)
+                         label=label, device=dev)
     _seen_shapes.add(key)
     return out
 

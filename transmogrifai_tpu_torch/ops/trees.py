@@ -1,6 +1,9 @@
 """Histogram trees in PyTorch (counterpart of ops/trees.py).
 
-Quantile binning with a dedicated missing bin, and one level-wise grower,
+Quantile binning with a dedicated missing bin (resident: `quantile_edges`,
+`bin_matrix`; streamed from a tileplane RowSource larger than the device's
+memory: `stream_quantile_edges`, `stream_bin_matrix`, the same binning
+rule `_bin_block`), and one level-wise grower,
 `_grow_tree_folds`, which grows one tree per lane over ONE binned matrix;
 every tree family is a caller of it: the fold-fused boosted fit
 `fit_gbt_folds` (XGBoost, Spark GBT; `fit_gbt` is its one-lane form), the
@@ -111,25 +114,160 @@ def bin_matrix(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     while x < edge; a NaN edge sorts last), so both packages bin every
     value alike even where edges repeat."""
     N, d = X.shape
-    E = edges.shape[1]
-    out = torch.empty((N, d), dtype=bin_dtype(E + 1), device=X.device)
-    levels = math.ceil(math.log2(E + 1))
+    out = torch.empty((N, d), dtype=bin_dtype(edges.shape[1] + 1),
+                      device=X.device)
     edges_t = edges.T.contiguous()                            # [E, d]
-    nan_edge = torch.isnan(edges_t)
     for r0 in range(0, N, _BIN_CHUNK):
-        x = X[r0:r0 + _BIN_CHUNK].to(torch.float32)
-        missing = torch.isnan(x)
-        x = torch.where(missing, -math.inf, x)
-        low = torch.zeros(x.shape, dtype=torch.long, device=X.device)
-        high = torch.full(x.shape, E, dtype=torch.long, device=X.device)
-        for _ in range(levels):
-            mid = torch.clamp((low + high) // 2, max=E - 1)
-            left = (x < torch.gather(edges_t, 0, mid)) \
-                | torch.gather(nan_edge, 0, mid)
-            low = torch.where(left, low, mid)
-            high = torch.where(left, mid, high)
-        out[r0:r0 + _BIN_CHUNK] = torch.where(missing, 0, high + 1)
+        out[r0:r0 + _BIN_CHUNK] = _bin_block(X[r0:r0 + _BIN_CHUNK],
+                                             edges_t)
     return out
+
+
+def _bin_block(xb: torch.Tensor, edges_t: torch.Tensor) -> torch.Tensor:
+    """THE binning rule for one row block ([c, d] against edges_t [E, d]):
+    the resident `bin_matrix` and the streamed `stream_bin_matrix` share
+    it, so the two cannot drift. Returns int64 bins in [0, E + 1]."""
+    E = edges_t.shape[0]
+    levels = math.ceil(math.log2(E + 1))
+    nan_edge = torch.isnan(edges_t)
+    x = xb.to(torch.float32)
+    missing = torch.isnan(x)
+    x = torch.where(missing, -math.inf, x)
+    low = torch.zeros(x.shape, dtype=torch.long, device=x.device)
+    high = torch.full(x.shape, E, dtype=torch.long, device=x.device)
+    for _ in range(levels):
+        mid = torch.clamp((low + high) // 2, max=E - 1)
+        left = (x < torch.gather(edges_t, 0, mid)) \
+            | torch.gather(nan_edge, 0, mid)
+        low = torch.where(left, low, mid)
+        high = torch.where(left, mid, high)
+    return torch.where(missing, 0, high + 1)
+
+
+# -- streamed binning (tileplane) --------------------------------------------
+
+def _x_source_with_dummies(source):
+    """An x-only RowSource as the (x, y, w) chunks the statistics engine's
+    streamed driver reads (zero labels, unit weights)."""
+    from ..parallel.tileplane import IterSource
+
+    def factory():
+        for chunk in source.chunks():
+            x = np.asarray(chunk[0], np.float32)
+            n = x.shape[0]
+            yield (x, np.zeros(n, np.float32), np.ones(n, np.float32))
+
+    return IterSource(factory, n_rows=source.n_rows)
+
+
+def stream_quantile_edges(source, n_bins: int, *, hist_bins: int = 1024,
+                          tile_rows: Optional[int] = None,
+                          prefetch: Optional[int] = None,
+                          device=None) -> np.ndarray:
+    """Per-feature quantile bin edges from a STREAMED source (chunks
+    whose first array is x [c, d]): the counterpart of `quantile_edges`
+    for data larger than the device's memory.
+
+    Two statistics-engine passes over the source through the tileplane
+    onto `device` (None: CUDA): per-column min / max, then fixed-range
+    `hist_bins` histograms between them; the edges are the inverse CDF of
+    each column's histogram, linear inside the crossing bin. An edge is
+    off by at most one histogram bin width. NaN rows are left out as in
+    the resident route; an all-NaN column gets NaN edges (every present
+    value bins to 1, and the column never wins a split), a constant
+    column repeated edges. Returns [d, n_bins - 1] float32."""
+    from . import stats_engine as SE
+
+    st, _ = SE.stream_stats(_x_source_with_dummies(source),
+                            tile_rows=tile_rows, prefetch=prefetch,
+                            device=device)
+    f8 = np.float64
+    cnt = np.asarray(st.cnt, f8)
+    lo = np.asarray(st.minv, f8)
+    hi = np.asarray(st.maxv, f8)
+    d = cnt.shape[0]
+    ok = cnt > 0
+    lo_r = np.where(ok, lo, 0.0).astype(np.float32)
+    hi_r = np.where(ok, hi, 1.0).astype(np.float32)
+    st2, _ = SE.stream_stats(_x_source_with_dummies(source),
+                             tile_rows=tile_rows, lo=lo_r, hi=hi_r,
+                             bins=int(hist_bins), prefetch=prefetch,
+                             device=device)
+    hist = np.asarray(st2.hist, f8).reshape(d, hist_bins + 1)[:, :hist_bins]
+
+    edges = np.full((d, n_bins - 1), np.nan, np.float32)
+    qs = np.arange(1, n_bins, dtype=f8) / n_bins
+    for j in range(d):
+        total = hist[j].sum()
+        if not ok[j] or total <= 0:
+            continue  # all-NaN column: NaN edges, like nanquantile
+        if hi[j] <= lo[j]:
+            edges[j] = lo[j]  # constant feature: repeated edges
+            continue
+        bounds = lo[j] + (hi[j] - lo[j]) \
+            * np.arange(1, hist_bins + 1, dtype=f8) / hist_bins
+        cum = np.cumsum(hist[j])
+        edges[j] = np.interp(qs * total,
+                             np.concatenate(([0.0], cum)),
+                             np.concatenate(([lo[j]], bounds))
+                             ).astype(np.float32)
+    return edges
+
+
+def stream_bin_matrix(source, edges, *, tile_rows: Optional[int] = None,
+                      sink=None, prefetch: Optional[int] = None,
+                      device=None):
+    """The binned matrix of a streamed source, tile by tile.
+
+    Each fixed tile runs `_bin_block`, the resident `bin_matrix` rule
+    (the same bins by construction), on `device` (None: CUDA) under the
+    double-buffered tileplane; the `bin_dtype` output tiles come back to
+    the host one tile late (the copy of tile k overlaps tile k+1's
+    binning) and go to `sink(np_tile, n_valid)` — or, without a sink,
+    into the [n, d] host matrix, written in place into one preallocated
+    array when the source knows its row count (at n * d bytes the one
+    artifact of the flow small enough to keep). Returns that matrix, or
+    None with a sink."""
+    from ..device import resolve_device
+    from ..parallel import tileplane as TP
+
+    dev = resolve_device(device)
+    edges_t = torch.tensor(np.asarray(edges, np.float32),
+                           device=dev).T.contiguous()
+    d = int(edges_t.shape[1])
+    c = int(tile_rows) if tile_rows else TP.tile_rows_for(4 * d,
+                                                          source.n_rows)
+    t_dtype = bin_dtype(int(edges_t.shape[0]) + 1)
+    out_dtype = torch.empty((), dtype=t_dtype).numpy().dtype
+    parts: list = []
+    full = None
+    cursor = 0
+    if sink is not None:
+        out_sink = sink
+    elif source.n_rows is not None:
+        # known row count: tiles go straight into the final [n, d] matrix
+        # (collecting then concatenating would double the peak)
+        full = np.empty((int(source.n_rows), d), out_dtype)
+
+        def out_sink(tile, n_valid):
+            nonlocal cursor
+            full[cursor:cursor + n_valid] = tile
+            cursor += n_valid
+    else:
+        def out_sink(tile, n_valid):  # unknown length: concat at the end
+            parts.append(tile)
+
+    def step(carry, xt):
+        return carry, _bin_block(xt, edges_t).to(t_dtype)
+
+    TP.run_tileplane(source, step, None, tile_rows=c, label="tree_bin",
+                     sink=out_sink, prefetch=prefetch, device=dev)
+    if sink is not None:
+        return None
+    if full is not None:
+        return full[:cursor]
+    return np.concatenate(parts, axis=0) if parts else \
+        np.zeros((0, d), out_dtype)
 
 
 def thresholds_to_values(feat: torch.Tensor, thresh: torch.Tensor,

@@ -13,7 +13,7 @@ feature from each record once (the JAX package calls the event-time
 function once per feature and record, and groups per feature); the joins
 number the keys with a dict instead of sorting the key strings. The
 datasets are the same: keys in first-seen order, the same rows, values and
-nulls. Not ported: the streaming readers (readers/streaming.py).
+nulls. The streaming micro-batch readers are in readers/streaming.py.
 """
 from __future__ import annotations
 

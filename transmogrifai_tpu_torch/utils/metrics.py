@@ -4,7 +4,10 @@ Reference: utils/.../spark/OpSparkListener.scala:56-164 — per-stage/job/app
 metrics collected by a listener, opt-in via OpParams.collectStageMetrics,
 surfaced at app end. Here: per-stage wall clock and row counts, the tree
 fits' kernel records with their analytic bytes, the GLM sweeps' round
-telemetry and the statistics passes.
+telemetry, the statistics passes and the sharded ingest's parse passes.
+The streamed data plane (parallel/tileplane.py, parallel/ingest.py) adds
+`tile_copy`, `tile_compute` and `tile_parse` spans (kind "tile") with
+`tile`, `rows` and `label` attributes, and a parse worker's `lane`.
 
 Collection is opt-in and process-local: `collector.enable()` (or
 `OpParams(collect_stage_metrics=True)` through the runner) turns it on;
@@ -142,6 +145,27 @@ class StatsPass:
     passes: int = 1
     label: str = "stats"
     cold: Optional[bool] = None
+
+    def to_json(self) -> Dict[str, Any]:
+        return dict(self.__dict__)
+
+
+@dataclass
+class IngestPass:
+    """One parse pass of the sharded ingest engine (parallel/ingest.py
+    ShardedSource): `workers` the parse workers the pass ran with (after
+    the min(workers, shards) clamp), `parse_seconds` the SUM of the
+    workers' decode time (above `wall_seconds` when the pool decoded in
+    parallel), `chunks` the columnar chunks reassembled in shard order.
+    Serial passes (workers <= 1) are recorded too."""
+
+    label: str
+    workers: int
+    shards: int
+    chunks: int
+    rows: int
+    parse_seconds: float
+    wall_seconds: float
 
     def to_json(self) -> Dict[str, Any]:
         return dict(self.__dict__)
@@ -315,6 +339,7 @@ class AppMetrics:
     kernel_metrics: List[KernelRoofline] = field(default_factory=list)
     sweep_metrics: List[SweepConvergence] = field(default_factory=list)
     stats_metrics: List[StatsPass] = field(default_factory=list)
+    ingest_metrics: List[IngestPass] = field(default_factory=list)
     latency_metrics: Dict[str, LatencyHistogram] = field(
         default_factory=dict)
 
@@ -326,7 +351,8 @@ class AppMetrics:
         return sum(m.wall_seconds for m in self.stage_metrics)
 
     def to_json(self) -> Dict[str, Any]:
-        """Empty kernel, sweep, stats and latency lists stay omitted."""
+        """Empty kernel, sweep, stats, ingest and latency lists stay
+        omitted."""
         out = {"app_name": self.app_name,
                "duration_seconds": self.duration_seconds,
                "total_stage_seconds": self.total_stage_seconds(),
@@ -340,6 +366,9 @@ class AppMetrics:
         if self.stats_metrics:
             out["stats_metrics"] = [m.to_json()
                                     for m in self.stats_metrics]
+        if self.ingest_metrics:
+            out["ingest_metrics"] = [m.to_json()
+                                     for m in self.ingest_metrics]
         if self.latency_metrics:
             out["latency_metrics"] = {k: h.to_json() for k, h
                                       in self.latency_metrics.items()}
@@ -584,6 +613,29 @@ class MetricsCollector:
                    cols=int(cols), tiles=int(tiles), passes=int(passes),
                    bytes_hbm=float(bytes_hbm),
                    wall_seconds=round(wall_seconds, 6), label=label)
+        return rec
+
+    def ingest_pass(self, label: str, workers: int, shards: int,
+                    chunks: int, rows: int, parse_seconds: float,
+                    wall_seconds: float) -> Optional[IngestPass]:
+        """Record one sharded-ingest parse pass (no-op unless enabled): an
+        IngestPass record ("ingest_metrics") and an `ingest_pass` event.
+        The per-chunk decode walls ride as `tile_parse` spans that the
+        parse workers add, one `lane` attribute a worker."""
+        with self._lock:
+            if not self.enabled:
+                return None
+            cur = self.current
+        rec = IngestPass(label=label, workers=int(workers),
+                         shards=int(shards), chunks=int(chunks),
+                         rows=int(rows),
+                         parse_seconds=round(parse_seconds, 6),
+                         wall_seconds=round(wall_seconds, 6))
+        cur.ingest_metrics.append(rec)
+        self.event("ingest_pass", label=label, workers=int(workers),
+                   shards=int(shards), chunks=int(chunks), rows=int(rows),
+                   parse_seconds=round(parse_seconds, 6),
+                   wall_seconds=round(wall_seconds, 6))
         return rec
 
     def latency(self, name: str, wall_seconds: float

@@ -15,8 +15,10 @@ traced by the run-metrics collector (utils/metrics.py) and writes
 `<run>_trace.json` (Chrome trace) and `events.jsonl` (the event log) into
 `dir`; `<run>_metrics.json` (the run's result) is written whenever
 `metrics_location` is set. `OpParams(debug_nans=True)` runs inside
-`utils.sanitizers.debug_nans()`. StreamingScore waits for the streaming
-reader, which is not ported.
+`utils.sanitizers.debug_nans()`. StreamingScore scores a streaming
+reader (readers/streaming.py) through the tileplane in fixed record tiles
+(`custom_params["score_tile_rows"]`; 0 = the per-record route) and
+appends one JSON line a record to `<write_location>/scores.jsonl`.
 """
 from __future__ import annotations
 
@@ -324,10 +326,33 @@ class OpWorkflowRunner:
 
     def _streaming_score(self, params: OpParams) -> ScoreResult:
         """Reference StreamingScore:232 — per-batch scoring over a
-        streaming reader, which the port does not have yet."""
-        raise NotImplementedError(
-            "StreamingScore: its reader (transmogrifai_tpu/readers/"
-            "streaming.py) is not ported to transmogrifai_tpu_torch yet")
+        StreamingReader (self.score_reader must be one)."""
+        from ..readers.streaming import StreamingReader, score_stream
+        if not isinstance(self.score_reader, StreamingReader):
+            raise ValueError("StreamingScore needs a StreamingReader as "
+                             "score_reader")
+        model = self._load_model(params)
+        loc = params.write_location
+        n = 0
+        out_f = None
+        if loc:
+            os.makedirs(loc, exist_ok=True)
+            out_f = open(os.path.join(loc, "scores.jsonl"), "a")
+        # custom_params["score_tile_rows"] overrides the fixed scoring
+        # tile (TMOG_SCORE_TILE_ROWS; 0 = the per-record route) per run
+        tile_rows = params.custom_params.get("score_tile_rows")
+        try:
+            for batch_scores in score_stream(model, self.score_reader,
+                                             tile_rows=tile_rows):
+                n += len(batch_scores)
+                if out_f is not None:
+                    for s in batch_scores:
+                        out_f.write(json.dumps(s, default=str) + "\n")
+        finally:
+            if out_f is not None:
+                out_f.close()
+        return ScoreResult(run_type=self.STREAMING_SCORE, n_rows=n,
+                           write_location=loc)
 
     def _features(self, params: OpParams) -> FeaturesResult:
         """Reference Features run type: computeDataUpTo(feature, path)."""
